@@ -1,11 +1,18 @@
-"""Multi-head self-attention, unfused reference path (port of
+"""Multi-head self-attention of the unfused score network (port of
 ``fourierdiffusion_tpu/models/attention.py``).
 
 Weights use the layout of ``nn.MultiheadAttention`` (``in_proj_weight``,
 ``in_proj_bias``, ``out_proj``). The scores and the softmax are fp32 and
-the products take the activation dtype. Written out in plain tensor
-operations; the fused sampling path runs the encoder-layer kernel
-(``ops/fused_encoder.py``) instead.
+the products take the activation dtype. Two routes share the weights, as
+in the JAX module:
+
+* on a CUDA tensor, when no gradient is needed, the attention forward
+  kernel (``ops/flash_attention.py``), as the JAX module takes its Pallas
+  kernel on the TPU: the validation loss and the unfused sampler;
+* otherwise ``dot_product_attention`` in plain tensor operations.
+
+The module draws no dropout: training runs the fused layer
+(``ops/fused_encoder_train.py``), which draws its own masks.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fourierdiffusion_tpu_torch.models.blocks import TorchLinear
+from fourierdiffusion_tpu_torch.ops.flash_attention import flash_attention
 
 
 def dot_product_attention(
@@ -54,7 +62,11 @@ class MultiHeadSelfAttention(nn.Module):
             t.reshape(b, l, self.n_head, dh).transpose(1, 2)
             for t in qkv.split(d, dim=-1)
         )
-        out = dot_product_attention(q, k, v)
+        needs_grad = torch.is_grad_enabled() and q.requires_grad
+        if x.device.type == "cuda" and not needs_grad:
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        else:
+            out = dot_product_attention(q, k, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
 
 

@@ -1,6 +1,6 @@
-"""Fused sampling-path forward of the transformer score network (port of
-``pack_score_transformer`` and ``fused_score_forward`` in
-``fourierdiffusion_tpu/models/fused.py``).
+"""Fused forwards of the transformer score network (port of
+``pack_score_transformer``, ``fused_score_forward`` and
+``fused_score_training_forward`` in ``fourierdiffusion_tpu/models/fused.py``).
 
 ``pack_score_transformer`` repacks a ``ScoreTransformer``'s weights once
 per sampling run: the positional embedding with its max-norm renorm
@@ -10,6 +10,13 @@ the encoder stack in ``ops.fused_encoder`` (one kernel launch per layer on
 the card). Activations stay ``(B, L, D)``: the TPU's transposed, lane-
 padded layout is not needed here. The small embed, time-embedding and
 unembed products stay ``torch.matmul``.
+
+``fused_score_training_forward`` is the training path: the same forward
+with dropout, each encoder layer through ``ops.fused_encoder_train`` (the
+kernels B3 and B4 on the card). Its packing is differentiable, so autograd
+carries the gradients of the packed weights (q-scale folded in, positional
+embedding renormalised with a detached scale) back to the module's
+parameters.
 """
 
 from __future__ import annotations
@@ -21,6 +28,11 @@ import torch
 from fourierdiffusion_tpu_torch.models.blocks import max_norm_renorm
 from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
 from fourierdiffusion_tpu_torch.ops.fused_encoder import fused_encoder, pack_encoder_layer
+from fourierdiffusion_tpu_torch.ops.fused_encoder_train import (
+    fused_encoder_layer_train,
+    fused_encoder_layer_train_reference,
+    pack_encoder_layer_train,
+)
 
 
 def pack_score_transformer(model: ScoreTransformer) -> dict:
@@ -55,15 +67,70 @@ def fused_score_forward(
     """Score for ``x`` ``(B, L, C)`` at times ``(B,)``, same shape and dtype
     as ``x``."""
     in_dtype = x.dtype
-    dtype = model.dtype
-    h = x.to(dtype) @ packed["embed_w"] + packed["embed_b"] + packed["pos"][None]
-    proj = timesteps[:, None].float() * packed["gfp_w"][None] * (2.0 * math.pi)
-    emb = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)[:, : model.d_model]
-    t_emb = emb.to(dtype) @ packed["gfp_dense_w"] + packed["gfp_dense_b"]
-    h = (h + t_emb[:, None, :]).contiguous()
+    h = _embed(model, packed, x, timesteps)
     h = fused_encoder(h, packed["layers"], n_head=model.n_head)
     score = h @ packed["unembed_w"] + packed["unembed_b"]
     return score.to(in_dtype)
 
 
-__all__ = ["fused_score_forward", "pack_score_transformer"]
+def _embed(model: ScoreTransformer, packed: dict, x: torch.Tensor, timesteps) -> torch.Tensor:
+    """Channel, positional and time embedding, ``(B, L, D)``."""
+    dtype = model.dtype
+    h = x.to(dtype) @ packed["embed_w"] + packed["embed_b"] + packed["pos"][None]
+    proj = timesteps[:, None].float() * packed["gfp_w"][None] * (2.0 * math.pi)
+    emb = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)[:, : model.d_model]
+    t_emb = emb.to(dtype) @ packed["gfp_dense_w"] + packed["gfp_dense_b"]
+    return (h + t_emb[:, None, :]).contiguous()
+
+
+def pack_score_transformer_train(model: ScoreTransformer) -> dict:
+    """``pack_score_transformer`` for training: fp32 (fp64 only for
+    reference computations with ``plain=True``), with differentiable
+    operations (no ``no_grad``, no ``detach``), so gradients reach the
+    parameters; the positional max-norm scale is detached, as JAX's
+    ``stop_gradient``."""
+    if model.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the training path is fp32, not {model.dtype}")
+    pe = max_norm_renorm(model.pos_encoder.embedding.weight, math.sqrt(model.d_model))
+    return {
+        "embed_w": model.embedder.weight.t(),
+        "embed_b": model.embedder.bias,
+        "pos": pe[: model.max_len],
+        "gfp_w": model.time_encoder.W,
+        "gfp_dense_w": model.time_encoder.dense.weight.t(),
+        "gfp_dense_b": model.time_encoder.dense.bias,
+        "unembed_w": model.unembedder.weight.t(),
+        "unembed_b": model.unembedder.bias,
+        "layers": [
+            pack_encoder_layer_train(layer, model.n_head) for layer in model.backbone.layers
+        ],
+    }
+
+
+def fused_score_training_forward(
+    model: ScoreTransformer, x: torch.Tensor, timesteps: torch.Tensor,
+    layer_seeds: list[int], *, plain: bool = False,
+) -> torch.Tensor:
+    """Training forward with dropout at ``model.dropout_rate``: the score for
+    ``x`` ``(B, L, C)`` at times ``(B,)``, differentiable in the model's
+    parameters. ``layer_seeds`` holds one int32 dropout seed per layer (JAX
+    draws them as ``randint(fold_in(dropout_key, i), 0, 2**31 - 1)``).
+    ``plain=True`` runs each layer's plain version on any device (to check
+    the kernels against it on the card)."""
+    if len(layer_seeds) != model.num_layers:
+        raise ValueError(f"{len(layer_seeds)} layer seeds for {model.num_layers} layers")
+    packed = pack_score_transformer_train(model)
+    h = _embed(model, packed, x, timesteps)
+    layer_fn = fused_encoder_layer_train_reference if plain else fused_encoder_layer_train
+    for layer, seed in zip(packed["layers"], layer_seeds):
+        h = layer_fn(h, layer, int(seed), n_head=model.n_head, rate=float(model.dropout_rate))
+    score = h @ packed["unembed_w"] + packed["unembed_b"]
+    return score.to(x.dtype)
+
+
+__all__ = [
+    "fused_score_forward",
+    "fused_score_training_forward",
+    "pack_score_transformer",
+    "pack_score_transformer_train",
+]

@@ -34,6 +34,7 @@ class ScoreTransformer(nn.Module):
         num_layers: int = 10,
         n_head: int = 12,
         dim_feedforward: int = 2048,
+        dropout_rate: float = 0.0,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
@@ -43,6 +44,7 @@ class ScoreTransformer(nn.Module):
         self.num_layers = num_layers
         self.n_head = n_head
         self.dim_feedforward = dim_feedforward
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.embedder = TorchLinear(n_channels, d_model)
         self.pos_encoder = PositionalEncoding(d_model, max_len)
@@ -76,6 +78,7 @@ class ScoreModelConfig:
     num_layers: int = 10
     n_head: int = 12
     dim_feedforward: int = 2048
+    dropout_rate: float = 0.0
     dtype: str = "float32"
 
     def build(self, n_channels: int, max_len: int) -> ScoreTransformer:
@@ -88,6 +91,7 @@ class ScoreModelConfig:
             num_layers=self.num_layers,
             n_head=self.n_head,
             dim_feedforward=self.dim_feedforward,
+            dropout_rate=self.dropout_rate,
             dtype=getattr(torch, self.dtype),
         )
 

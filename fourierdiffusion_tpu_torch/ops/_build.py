@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 one ``nvcc`` call of a few seconds builds it into a shared library. The
 library is written to ``fourierdiffusion_tpu_torch/_build/`` under a name
-keyed by a hash of the source and the flags, so a second run reuses it.
+keyed by a hash of the source, the headers it may include (``csrc/*.cuh``)
+and the flags, so a second run reuses it.
 Nothing is built when a module is imported: ``load_library`` builds at
 first use, on the machine with the card.
 """
@@ -42,8 +43,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the shared
+    headers and the flags."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    source += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,0 +1,8 @@
+from fourierdiffusion_tpu_torch.training.optim import (
+    AdamW,
+    cosine_warmup_schedule,
+    make_optimizer,
+)
+from fourierdiffusion_tpu_torch.training.trainer import Trainer
+
+__all__ = ["AdamW", "Trainer", "cosine_warmup_schedule", "make_optimizer"]

@@ -1,0 +1,289 @@
+"""Training loop (port of ``fourierdiffusion_tpu/training/trainer.py``).
+
+``Trainer.fit(datamodule)`` trains a ``ScoreTransformer`` in place:
+
+* each epoch draws a wrap-around permutation of the training split
+  (``ceil(n / B)`` steps of ``B`` series);
+* each step draws ``t``, ``z`` and one dropout seed per layer, takes the
+  DSM loss through ``fused_score_training_forward`` (on the card every
+  layer runs the training kernels B3 forward and B4 backward), clips the
+  gradient to global norm ``gradient_clip_val`` and applies AdamW with the
+  warmup-cosine schedule (``training/optim.py``), then the EMA;
+* after each epoch the validation loss is the mean over ``val_noise_draws``
+  fixed draws of ``(t, z)``, drawn once per ``fit`` and reused every epoch,
+  of the loss over the batches ``arange(ceil(n / B) * B) % n``, computed by
+  the module's own forward with the EMA weights when EMA is on (on the card
+  its attention runs the kernel B2);
+* the loss-spike rollback guard of the JAX trainer: when an epoch's train
+  loss is not finite or exceeds ``spike_rollback_factor`` times the median
+  of the last (up to 10) epochs, with at least 5 recorded, the state
+  rewinds to the older of two snapshots and training continues under a
+  perturbed random stream, at most ``spike_rollback_retries`` times.
+
+Random draws come from ``torch.Generator``s seeded with ``seed``; they
+differ from ``jax.random``'s, so the parity tests hand the JAX draws in
+through ``loss_and_grads``/``train_step``. Checkpoints, resume, callbacks,
+the device mesh, gradient accumulation and bf16 training are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import statistics
+import time
+from collections import deque
+
+import torch
+
+from fourierdiffusion_tpu_torch import resolve_device
+from fourierdiffusion_tpu_torch.data.batch import DiffusableBatch
+from fourierdiffusion_tpu_torch.data.datamodules import Datamodule
+from fourierdiffusion_tpu_torch.losses import draw_loss_noise, sde_loss
+from fourierdiffusion_tpu_torch.models.fused import fused_score_training_forward
+from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
+from fourierdiffusion_tpu_torch.schedulers.sde import SDE
+from fourierdiffusion_tpu_torch.training.optim import cosine_warmup_schedule, make_optimizer
+
+SEED_MAX = 2**31 - 1  # layer seeds are drawn from [0, SEED_MAX), as in JAX
+
+
+class Trainer:
+    """Fits a ``ScoreTransformer`` (moved to ``device``) on a datamodule.
+
+    ``plain=True`` runs each training layer's plain PyTorch version instead
+    of the kernels, with the same masks: a check of the kernels on the card.
+    """
+
+    def __init__(
+        self,
+        model: ScoreTransformer,
+        scheduler: SDE,
+        *,
+        max_epochs: int = 200,
+        lr_max: float = 1e-3,
+        gradient_clip_val: float = 1.0,
+        likelihood_weighting: bool = False,
+        seed: int = 42,
+        ema_decay: float = 0.0,
+        spike_rollback_factor: float = 2.5,
+        spike_rollback_retries: int = 2,
+        val_noise_draws: int = 4,
+        device: str | torch.device = "cuda",
+        plain: bool = False,
+    ) -> None:
+        if not isinstance(model, ScoreTransformer):
+            raise ValueError(f"only ScoreTransformer is ported, not {type(model).__name__}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.scheduler = scheduler
+        self.max_epochs = max_epochs
+        self.lr_max = lr_max
+        self.gradient_clip_val = gradient_clip_val
+        self.likelihood_weighting = likelihood_weighting
+        self.seed = seed
+        self.ema_decay = float(ema_decay)
+        self.spike_rollback_factor = float(spike_rollback_factor)
+        self.spike_rollback_retries = int(spike_rollback_retries)
+        self.val_noise_draws = max(1, int(val_noise_draws))
+        self.plain = plain
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        self.num_training_steps = 0
+        self.step = 0
+        self.optimizer = None
+        self.ema: dict[str, torch.Tensor] = {}
+        self.history: list[dict] = []
+
+    # -- one step ---------------------------------------------------------------
+    def start(self, num_training_steps: int) -> None:
+        """Fresh optimiser state, EMA and step count for a run of this length."""
+        self.num_training_steps = num_training_steps
+        self.optimizer = make_optimizer(
+            self.params, self.lr_max, num_training_steps,
+            gradient_clip_val=self.gradient_clip_val,
+        )
+        self.step = 0
+        self.ema = (
+            {n: p.detach().clone() for n, p in zip(self.names, self.params)}
+            if self.ema_decay > 0.0 else {}
+        )
+
+    def train_loss(
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+    ) -> torch.Tensor:
+        """DSM loss of one batch through the fused training forward."""
+
+        def score_fn(b: DiffusableBatch) -> torch.Tensor:
+            return fused_score_training_forward(
+                self.model, b.X, b.timesteps, layer_seeds, plain=self.plain
+            )
+
+        return sde_loss(
+            score_fn, self.scheduler, DiffusableBatch(X=x, timesteps=t), z=z,
+            likelihood_weighting=self.likelihood_weighting,
+        )
+
+    def loss_and_grads(
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        loss = self.train_loss(x, t, z, layer_seeds)
+        return loss.detach(), list(torch.autograd.grad(loss, self.params))
+
+    def train_step(
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+    ) -> torch.Tensor:
+        """Loss, gradients, clipped AdamW update and EMA; returns the loss."""
+        loss, grads = self.loss_and_grads(x, t, z, layer_seeds)
+        self.optimizer.step(grads)
+        if self.ema_decay > 0.0:
+            t_ema = float(self.step + 1)
+            d = min(self.ema_decay, (1.0 + t_ema) / (10.0 + t_ema))
+            with torch.no_grad():
+                for n, p in zip(self.names, self.params):
+                    self.ema[n].mul_(d).add_(p, alpha=1.0 - d)
+        self.step += 1
+        return loss
+
+    def eval_params(self) -> dict[str, torch.Tensor]:
+        """The weights validation uses: the EMA when it is on."""
+        if self.ema_decay > 0.0:
+            return dict(self.ema)
+        return {n: p.detach() for n, p in zip(self.names, self.params)}
+
+    @torch.no_grad()
+    def val_loss(self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """DSM loss of one batch through the module's forward, no dropout."""
+        state = {**self.eval_params(), **dict(self.model.named_buffers())}
+
+        def score_fn(b: DiffusableBatch) -> torch.Tensor:
+            return torch.func.functional_call(self.model, state, (b.X, b.timesteps))
+
+        return sde_loss(
+            score_fn, self.scheduler, DiffusableBatch(X=x, timesteps=t), z=z,
+            likelihood_weighting=self.likelihood_weighting,
+        )
+
+    # -- state snapshots for the rollback guard ------------------------------------------
+    def _snapshot(self) -> dict:
+        return {
+            "params": [p.detach().clone() for p in self.params],
+            "opt": self.optimizer.state_dict(),
+            "ema": {n: e.clone() for n, e in self.ema.items()},
+            "step": self.step,
+        }
+
+    @torch.no_grad()
+    def _restore(self, snap: dict) -> None:
+        for p, s in zip(self.params, snap["params"]):
+            p.copy_(s)
+        self.optimizer.load_state_dict(snap["opt"])
+        self.ema = {n: e.clone() for n, e in snap["ema"].items()}
+        self.step = snap["step"]
+
+    # -- fit ------------------------------------------------------------------------------
+    @staticmethod
+    def epoch_permutation(n: int, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """(steps, B) wrap-around permutation covering every sample."""
+        steps = -(-n // batch_size)
+        perm = torch.randperm(n, generator=generator)
+        pad = steps * batch_size - n
+        if pad:
+            perm = torch.cat([perm, perm[:pad]])
+        return perm.reshape(steps, batch_size)
+
+    @staticmethod
+    def val_batches(n: int, batch_size: int) -> torch.Tensor:
+        """Validation batches ``arange(ceil(n / B) * B) % n``, (steps, B)."""
+        return (torch.arange(-(-n // batch_size) * batch_size) % n).reshape(-1, batch_size)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, datamodule: Datamodule) -> list[dict]:
+        """Train for ``max_epochs``; returns the per-epoch metrics."""
+        x_train = datamodule.train_arrays().standardized().to(self.device)
+        x_val = datamodule.val_arrays().standardized().to(self.device)
+        n, bsz = x_train.shape[0], datamodule.batch_size
+        steps_per_epoch = datamodule.steps_per_epoch
+        self.start(steps_per_epoch * self.max_epochs)
+        schedule = cosine_warmup_schedule(self.lr_max, self.num_training_steps)
+
+        host_gen = torch.Generator().manual_seed(self.seed)
+        dev_gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        val_idx = self.val_batches(x_val.shape[0], bsz).to(self.device)
+        val_draws = [
+            [draw_loss_noise(self.scheduler, x_val[idx], dev_gen) for idx in val_idx]
+            for _ in range(self.val_noise_draws)
+        ]
+
+        history: list[dict] = []
+        guard_on = self.spike_rollback_factor > 0.0
+        snapshots: deque = deque(maxlen=2)
+        recent: deque = deque(maxlen=10)
+        stream_salt = rollbacks_used = 0
+        epoch = 0
+        while epoch < self.max_epochs:
+            # Each epoch's streams are set by (seed, epoch, salt), so a
+            # rewound epoch under a new salt sees fresh draws.
+            epoch_seed = self.seed + 1_000_003 * (epoch + 1) + 7_919 * stream_salt
+            host_gen.manual_seed(epoch_seed)
+            dev_gen.manual_seed(epoch_seed + 1)
+            perm = self.epoch_permutation(n, bsz, host_gen).to(self.device)
+            if guard_on:
+                snapshots.append((epoch, self._snapshot()))
+            t0 = time.perf_counter()
+            losses = []
+            for idx in perm:
+                x = x_train[idx]
+                t, z = draw_loss_noise(self.scheduler, x, dev_gen)
+                seeds = torch.randint(0, SEED_MAX, (self.model.num_layers,), generator=host_gen)
+                losses.append(self.train_step(x, t, z, seeds.tolist()))
+            train_loss = torch.stack(losses).mean().item()
+            self._sync()
+            train_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            val_loss = torch.stack([
+                torch.stack([
+                    self.val_loss(x_val[idx], t, z) for idx, (t, z) in zip(val_idx, draws)
+                ]).mean()
+                for draws in val_draws
+            ]).mean().item()
+            val_s = time.perf_counter() - t1
+            if (
+                guard_on
+                and len(recent) >= 5
+                and (
+                    not math.isfinite(train_loss)
+                    or train_loss > self.spike_rollback_factor * statistics.median(recent)
+                )
+            ):
+                if rollbacks_used < self.spike_rollback_retries:
+                    rollbacks_used += 1
+                    stream_salt += 1
+                    rewind_epoch, snap = snapshots.popleft()
+                    snapshots.clear()
+                    self._restore(snap)
+                    history = [h for h in history if h["epoch"] < rewind_epoch]
+                    epoch = rewind_epoch
+                    continue
+            recent.append(train_loss)
+            metrics = {
+                "train/loss": train_loss,
+                "val/loss": val_loss,
+                "lr": schedule(self.step),
+                "epoch": epoch,
+                "step": self.step,
+                "train_seconds": train_s,
+                "val_seconds": val_s,
+                "steps_per_sec": steps_per_epoch / train_s,
+            }
+            if stream_salt:
+                metrics["stream_salt"] = stream_salt
+            history.append(metrics)
+            epoch += 1
+        self.history = history
+        return history
+
+
+__all__ = ["SEED_MAX", "Trainer"]

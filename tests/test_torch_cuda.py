@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card: every test here is marked ``cuda``
-and skips where no CUDA device is present (the kernel has no CPU mode).
+"""The port's CUDA kernels on the card: every test here is marked ``cuda``
+and skips where no CUDA device is present (the kernels have no CPU mode).
 
 This file imports only ``torch`` and the port, so it runs on a machine
 without JAX. There, from the repository root::
@@ -8,9 +8,12 @@ without JAX. There, from the repository root::
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)
 
-Tolerances, as in ``chip_smoke.py``: the kernel against its plain version,
-1e-4 in fp32 (fp32 sums in other orders) and 2**-4 in bf16 (one flipped
-rounding of an intermediate moves an output by about one bf16 ulp).
+Tolerances, as in ``chip_smoke.py``: a kernel's output against its plain
+version, 1e-4 in fp32 (fp32 sums in other orders) and 2**-4 in bf16 (one
+flipped rounding of an intermediate moves an output by about one bf16 ulp);
+the training backward's gradients 1e-3 of each tensor's largest gradient
+(sums over up to 64 x 187 positions, in other orders); the dropout masks
+bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from fourierdiffusion_tpu_torch.models.fused import (
     pack_score_transformer,
 )
 from fourierdiffusion_tpu_torch.models.transformer import TransformerEncoderLayer
+from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
+from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-4}
 
@@ -82,3 +87,97 @@ def test_fused_forward_matches_unfused_module(cuda) -> None:
         fused = fused_score_forward(model, pack_score_transformer(model), x, t)
         plain = model(x, t)
     assert (fused - plain).abs().max().item() <= 1e-4
+
+
+SHAPES = [(5, 19, 24, 4, 64), (4, 100, 72, 12, 2048), (2, 187, 72, 12, 2048)]
+SHAPE_IDS = ["L19", "L100", "L187"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES, ids=SHAPE_IDS)
+def test_attention_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff) -> None:
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(b, n_head, l, d // n_head, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    before = fa.launches
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def _train_layer(d, n_head, d_ff, device):
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(d, n_head, d_ff).to(device)
+    return {k: t.detach().requires_grad_(True)
+            for k, t in fet.pack_encoder_layer_train(layer, n_head).items()}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES, ids=SHAPE_IDS)
+def test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff) -> None:
+    packed = _train_layer(d, n_head, d_ff, cuda)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, l, d, generator=g).to(cuda).requires_grad_(True)
+    dy = torch.randn(b, l, d, generator=g).to(cuda)
+    seed = 2**31 - 5
+    before = (fet.fwd_launches, fet.bwd_launches)
+    out = fet.fused_encoder_layer_train(x, packed, seed, n_head=n_head, rate=rate)
+    grads = torch.autograd.grad(out, [x, *packed.values()], dy)
+    torch.cuda.synchronize()
+    assert (fet.fwd_launches, fet.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = fet.fused_encoder_layer_train_reference(x, packed, seed, n_head=n_head, rate=rate)
+    ref_grads = torch.autograd.grad(ref, [x, *packed.values()], dy)
+    assert (out - ref).abs().max().item() <= 1e-4
+    for name, got, want in zip(["x", *packed], grads, ref_grads):
+        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
+        assert rel <= 1e-3, (name, rel)
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES, ids=SHAPE_IDS)
+def test_kernel_masks_are_bit_identical(cuda, b, l, d, n_head, d_ff) -> None:
+    args = (b, l, d, d_ff, n_head, 2**31 - 2, 0.1)
+    ours = fet.dropout_masks_cuda(*args, device=cuda)
+    ref = fet.dropout_masks(*args, device=cuda)
+    for key in ref:
+        assert torch.equal(ours[key], ref[key]), key
+
+
+def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
+    packed = _train_layer(24, 4, 64, cuda)
+    with pytest.raises(ValueError, match="fp32 only"):
+        fet.fused_encoder_layer_train(
+            torch.zeros(2, 19, 24, device=cuda, dtype=torch.bfloat16), packed, 1,
+            n_head=4, rate=0.1,
+        )
+    q = torch.zeros(1, 2, 5, 6, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 5, 6, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="B5"):
+        fa.flash_attention(q, q, q)
+
+
+def test_trainer_runs_every_layer_through_the_kernels(cuda) -> None:
+    from fourierdiffusion_tpu_torch.data import DummyDatamodule
+    from fourierdiffusion_tpu_torch.schedulers import VPScheduler
+    from fourierdiffusion_tpu_torch.training import Trainer
+
+    torch.manual_seed(3)
+    model = ScoreModelConfig(
+        d_model=24, n_head=4, num_layers=2, dim_feedforward=64, dropout_rate=0.1
+    ).build(2, 19)
+    dm = DummyDatamodule(batch_size=8, n_channels=2, max_len=19, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    trainer = Trainer(model, VPScheduler(), max_epochs=1, ema_decay=0.999, val_noise_draws=2,
+                      device=cuda)
+    fet.fwd_launches = fet.bwd_launches = fa.launches = 0
+    history = trainer.fit(dm)
+    steps = dm.steps_per_epoch
+    assert (fet.fwd_launches, fet.bwd_launches) == (steps * 2, steps * 2)
+    assert fa.launches == 2 * steps * 2  # draws x validation batches x layers
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert len(history) == 1 and history[0]["step"] == steps

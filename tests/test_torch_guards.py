@@ -4,8 +4,12 @@
   omegaconf or ``fourierdiffusion_tpu`` module: the machine with the card
   has none of them.
 * ``chip_smoke.py`` fails, and prints no result, where CUDA is absent.
-* A CPU tensor never reaches the kernel, and the public sampler's default
-  device is CUDA, which it does not trade for the CPU.
+* A CPU tensor never reaches a kernel, and the public sampler's and the
+  trainer's default device is CUDA, which they do not trade for the CPU.
+* The kernel wrappers check the dtype before they look at the device, hold
+  no ``try`` that could fall back to the plain version, and the attention
+  forward (B2) refuses to be differentiated (its backward, B5, is not
+  ported). The CUDA-tensor cases are in ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -21,9 +25,12 @@ import torch
 
 from fourierdiffusion_tpu_torch.models import ScoreModelConfig
 from fourierdiffusion_tpu_torch.models.transformer import TransformerEncoderLayer
+from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
+from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
 from fourierdiffusion_tpu_torch.sampling import DiffusionSampler
 from fourierdiffusion_tpu_torch.schedulers import VPScheduler
+from fourierdiffusion_tpu_torch.training import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "fourierdiffusion_tpu_torch"
@@ -111,3 +118,59 @@ def test_sampler_default_device_raises_without_cuda() -> None:
     model = ScoreModelConfig(d_model=24, n_head=4, num_layers=1, dim_feedforward=64).build(1, 19)
     with pytest.raises(RuntimeError, match="CUDA"):
         DiffusionSampler(model, VPScheduler(), max_len=19, n_channels=1)
+
+
+def test_trainer_default_device_raises_without_cuda() -> None:
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device is valid")
+    model = ScoreModelConfig(d_model=24, n_head=4, num_layers=1, dim_feedforward=64).build(1, 19)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, VPScheduler())
+
+
+@pytest.mark.parametrize(
+    "module", [fa, fe, fet], ids=["flash_attention", "fused_encoder", "fused_encoder_train"]
+)
+def test_kernel_wrappers_hold_no_fallback(module) -> None:
+    tree = ast.parse(Path(module.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_wrappers_check_dtype_before_device() -> None:
+    layer = TransformerEncoderLayer(24, 4, 64)
+    packed = fet.pack_encoder_layer_train(layer, 4)
+    x = torch.zeros(2, 19, 24, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="fp32 only"):
+        fet.fused_encoder_layer_train(x, packed, 1, n_head=4, rate=0.1)
+    q = torch.zeros(1, 2, 5, 6, dtype=torch.float16, device="meta")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, q, q)
+
+
+def test_wrappers_run_only_on_cuda_or_cpu() -> None:
+    q = torch.zeros(1, 2, 5, 6, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(q, q, q)
+    layer = TransformerEncoderLayer(24, 4, 64).to("meta")
+    packed = fet.pack_encoder_layer_train(layer, 4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fet.fused_encoder_layer_train(
+            torch.zeros(2, 19, 24, device="meta"), packed, 1, n_head=4, rate=0.1
+        )
+
+
+def test_attention_forward_refuses_gradients() -> None:
+    q = torch.randn(1, 2, 5, 6, requires_grad=True)
+    with pytest.raises(RuntimeError, match="B5"):
+        fa.flash_attention(q, q, q)
+
+
+def test_cpu_tensors_never_launch_the_training_kernels() -> None:
+    layer = TransformerEncoderLayer(24, 4, 64)
+    packed = fet.pack_encoder_layer_train(layer, 4)
+    before = (fet.fwd_launches, fet.bwd_launches, fa.launches)
+    x = torch.randn(2, 19, 24, requires_grad=True)
+    fet.fused_encoder_layer_train(x, packed, 3, n_head=4, rate=0.1).sum().backward()
+    with torch.no_grad():
+        layer.self_attn(x)
+    assert (fet.fwd_launches, fet.bwd_launches, fa.launches) == before
