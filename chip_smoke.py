@@ -9,9 +9,10 @@ Run from the repository root with no arguments::
 Phases, each printed with its seconds as it ends:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build: ``csrc/fused_encoder.cu`` (B1), ``csrc/flash_attention.cu`` (B2)
-   and ``csrc/fused_encoder_train.cu`` (B3, B4), one ``nvcc`` each, all
-   started together (a library already built is reused).
+2. build: ``csrc/fused_encoder.cu`` (B1), ``csrc/flash_attention.cu`` (B2,
+   B5, B6) and ``csrc/fused_encoder_train.cu`` (B3, B4), one ``nvcc`` each,
+   all started together (a library already built is reused), with ptxas's
+   registers, stack and spills for every kernel instance.
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel, the
@@ -46,6 +47,27 @@ Phases, each printed with its seconds as it ends:
    validation batches x 4 draws x 10 times; all losses must be finite.
    Then the steps/s of ``Trainer.train_step`` through the kernels and
    through the plain versions, on the same 8 batches.
+9. long sequences and wide layers: B1 (fp32, bf16), B3 and B4 against their
+   plain versions (today's gates, masks bit for bit) at B=8 where their
+   shared-memory plan does not fit: L=365 at d_model 72 (USDroughts), and
+   L=187 at d_model 128 with 8 heads and FFN 2048 and 512
+   (``configs/score_model/fast.yaml``, ``fast512.yaml``), with their times
+   beside phase 3's L=100 ones.
+10. unfused attention kernels: B5 (backward), B6-fwd and B6-bwd (dropout
+   0.1) against their plain versions at (64, 12, 100, 6) and (8, 12, 365, 6),
+   fp32, with the masks bit for bit, and the times of each kernel, its plain
+   version, its bound and a yardstick the port never calls: the autograd
+   backward of ``F.scaled_dot_product_attention`` for B5, SDPA with
+   ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend printed).
+11. unfused training check (``FDIFF_FUSED_TRAIN=0``): the first 3 steps of
+   the flagship's training configuration through the kernels and through
+   ``Trainer(plain=True)``, from the same weights, batches, ``t``, ``z`` and
+   generator (so the same attention seeds and FFN-site draws), at dropout
+   0.1 (B6) and 0 (B2 + B5): losses and the first step's gradients.
+12. unfused training main path: ``Trainer.fit`` as in phase 8, with
+   ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch (16 steps), at dropout 0.1 (B6-fwd
+   = B6-bwd = steps x 10) and at dropout 0 (B5 = steps x 10), B2 for
+   validation; all losses finite; its steps/s beside phase 8's.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -54,9 +76,12 @@ non-zero too when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -74,6 +99,7 @@ from fourierdiffusion_tpu_torch.models.fused import (
     fused_score_forward,
     pack_score_transformer,
 )
+from fourierdiffusion_tpu_torch.models.transformer import TransformerEncoderLayer
 from fourierdiffusion_tpu_torch.ops import _build, fourier
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
@@ -151,6 +177,23 @@ TRAIN_FWD_REPLACES = "fourierdiffusion_tpu/ops/fused_encoder_train.py:135"
 TRAIN_BWD_REPLACES = "fourierdiffusion_tpu/ops/fused_encoder_train.py:234"
 FLASH_SOURCE = "fourierdiffusion_tpu_torch/csrc/flash_attention.cu"
 TRAIN_SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder_train.cu"
+FLASH_BWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:167"
+DROPOUT_FWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:326"
+DROPOUT_BWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:342"
+
+# The lengths and widths where the layer kernels' shared-memory plan does not
+# fit (their K|V, or B4's x1 and f2, go to device memory), (L, D, H, F):
+# USDroughts' L=365 at the flagship width, and configs/score_model/fast.yaml
+# (F 2048) and fast512.yaml (F 512) at ECG's L=187.
+COVERAGE = ((365, 72, 12, 2048), (187, 128, 8, 2048), (187, 128, 8, 512))
+COVERAGE_BATCH = 8
+# The unfused attention kernels' shapes, (B, L): the training batch at the
+# flagship's L, and USDroughts' L (three head groups of 4 in the masks).
+ATTN_SHAPES = ((TRAIN_BATCH, MAX_LEN), (8, 365))
+# Attention outputs against the plain version: fp32 sums of 100-365 terms in
+# other orders, |o| < 4: 1e-4 as for B1. Gradients: GRAD_TOL, as for B4.
+ATTN_TOL = 1e-4
+UNFUSED_EPOCHS = 1
 
 
 def phase(name: str, t0: float) -> None:
@@ -191,44 +234,49 @@ def layer_bound_ms(b: int, l: int, d: int, d_ff: int, dtype: torch.dtype) -> tup
     return bound(train_layer_flops(b, l, d, d_ff), bytes_, dtype)
 
 
-def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
-    layer0 = model.backbone.layers[0]
-    packed = fe.pack_encoder_layer(layer0, N_HEAD, dtype)
+def layer_vs_plain(layer, n_head: int, dtype: torch.dtype, batch: int, l: int,
+                   library=None) -> dict:
+    """B1 on one encoder layer at (batch, l) against its plain version, and
+    the times of the kernel, the plain version and ``library`` (if given)."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    packed = fe.pack_encoder_layer(layer, n_head, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((batch, MAX_LEN, 72), generator=g, device="cuda").to(dtype)
+    x = torch.randn((batch, l, d), generator=g, device="cuda").to(dtype)
+    shape = f"{dtype} B={batch} L={l} D={d} H={n_head} F={d_ff}"
     with torch.no_grad():
-        out = fe.fused_encoder_layer(x, packed, n_head=N_HEAD)
-        ref = fe.fused_encoder_layer_reference(x, packed, N_HEAD)
+        out = fe.fused_encoder_layer(x, packed, n_head=n_head)
+        ref = fe.fused_encoder_layer_reference(x, packed, n_head)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
-            raise AssertionError(f"{dtype}: kernel output is not finite")
+            raise AssertionError(f"B1 {shape}: kernel output is not finite")
         err = (out.float() - ref.float()).abs().max().item()
-        print(
-            f"  {dtype} B={batch}: max |kernel - plain| = {err:.3e} "
-            f"(tol {TOL[dtype]:.3e})", flush=True,
-        )
+        print(f"  B1 {shape}: max |kernel - plain| = {err:.3e} (tol {TOL[dtype]:.3e})",
+              flush=True)
         if not err <= TOL[dtype]:
-            raise AssertionError(f"{dtype}: kernel disagrees with plain version: {err}")
-
-        library = torch.nn.TransformerEncoderLayer(
-            72, N_HEAD, 2048, batch_first=True
-        ).to("cuda").eval()
-        library.load_state_dict(layer0.state_dict())
-        library = library.to(dtype)
-        kernel_ms = time_ms(lambda: fe.fused_encoder_layer(x, packed, n_head=N_HEAD))
-        plain_ms = time_ms(lambda: fe.fused_encoder_layer_reference(x, packed, N_HEAD))
-        library_ms = time_ms(lambda: library(x))
-    bound_ms, bound_by = layer_bound_ms(batch, MAX_LEN, 72, 2048, dtype)
-    print(
-        f"  {dtype} B={batch}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-        flush=True,
-    )
+            raise AssertionError(f"B1 {shape}: kernel disagrees with plain version: {err}")
+        kernel_ms = time_ms(lambda: fe.fused_encoder_layer(x, packed, n_head=n_head))
+        plain_ms = time_ms(lambda: fe.fused_encoder_layer_reference(x, packed, n_head))
+        library_ms = time_ms(lambda: library(x)) if library is not None else None
+    bound_ms, bound_by = layer_bound_ms(batch, l, d, d_ff, dtype)
+    print(f"  B1 {shape}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms if library_ms is None else round(library_ms, 4)} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     return {
         "max_abs_err": err, "tol": TOL[dtype], "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+
+
+def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
+    """B1 on the trained flagship's layer 0 at L=100, with the eval-mode
+    ``nn.TransformerEncoderLayer`` yardstick on the same weights."""
+    layer0 = model.backbone.layers[0]
+    library = torch.nn.TransformerEncoderLayer(
+        72, N_HEAD, 2048, batch_first=True
+    ).to("cuda").eval()
+    library.load_state_dict(layer0.state_dict())
+    return layer_vs_plain(layer0, N_HEAD, dtype, batch, MAX_LEN, library.to(dtype))
 
 
 def run_main_path(dtype: torch.dtype) -> dict:
@@ -322,10 +370,32 @@ def build_all() -> None:
     for name, seconds, cached in results:
         lib = _build.library_path(name)
         log = lib.with_suffix(".log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+        for kernel, usage in ptxas_usage(log.read_text() if log.exists() else ""):
+            print(f"  ptxas {name}: {kernel}: {usage}")
         print(f"  {lib.name} ({'reused' if cached else 'built'} in {seconds:.2f} s)", flush=True)
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, stack/spills") for each kernel in a ``-Xptxas
+    -v`` report, the kernel's name demangled by ``c++filt`` where present."""
+    out, name, frame = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, f"{regs.group(1) if regs else '?'} registers; {frame}"))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        out = [(re.sub(r"^void |\(.*", "", d.replace("(anonymous namespace)::", "")) or n, u)
+               for d, (n, u) in zip(names, out)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return out
 
 
 def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
@@ -357,32 +427,37 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
     return r
 
 
-def check_train_layer(model: ScoreTransformer, l: int) -> dict:
-    """B3 and B4 on the flagship layer 0 (dropout 0.1) against the plain
-    version and its autograd, with the masks bit for bit."""
+def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
+                      library: bool = False) -> dict:
+    """B3 and B4 on one encoder layer (dropout 0.1) at (batch, l) against
+    the plain version and its autograd, with the masks bit for bit; with
+    ``timed``, the times of both kernels, the plain versions, their bounds
+    and (with ``library``) a train-mode ``nn.TransformerEncoderLayer``."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    shape = f"B={batch} L={l} D={d} H={n_head} F={d_ff}"
     packed = {k: t.detach().requires_grad_(True) for k, t in
-              fet.pack_encoder_layer_train(model.backbone.layers[0], N_HEAD).items()}
+              fet.pack_encoder_layer_train(layer, n_head).items()}
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn((TRAIN_BATCH, l, 72), generator=g, device="cuda").requires_grad_(True)
-    dy = torch.randn((TRAIN_BATCH, l, 72), generator=g, device="cuda")
+    x = torch.randn((batch, l, d), generator=g, device="cuda").requires_grad_(True)
+    dy = torch.randn((batch, l, d), generator=g, device="cuda")
     seed = 123456789
-    kernel_masks = fet.dropout_masks_cuda(TRAIN_BATCH, l, 72, 2048, N_HEAD, seed, DROPOUT)
-    masks = fet.dropout_masks(TRAIN_BATCH, l, 72, 2048, N_HEAD, seed, DROPOUT, "cuda")
+    kernel_masks = fet.dropout_masks_cuda(batch, l, d, d_ff, n_head, seed, DROPOUT)
+    masks = fet.dropout_masks(batch, l, d, d_ff, n_head, seed, DROPOUT, "cuda")
     for key in masks:
         if not torch.equal(kernel_masks[key], masks[key]):
-            raise AssertionError(f"L={l}: the {key} masks of the kernel and plain differ")
+            raise AssertionError(f"{shape}: the {key} masks of the kernel and plain differ")
     inputs = [x, *packed.values()]
-    out = fet.fused_encoder_layer_train(x, packed, seed, n_head=N_HEAD, rate=DROPOUT)
+    out = fet.fused_encoder_layer_train(x, packed, seed, n_head=n_head, rate=DROPOUT)
     grads = torch.autograd.grad(out, inputs, dy)
-    ref = fet.fused_encoder_layer_train_reference(x, packed, seed, n_head=N_HEAD, rate=DROPOUT)
+    ref = fet.fused_encoder_layer_train_reference(x, packed, seed, n_head=n_head, rate=DROPOUT)
     ref_grads = torch.autograd.grad(ref, inputs, dy, retain_graph=True)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     if not (torch.isfinite(out).all() and err <= TRAIN_TOL):
-        raise AssertionError(f"B3 L={l}: kernel disagrees with plain version: {err}")
+        raise AssertionError(f"B3 {shape}: kernel disagrees with plain version: {err}")
     names = ["x", *packed]
     matched, flips, n_near = gate_matched_grads(
-        x, dy, packed, seed, grads[names.index("b1")], masks, N_HEAD)
+        x, dy, packed, seed, grads[names.index("b1")], masks, n_head)
     rel, abs_err = {}, 0.0
     for name, k, p, m in zip(names, grads, ref_grads, matched):
         abs_err = max(abs_err, (k - p).abs().max().item())
@@ -390,44 +465,44 @@ def check_train_layer(model: ScoreTransformer, l: int) -> dict:
         r = rel[name]
         if not (r["vs_plain"] <= GRAD_TOL
                 or (flips and r["vs_gate_matched_fp64"] <= GRAD_TOL)):
-            raise AssertionError(f"B4 L={l}: gradient {name} disagrees: {r}")
+            raise AssertionError(f"B4 {shape}: gradient {name} disagrees: {r}")
     worst = max(r["vs_plain"] for r in rel.values())
-    print(f"  B3/B4 L={l}: max |fwd - plain| {err:.3e} (tol {TRAIN_TOL:.0e}); "
+    print(f"  B3/B4 {shape}: max |fwd - plain| {err:.3e} (tol {TRAIN_TOL:.0e}); "
           f"max |grad - plain| / max |grad| {worst:.3e}; ReLU gates within rounding of "
           f"0: {n_near}, flips located: {json.dumps(flips)}; per tensor {json.dumps(rel)}",
           flush=True)
-    if l != MAX_LEN:
-        return {"fwd_err": err, "grad_abs_err": abs_err}
+    r = {"fwd": {"max_abs_err": err}, "bwd": {"max_abs_err": abs_err, "max_rel_err": worst,
+                                             "gate_flips": flips}}
+    if not timed:
+        return r
 
-    xd, layer = x.detach(), {k: t.detach() for k, t in packed.items()}
-    fwd_ms = time_ms(lambda: fet._launch_fwd(xd, layer, seed, N_HEAD, DROPOUT), iters=20)
-    bwd_ms = time_ms(lambda: fet._launch_bwd(xd, dy, layer, seed, N_HEAD, DROPOUT), iters=10)
-    plain_fwd_ms = time_ms(lambda: fet.fused_encoder_layer_train_reference(
-        xd, layer, seed, n_head=N_HEAD, rate=DROPOUT), iters=10)
-    plain_bwd_ms = time_ms(
+    xd, lay = x.detach(), {k: t.detach() for k, t in packed.items()}
+    r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(xd, lay, seed, n_head, DROPOUT), iters=20)
+    r["bwd"]["ms"] = time_ms(
+        lambda: fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT), iters=10)
+    r["fwd"]["plain_ms"] = time_ms(lambda: fet.fused_encoder_layer_train_reference(
+        xd, lay, seed, n_head=n_head, rate=DROPOUT), iters=10)
+    r["bwd"]["plain_ms"] = time_ms(
         lambda: torch.autograd.grad(ref, inputs, dy, retain_graph=True), iters=10)
-    library = torch.nn.TransformerEncoderLayer(
-        72, N_HEAD, 2048, DROPOUT, batch_first=True).to("cuda").train()
-    lib_out = library(x)
-    lib_params = [x, *library.parameters()]
-    lib_fwd_ms = time_ms(lambda: library(x), iters=10)
-    lib_bwd_ms = time_ms(
-        lambda: torch.autograd.grad(lib_out, lib_params, dy, retain_graph=True), iters=10)
-    flops = train_layer_flops(TRAIN_BATCH, l, 72, 2048)
-    weights = sum(t.numel() for t in layer.values()) * 4
-    act = TRAIN_BATCH * l * 72 * 4
+    r["fwd"]["library_ms"] = r["bwd"]["library_ms"] = None
+    if library:
+        lib = torch.nn.TransformerEncoderLayer(
+            d, n_head, d_ff, DROPOUT, batch_first=True).to("cuda").train()
+        lib_out = lib(x)
+        lib_params = [x, *lib.parameters()]
+        r["fwd"]["library_ms"] = time_ms(lambda: lib(x), iters=10)
+        r["bwd"]["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib_out, lib_params, dy, retain_graph=True), iters=10)
+    flops = train_layer_flops(batch, l, d, d_ff)
+    weights = sum(t.numel() for t in lay.values()) * 4
+    act = batch * l * d * 4
     fwd_bound = bound(flops, 2 * act + weights, torch.float32)
     # The backward from (x, dy, weights) recomputes the forward and then
     # does two products for each product of the forward.
     bwd_bound = bound(3 * flops, 3 * act + 2 * weights, torch.float32)
-    r = {
-        "fwd": {"max_abs_err": err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
-                "library_ms": lib_fwd_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
-        "bwd": {"max_abs_err": abs_err, "max_rel_err": worst, "gate_flips": flips,
-                "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-                "library_ms": lib_bwd_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
-    }
-    print(f"  B3/B4 L={l} B={TRAIN_BATCH} times: {json.dumps(r)}", flush=True)
+    r["fwd"].update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
+    r["bwd"].update(bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    print(f"  B3/B4 {shape} times: {json.dumps(r)}", flush=True)
     return r
 
 
@@ -493,20 +568,21 @@ def gate_matched_grads(
     return grads, located, len(cand)
 
 
-def flagship_model(dtype: str = "float32") -> ScoreTransformer:
+def flagship_model(dtype: str = "float32", rate: float = DROPOUT) -> ScoreTransformer:
     """The flagship with random weights from seed 0 (the same for any dtype)."""
     torch.manual_seed(0)
     model = ScoreModelConfig(
         d_model=72, num_layers=N_LAYERS, n_head=N_HEAD, dim_feedforward=2048,
-        dropout_rate=DROPOUT, dtype=dtype,
+        dropout_rate=rate, dtype=dtype,
     ).build(n_channels=N_CHANNELS, max_len=MAX_LEN)
     return model.to(getattr(torch, dtype))
 
 
-def flagship_trainer(plain: bool = False) -> Trainer:
-    model = flagship_model()
+def flagship_trainer(plain: bool = False, rate: float = DROPOUT,
+                     epochs: int = TRAIN_EPOCHS) -> Trainer:
+    model = flagship_model(rate=rate)
     return Trainer(
-        model, VPScheduler(fourier_noise_scaling=True), max_epochs=TRAIN_EPOCHS,
+        model, VPScheduler(fourier_noise_scaling=True), max_epochs=epochs,
         lr_max=1e-3, gradient_clip_val=1.0, ema_decay=0.999, spike_rollback_factor=2.5,
         spike_rollback_retries=2, val_noise_draws=VAL_DRAWS, seed=42, device="cuda",
         plain=plain,
@@ -575,17 +651,17 @@ def run_training(dm: SyntheticDatamodule) -> dict:
     """The training main path; the counts are read around ``fit`` alone."""
     trainer = flagship_trainer()
     torch.cuda.synchronize()
-    fet.fwd_launches = fet.bwd_launches = fa.launches = fe.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     history = trainer.fit(dm)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"B3": fet.fwd_launches, "B4": fet.bwd_launches, "B2": fa.launches,
-              "B1": fe.launches}
+    counts = read_counts()
     steps = dm.steps_per_epoch * TRAIN_EPOCHS
     val_batches = -(-TRAIN_SERIES // TRAIN_BATCH)
     expected = {"B3": steps * N_LAYERS, "B4": steps * N_LAYERS,
-                "B2": TRAIN_EPOCHS * val_batches * VAL_DRAWS * N_LAYERS}
+                "B2": TRAIN_EPOCHS * val_batches * VAL_DRAWS * N_LAYERS,
+                "B1": 0, "B5": 0, "B6-fwd": 0, "B6-bwd": 0}
     for h in history:
         print(f"  epoch {h['epoch']}: {json.dumps(h)}", flush=True)
     for name, n in expected.items():
@@ -601,11 +677,287 @@ def run_training(dm: SyntheticDatamodule) -> dict:
     val_s = sum(h["val_seconds"] for h in history)
     r = {"launches": counts, "seconds": seconds, "steps": steps,
          "steps_per_s": steps / train_s, "step_ms": 1e3 * train_s / steps,
+         "epoch_steps_per_sec": [h["steps_per_sec"] for h in history],
          "val_pass_s": val_s / TRAIN_EPOCHS, "losses": [
              (h["train/loss"], h["val/loss"]) for h in history]}
     print(f"  training: {steps} steps in {train_s:.3f} s = {r['steps_per_s']:.3f} steps/s "
           f"({r['step_ms']:.2f} ms/step); validation {r['val_pass_s']:.3f} s per pass; "
           f"launches {counts}", flush=True)
+    return r
+
+
+def check_coverage(phase3: dict) -> dict:
+    """B1 (fp32, bf16), B3 and B4 where their shared-memory plan does not
+    fit (COVERAGE), at B=8, random weights; B1's times beside phase 3's."""
+    out = {}
+    for l, d, n_head, d_ff in COVERAGE:
+        torch.manual_seed(0)
+        layer = TransformerEncoderLayer(d, n_head, d_ff).to("cuda")
+        key = f"L={l} D={d} H={n_head} F={d_ff}"
+        out[key] = {
+            "B1": {str(dtype).removeprefix("torch."): layer_vs_plain(
+                layer, n_head, dtype, COVERAGE_BATCH, l) for dtype in TOL},
+            **check_train_layer(layer, n_head, COVERAGE_BATCH, l, timed=True),
+        }
+        sizes = {"B1/B3 smem bytes": fe._library().fdiff_encoder_layer_smem_bytes(l, d),
+                 "B1/B3 K|V workspace floats per chain":
+                     fe._library().fdiff_encoder_layer_kv_floats(l, d),
+                 "B4 smem bytes": fet._library().fdiff_train_bwd_smem_bytes(l, d)}
+        out[key]["sizes"] = sizes
+        print(f"  {key}: {json.dumps(sizes)}", flush=True)
+    for dtype, by_batch in phase3.items():
+        name = str(dtype).removeprefix("torch.")
+        times = {f"L={MAX_LEN} B={b}": round(c["kernel_ms"], 4) for b, c in by_batch.items()}
+        times.update({f"{k} B={COVERAGE_BATCH}": round(v["B1"][name]["kernel_ms"], 4)
+                      for k, v in out.items()})
+        print(f"  B1 {name} ms: {json.dumps(times)}", flush=True)
+    return out
+
+
+def sdpa_backend(q, k, v, dropout_p: float) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these inputs."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, dropout_p, False)).name
+    except Exception as e:  # a private API: report, never fail on it
+        return f"unknown ({type(e).__name__}: {e})"
+
+
+def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
+    """B5, B6-fwd and B6-bwd on random fp32 (b, 12, l, 6) heads against their
+    plain versions (and B5 also against autograd of the plain forward), the
+    masks bit for bit; with ``timed``, their times, bounds and yardsticks."""
+    dh = 72 // N_HEAD
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((b, N_HEAD, l, dh), generator=g, device="cuda")
+                   for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
+    shape = f"B={b} H={N_HEAD} L={l} dh={dh}"
+    kernel_keep = fa.attention_keep_cuda(b, N_HEAD, l, seed, DROPOUT)
+    if not torch.equal(kernel_keep, fa.attention_keep(b, N_HEAD, l, seed, DROPOUT, "cuda")):
+        raise AssertionError(f"B6 {shape}: the masks of the kernel and plain differ")
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    autograd_plain = torch.autograd.grad(fa.flash_attention_reference(qg, kg, vg),
+                                         (qg, kg, vg), do)
+    b5, b5_plain = fa._launch_bwd(q, k, v, do), fa.flash_attention_bwd_reference(q, k, v, do)
+    b6f = fa._launch_fwd(q, k, v, seed, DROPOUT)
+    b6f_plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
+    b6b = fa._launch_bwd(q, k, v, do, seed, DROPOUT)
+    b6b_plain = fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed, DROPOUT)
+    torch.cuda.synchronize()
+    grads = ("dq", "dk", "dv")
+    r = {
+        "B5": {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, b5, b5_plain)},
+               "vs_autograd_of_plain": {n: rel_err(a, p) for n, a, p in
+                                        zip(grads, b5, autograd_plain)},
+               "max_abs_err": max((a - p).abs().max().item() for a, p in zip(b5, b5_plain))},
+        "B6-fwd": {"max_abs_err": (b6f - b6f_plain).abs().max().item()},
+        "B6-bwd": {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, b6b, b6b_plain)},
+                   "max_abs_err": max((a - p).abs().max().item()
+                                      for a, p in zip(b6b, b6b_plain))},
+    }
+    if not (torch.isfinite(b6f).all() and r["B6-fwd"]["max_abs_err"] <= ATTN_TOL):
+        raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
+    for name in ("B5", "B6-bwd"):
+        worst = max(r[name]["max_rel_err"].values())
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"{name} {shape}: kernel disagrees with plain version: {r}")
+    if not max(r["B5"]["vs_autograd_of_plain"].values()) <= GRAD_TOL:
+        raise AssertionError(f"B5 {shape}: kernel disagrees with autograd of plain: {r}")
+    print(f"  B5/B6 {shape}: masks bit for bit; {json.dumps(r)} (outputs tol {ATTN_TOL:.0e}, "
+          f"gradients tol {GRAD_TOL:.0e} of max)", flush=True)
+    if not timed:
+        return r
+
+    numel = q.numel()
+    fwd_flops, bwd_flops = 4 * b * N_HEAD * l * l * dh, 12 * b * N_HEAD * l * l * dh
+    with torch.no_grad():
+        r["B6-fwd"].update(
+            ms=time_ms(lambda: fa._launch_fwd(q, k, v, seed, DROPOUT)),
+            plain_ms=time_ms(lambda: fa.flash_attention_dropout_reference(q, k, v, seed,
+                                                                          DROPOUT)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                      dropout_p=DROPOUT)),
+        )
+    r["B5"].update(ms=time_ms(lambda: fa._launch_bwd(q, k, v, do)),
+                   plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do)))
+    r["B6-bwd"].update(
+        ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, seed, DROPOUT)),
+        plain_ms=time_ms(lambda: fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed,
+                                                                          DROPOUT)))
+    for name, p in (("B5", 0.0), ("B6-bwd", DROPOUT)):
+        out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
+        r[name]["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    for name, flops, bytes_ in (("B5", bwd_flops, 7 * numel * 4),
+                                ("B6-fwd", fwd_flops, 4 * numel * 4 + 8),
+                                ("B6-bwd", bwd_flops, 7 * numel * 4 + 8)):
+        r[name]["bound_ms"], r[name]["bound_by"] = bound(flops, bytes_, torch.float32)
+    r["sdpa_backend"] = {"no dropout": sdpa_backend(qg, kg, vg, 0.0),
+                         f"dropout {DROPOUT}": sdpa_backend(qg, kg, vg, DROPOUT)}
+    print(f"  B5/B6 {shape} times: {json.dumps(r)}", flush=True)
+    return r
+
+
+@contextlib.contextmanager
+def unfused_training():
+    """``FDIFF_FUSED_TRAIN=0`` inside the block: the trainer's unfused path."""
+    before = os.environ.get("FDIFF_FUSED_TRAIN")
+    os.environ["FDIFF_FUSED_TRAIN"] = "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["FDIFF_FUSED_TRAIN"]
+        else:
+            os.environ["FDIFF_FUSED_TRAIN"] = before
+
+
+def unfused_step0(trainer: Trainer, step: tuple, force: dict | None = None) -> tuple:
+    """Step-0 gradients of the unfused path, drawing from a generator seeded
+    17, with every layer's FFN ReLU gates recorded by a hook on ``linear1``:
+    the gates (pre-activation > 0), the pre-activations and their sums of
+    |terms| (|x| |W1| + |b1|). ``force`` {layer: (where, open)} sets the gates
+    at ``where`` to ``open`` (the value keeps its size, the gradient passes
+    through an open gate and not a shut one)."""
+    gates, pres, terms, handles = {}, {}, {}, []
+
+    def hook(i: int):
+        def record(mod, inputs, out):
+            pres[i] = out.detach()
+            gates[i] = pres[i] > 0
+            terms[i] = (inputs[0].detach().abs() @ mod.weight.detach().abs().t()
+                        + mod.bias.detach().abs())
+            if force is not None and i in force:
+                where, want_open = force[i]
+                size = out.detach().abs().clamp_min(1e-30)
+                forced = out - out.detach() + torch.where(want_open, size, -size)
+                return torch.where(where, forced, out)
+            return None
+        return record
+
+    for i, layer in enumerate(trainer.model.backbone.layers):
+        handles.append(layer.linear1.register_forward_hook(hook(i)))
+    try:
+        x0, t0, z0, _ = step
+        gen = torch.Generator(device=trainer.device).manual_seed(17)
+        grads = trainer.loss_and_grads(x0, t0, z0, generator=gen)[1]
+    finally:
+        for h in handles:
+            h.remove()
+    return grads, gates, pres, terms
+
+
+def check_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
+    """The first steps of unfused training through the kernels and through
+    ``plain=True``, with generators seeded alike (the same attention seeds
+    and FFN-site draws). The step-0 gradients are held to GRAD_TOL per tensor
+    against the plain path's or, where FFN ReLU gates flipped between the
+    two paths, against the plain path with exactly those gates set as the
+    kernel path had them; every flip is located, printed and must lie within
+    GATE_BAND x sum |terms| of 0 (as B4's gate, above)."""
+    steps = draw_steps(dm, CHECK_STEPS)
+    n_steps = dm.steps_per_epoch * TRAIN_EPOCHS
+    with unfused_training():
+        kernel = flagship_trainer(rate=rate)
+        plain = flagship_trainer(plain=True, rate=rate)
+        for trainer in (kernel, plain):
+            trainer.start(n_steps)
+        grads_k, gates_k, _, _ = unfused_step0(kernel, steps[0])
+        grads_p, gates_p, pres, terms = unfused_step0(plain, steps[0])
+        flips = {i: gates_k[i] ^ gates_p[i] for i in gates_k if (gates_k[i] ^ gates_p[i]).any()}
+        located = []
+        for i, where in flips.items():
+            for b, l, u in where.nonzero().tolist():
+                located.append({"layer": i, "chain": b, "row": l, "unit": u,
+                                "pre_plain": pres[i][b, l, u].item(),
+                                "terms": terms[i][b, l, u].item(),
+                                "kernel_open": bool(gates_k[i][b, l, u])})
+        far = [f for f in located if abs(f["pre_plain"]) > GATE_BAND * f["terms"]]
+        if far:
+            raise AssertionError(f"unfused check: ReLU gates flipped away from 0: {far}")
+        grads_m = grads_p
+        if flips:
+            force = {i: (where, gates_k[i]) for i, where in flips.items()}
+            grads_m = unfused_step0(plain, steps[0], force)[0]
+        del gates_k, gates_p, pres, terms
+        losses = {}
+        for name, trainer in (("kernel", kernel), ("plain", plain)):
+            gen = torch.Generator(device="cuda").manual_seed(18)
+            losses[name] = [trainer.train_step(x, t, z, generator=gen).item()
+                            for x, t, z, _ in steps]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"]))
+    print(f"  unfused, dropout {rate}: losses kernel {losses['kernel']} plain "
+          f"{losses['plain']}: max rel diff {rel_loss:.3e} (tol {LOSS_TOL:.0e})", flush=True)
+    if not all(math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
+        raise AssertionError(f"unfused check: losses not finite: {losses}")
+    if not rel_loss <= LOSS_TOL:
+        raise AssertionError(f"unfused check: losses disagree: {rel_loss}")
+    rel = {n: {"vs_plain": rel_err(k, p), "vs_gate_matched": rel_err(k, m)}
+           for n, k, p, m in zip(kernel.names, grads_k, grads_p, grads_m)}
+    for n, r in rel.items():
+        if not (r["vs_plain"] <= GRAD_TOL or (flips and r["vs_gate_matched"] <= GRAD_TOL)):
+            raise AssertionError(f"unfused check: gradient {n} disagrees: {r}")
+    worst = max(rel.items(), key=lambda kv: kv[1]["vs_plain"])
+    worst_m = max(r["vs_gate_matched"] for r in rel.values())
+    print(f"  unfused, dropout {rate}: step-0 gradients, worst against plain {worst[0]} "
+          f"{json.dumps(worst[1])}, worst against gate-matched plain {worst_m:.3e} (tol "
+          f"{GRAD_TOL:.0e}); ReLU gates flipped between the paths: {len(located)}: "
+          f"{json.dumps(located)}; per tensor {json.dumps(rel)}", flush=True)
+    return {"loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_plain"],
+            "grad_rel_err_gate_matched": worst_m, "gate_flips": located}
+
+
+def reset_counts() -> None:
+    fet.fwd_launches = fet.bwd_launches = fe.launches = 0
+    fa.launches = fa.bwd_launches = fa.dropout_fwd_launches = fa.dropout_bwd_launches = 0
+
+
+def read_counts() -> dict:
+    return {"B1": fe.launches, "B2": fa.launches, "B3": fet.fwd_launches,
+            "B4": fet.bwd_launches, "B5": fa.bwd_launches,
+            "B6-fwd": fa.dropout_fwd_launches, "B6-bwd": fa.dropout_bwd_launches}
+
+
+def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
+    """The unfused training main path; the counts are read around ``fit`` alone."""
+    trainer = flagship_trainer(rate=rate, epochs=UNFUSED_EPOCHS)
+    with unfused_training():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        history = trainer.fit(dm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    steps = dm.steps_per_epoch * UNFUSED_EPOCHS
+    train = steps * N_LAYERS
+    val = UNFUSED_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH) * VAL_DRAWS * N_LAYERS
+    expected = {"B1": 0, "B3": 0, "B4": 0}
+    if rate > 0.0:
+        expected.update({"B2": val, "B5": 0, "B6-fwd": train, "B6-bwd": train})
+    else:
+        expected.update({"B2": train + val, "B5": train, "B6-fwd": 0, "B6-bwd": 0})
+    for h in history:
+        print(f"  unfused, dropout {rate}, epoch {h['epoch']}: {json.dumps(h)}", flush=True)
+    if counts != expected:
+        raise AssertionError(f"unfused training: launches {counts}, expected {expected}")
+    if len(history) != UNFUSED_EPOCHS or not all(
+        math.isfinite(h["train/loss"]) and math.isfinite(h["val/loss"]) for h in history
+    ):
+        raise AssertionError(f"unfused training: epochs or losses wrong: {history}")
+    if not all(torch.isfinite(p).all() for p in trainer.params):
+        raise AssertionError("unfused training: parameters are not finite")
+    train_s = sum(h["train_seconds"] for h in history)
+    r = {"launches": counts, "seconds": seconds, "steps": steps,
+         "steps_per_s": steps / train_s, "step_ms": 1e3 * train_s / steps,
+         "epoch_steps_per_sec": [h["steps_per_sec"] for h in history],
+         "val_pass_s": sum(h["val_seconds"] for h in history) / UNFUSED_EPOCHS,
+         "losses": [(h["train/loss"], h["val/loss"]) for h in history]}
+    print(f"  unfused, dropout {rate}: {steps} steps in {train_s:.3f} s = "
+          f"{r['steps_per_s']:.3f} steps/s ({r['step_ms']:.2f} ms/step); launches {counts}",
+          flush=True)
     return r
 
 
@@ -686,7 +1038,9 @@ def main() -> int:
     flagship = load_flagship(torch.float32, "cuda")
     attention = {dtype: check_attention(flagship, dtype)
                  for dtype in (torch.float32, torch.bfloat16)}
-    train_layer = {l: check_train_layer(flagship, l) for l in TRAIN_LENGTHS}
+    layer0 = flagship.backbone.layers[0]
+    train_layer = {l: check_train_layer(layer0, N_HEAD, TRAIN_BATCH, l, timed=l == MAX_LEN,
+                                        library=True) for l in TRAIN_LENGTHS}
     phase("6 training kernels vs plain", t0)
 
     with tempfile.TemporaryDirectory() as root:
@@ -705,9 +1059,35 @@ def main() -> int:
         training.update(step_rates(dm))
         phase("8 training main path", t0)
 
+        t0 = time.perf_counter()
+        coverage = check_coverage(checks)
+        phase("9 long sequences and wide layers", t0)
+
+        t0 = time.perf_counter()
+        attn_kernels = {f"B={b} L={l}": check_attention_kernels(b, l, timed=True)
+                        for b, l in ATTN_SHAPES}
+        attn_main = attn_kernels[f"B={TRAIN_BATCH} L={MAX_LEN}"]
+        phase("10 unfused attention kernels vs plain", t0)
+
+        t0 = time.perf_counter()
+        unfused_check = {rate: check_unfused_training(dm, rate) for rate in (DROPOUT, 0.0)}
+        phase("11 unfused training check", t0)
+
+        t0 = time.perf_counter()
+        unfused = {rate: run_unfused_training(dm, rate) for rate in (DROPOUT, 0.0)}
+        print(f"  steps/s from this call (train seconds only; C3's steps_per_sec, which "
+              f"counts validation, in brackets): fused B3/B4 {training['steps_per_s']:.3f} "
+              f"({training['epoch_steps_per_sec']}); unfused B6, dropout {DROPOUT} "
+              f"{unfused[DROPOUT]['steps_per_s']:.3f} "
+              f"({unfused[DROPOUT]['epoch_steps_per_sec']}); unfused B2 + B5, dropout 0 "
+              f"{unfused[0.0]['steps_per_s']:.3f} ({unfused[0.0]['epoch_steps_per_sec']})",
+              flush=True)
+        phase("12 unfused training main path", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
+        name = str(dtype).removeprefix("torch.")
         kernels.append({
             "name": f"fused_encoder_layer/{str(dtype).removeprefix('torch.')}",
             "route": "cuda",
@@ -723,6 +1103,9 @@ def main() -> int:
             "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048",
             "samples_per_s": main[dtype]["samples_per_s"],
             "by_batch": {str(b): c for b, c in by_batch.items()},
+            "checked_lengths": {f"L={MAX_LEN} D=72": {str(b): c for b, c in by_batch.items()},
+                                **{f"{k} B={COVERAGE_BATCH}": v["B1"][name]
+                                   for k, v in coverage.items()}},
         })
     f32 = attention[torch.float32]
     kernels.append({
@@ -739,17 +1122,40 @@ def main() -> int:
         ("bwd", "fused_encoder_layer_train_bwd", TRAIN_BWD_REPLACES, "B4"),
     ):
         r = timed[key]
+        checked = {f"L={l} D=72 B={TRAIN_BATCH}": train_layer[l][key] for l in TRAIN_LENGTHS}
+        checked.update({f"{k} B={COVERAGE_BATCH}": v[key] for k, v in coverage.items()})
         kernels.append({
             "name": name, "route": "cuda", "source": TRAIN_SOURCE, "replaces": replaces,
             "launches": training["launches"][count],
-            "max_abs_err": max(r["max_abs_err"], train_layer[187][
-                "fwd_err" if key == "fwd" else "grad_abs_err"]),
+            "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 fp32 dropout {DROPOUT}",
             "steps_per_s": training["steps_per_s"],
+            "checked_lengths": checked,
+        })
+    for key, name, replaces, launches in (
+        ("B5", "flash_attention_bwd", FLASH_BWD_REPLACES, unfused[0.0]["launches"]["B5"]),
+        ("B6-fwd", "flash_attention_dropout_fwd", DROPOUT_FWD_REPLACES,
+         unfused[DROPOUT]["launches"]["B6-fwd"]),
+        ("B6-bwd", "flash_attention_dropout_bwd", DROPOUT_BWD_REPLACES,
+         unfused[DROPOUT]["launches"]["B6-bwd"]),
+    ):
+        r = attn_main[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(a[key]["max_abs_err"] for a in attn_kernels.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD} float32"
+                     + ("" if key == "B5" else f" dropout {DROPOUT}"),
+            "sdpa_backend": attn_main["sdpa_backend"],
+            "checked_shapes": {k: a[key] for k, a in attn_kernels.items()},
         })
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
+    unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
+    print(f"unfused training: {json.dumps(unfused_all)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -46,7 +46,17 @@
 // (L2-resident) weights. Each thread computes kRM rows of one output
 // column, reading four activations at a time as one float4 from shared
 // memory, so an FMA costs a quarter of a shared load. d_ff is streamed in
-// chunks of kFC columns. Nothing goes to device-memory scratch.
+// chunks of kFC columns.
+//
+// Long chains and wide layers (kKvGlobal): the chain's x and K|V take
+// L*(3D+1) floats of shared memory, more than the 227 KB a CTA can have
+// from L=225 at D=72 or L=107 at D=128. There a first launch
+// (kv_proj_kernel, one CTA per row tile and chain) writes each chain's K|V
+// once to a (B, L, 2D) fp32 workspace in device memory, with the same
+// products and rounding, and the layer kernel reads K and V from there
+// (through L1 and L2) instead of computing them; shared memory then holds
+// only the tile's rows, one head's scores and the FFN chunk. Where the
+// shared-memory plan fits, it is the one used.
 
 #pragma once
 
@@ -226,19 +236,20 @@ __device__ __forceinline__ void layer_norm_rows(float* x, int rows, int D,
 
 // Shared-memory plan, in floats. K and V rows have an odd stride (2D + 1)
 // so that the score loop, whose neighbouring threads read neighbouring
-// keys, does not hit one bank.
+// keys, does not hit one bank. Without kv_in_smem, K|V and the whole-chain
+// x are not in shared memory (kKvGlobal).
 struct Smem {
   int lp8, region, kvs;
   int off_kv, off_xs, off_q, off_o, off_x1, total;
-  __host__ __device__ Smem(int L, int D) {
+  __host__ __device__ Smem(int L, int D, bool kv_in_smem = true) {
     lp8 = (L + kRM - 1) / kRM * kRM;
-    int r = lp8 * D;                     // whole-chain x
+    int r = kv_in_smem ? lp8 * D : 0;    // whole-chain x
     if (kTM * L > r) r = kTM * L;        // one head's scores
     if (kTM * kFC > r) r = kTM * kFC;    // one FFN hidden chunk
     region = r;
     kvs = 2 * D + 1;
     off_kv = region;                     // K | V, L x kvs
-    off_xs = (off_kv + L * kvs + 3) / 4 * 4;  // own rows of x
+    off_xs = kv_in_smem ? (off_kv + L * kvs + 3) / 4 * 4 : region;  // own rows of x
     off_q = off_xs + kTM * D;            // q, later the FFN2 sum
     off_o = off_q + kTM * D;             // attention output
     off_x1 = off_o + kTM * D;            // pre-LN1, then x1
@@ -248,8 +259,9 @@ struct Smem {
 
 // The weights come as separate __restrict__ pointer parameters, not as a
 // Weights struct: with the struct, ptxas allocated registers differently and
-// the sampling kernel ran measurably slower on an H100.
-template <typename T, bool kDrop>
+// the sampling kernel ran measurably slower on an H100. kv_ws is the
+// (B, L, 2D) K|V workspace of kKvGlobal, unused otherwise.
+template <typename T, bool kDrop, bool kKvGlobal>
 __global__ void __launch_bounds__(kThreads)
 encoder_layer_kernel(const T* __restrict__ x,
                      const T* __restrict__ w_qkv, const float* __restrict__ b_qkv,
@@ -258,13 +270,14 @@ encoder_layer_kernel(const T* __restrict__ x,
                      const T* __restrict__ w1, const float* __restrict__ b1,
                      const T* __restrict__ w2, const float* __restrict__ b2,
                      const float* __restrict__ ln2_s, const float* __restrict__ ln2_b,
-                     T* __restrict__ out, int L, int D, int H, int F, Dropout dp) {
+                     T* __restrict__ out, int L, int D, int H, int F, Dropout dp,
+                     float* kv_ws) {
   constexpr bool kFast = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
-  const Smem lay(L, D);
+  const Smem lay(L, D, !kKvGlobal);
   float* xall = smem;                // phase 1-2
   float* ph = smem;                  // scores (phase 3), hidden chunk (phase 5)
-  float* kv = smem + lay.off_kv;
+  float* kv = kKvGlobal ? kv_ws + (size_t)blockIdx.y * L * 2 * D : smem + lay.off_kv;
   float* xs = smem + lay.off_xs;
   float* q = smem + lay.off_q;
   float* fsum = q;                   // q is dead once the scores exist
@@ -277,7 +290,7 @@ encoder_layer_kernel(const T* __restrict__ x,
   const int row0 = blockIdx.x * kTM;
   const int rows = min(kTM, L - row0);
   const int dh = D / H;
-  const int kvs = lay.kvs;
+  const int kvs = kKvGlobal ? 2 * D : lay.kvs;
   const T* xb = x + (size_t)b * L * D;
   const uint32_t key_out = mask_key(dp, b, kSiteOut, 0);
   const uint32_t key_ff = mask_key(dp, b, kSiteFf, 0);
@@ -286,14 +299,17 @@ encoder_layer_kernel(const T* __restrict__ x,
   // Phase 1: zero shared memory (padding rows stay finite), load x.
   for (int i = tid; i < lay.total; i += blockDim.x) smem[i] = 0.0f;
   __syncthreads();
-  for (int i = tid; i < L * D; i += blockDim.x) xall[i] = to_f(xb[i]);
+  if constexpr (!kKvGlobal)
+    for (int i = tid; i < L * D; i += blockDim.x) xall[i] = to_f(xb[i]);
   for (int i = tid; i < rows * D; i += blockDim.x) xs[i] = to_f(xb[row0 * D + i]);
   __syncthreads();
 
-  // Phase 2: K, V for every row of the chain; q for this tile's rows.
-  matmul(xall, D, L, w_qkv + D, 3 * D, 2 * D, D, [&](int r, int n, float acc) {
-    kv[r * kvs + n] = round_to<T>(acc + b_qkv[D + n]);
-  });
+  // Phase 2: K, V for every row of the chain (kKvGlobal: read from kv_ws,
+  // written by kv_proj_kernel); q for this tile's rows.
+  if constexpr (!kKvGlobal)
+    matmul(xall, D, L, w_qkv + D, 3 * D, 2 * D, D, [&](int r, int n, float acc) {
+      kv[r * kvs + n] = round_to<T>(acc + b_qkv[D + n]);
+    });
   matmul(xs, D, rows, w_qkv, 3 * D, D, D, [&](int r, int n, float acc) {
     q[r * D + n] = round_to<T>(acc + b_qkv[n]);
   });
@@ -388,25 +404,80 @@ encoder_layer_kernel(const T* __restrict__ x,
   for (int i = tid; i < rows * D; i += blockDim.x) ob[i] = from_f<T>(x1[i]);
 }
 
-// Shared-memory bytes one CTA needs at sequence length L and width D.
+// kKvGlobal's first launch: K|V of this tile's rows of chain b, the same
+// products and rounding as phase 2, into kv_ws (B, L, 2D). Each (tile,
+// chain) writes its own rows, so no two CTAs write one element.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+kv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w_qkv,
+               const float* __restrict__ b_qkv, float* __restrict__ kv_ws, int L, int D) {
+  extern __shared__ __align__(16) float smem[];  // kTM x D rows of x
+  const int b = blockIdx.y, row0 = blockIdx.x * kTM;
+  const int rows = min(kTM, L - row0);
+  const T* xb = x + ((size_t)b * L + row0) * D;
+  for (int i = threadIdx.x; i < kTM * D; i += blockDim.x)
+    smem[i] = i < rows * D ? to_f(xb[i]) : 0.0f;
+  __syncthreads();
+  float* kv = kv_ws + ((size_t)b * L + row0) * 2 * D;
+  matmul(smem, D, rows, w_qkv + D, 3 * D, 2 * D, D, [&](int r, int n, float acc) {
+    kv[r * 2 * D + n] = round_to<T>(acc + b_qkv[D + n]);
+  });
+}
+
+// Whether the chain's K|V fit in shared memory at sequence length L and
+// width D (else the layer runs kKvGlobal).
+inline bool encoder_layer_kv_in_smem(int L, int D) {
+  return Smem(L, D, true).total * (int)sizeof(float) <= kMaxSmem;
+}
+
+// Shared-memory bytes one CTA of the layer kernel needs at L and D, in the
+// plan the launcher takes.
 inline int encoder_layer_smem_bytes(int L, int D) {
-  return Smem(L, D).total * (int)sizeof(float);
+  return Smem(L, D, encoder_layer_kv_in_smem(L, D)).total * (int)sizeof(float);
+}
+
+// Floats of one chain's K|V workspace: 0 where K|V fit in shared memory.
+inline int encoder_layer_kv_floats(int L, int D) {
+  return encoder_layer_kv_in_smem(L, D) ? 0 : L * 2 * D;
 }
 
 // Launches the layer over B chains; returns cudaGetLastError() after the
-// launch (0 on success), or the error that stopped it before.
+// launch (0 on success), or the error that stopped it before. kv_ws holds
+// encoder_layer_kv_floats(L, D) floats per chain (may be null when that is 0).
 template <typename T, bool kDrop>
-int launch_encoder_layer(const void* x, const Weights<T>& w, void* out, int B, int L,
-                         int D, int H, int F, const Dropout& dp, cudaStream_t stream) {
+int launch_encoder_layer(const void* x, const Weights<T>& w, void* out, void* kv_ws, int B,
+                         int L, int D, int H, int F, const Dropout& dp,
+                         cudaStream_t stream) {
   const int bytes = encoder_layer_smem_bytes(L, D);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_layer_kernel<T, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + kTM - 1) / kTM, B);
-  encoder_layer_kernel<T, kDrop><<<grid, kThreads, bytes, stream>>>(
+  float* kv = static_cast<float*>(kv_ws);
+  cudaError_t err;
+  if (encoder_layer_kv_in_smem(L, D)) {
+    err = cudaFuncSetAttribute(encoder_layer_kernel<T, kDrop, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    encoder_layer_kernel<T, kDrop, false><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(x), w.w_qkv, w.b_qkv, w.w_out, w.b_out, w.ln1_s, w.ln1_b,
+        w.w1, w.b1, w.w2, w.b2, w.ln2_s, w.ln2_b, static_cast<T*>(out), L, D, H, F, dp, kv);
+    return (int)cudaGetLastError();
+  }
+  if (kv == nullptr) return (int)cudaErrorInvalidValue;
+  const int kv_bytes = kTM * D * (int)sizeof(float);
+  if (kv_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kv_proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kv_proj_kernel<T><<<grid, kThreads, kv_bytes, stream>>>(static_cast<const T*>(x), w.w_qkv,
+                                                          w.b_qkv, kv, L, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(encoder_layer_kernel<T, kDrop, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  encoder_layer_kernel<T, kDrop, true><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), w.w_qkv, w.b_qkv, w.w_out, w.b_out, w.ln1_s, w.ln1_b, w.w1,
-      w.b1, w.w2, w.b2, w.ln2_s, w.ln2_b, static_cast<T*>(out), L, D, H, F, dp);
+      w.b1, w.w2, w.b2, w.ln2_s, w.ln2_b, static_cast<T*>(out), L, D, H, F, dp, kv);
   return (int)cudaGetLastError();
 }
 

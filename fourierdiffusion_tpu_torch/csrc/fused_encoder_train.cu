@@ -37,7 +37,10 @@
 // dqkv, ...) live in a per-chain workspace in device memory that the wrapper
 // allocates, small enough to stay in L2. Each CTA writes its chain's weight
 // gradients to its own partial; the reduction sums the partials of all
-// chains.
+// chains. Where x1 and f2 do not fit beside the hidden chunks in the 227 KB
+// a CTA can have (from L=214 at D=72, L=152 at D=128), they move to the
+// per-chain workspace too (train_bwd_kernel<false>), and shared memory holds
+// only the two hidden chunks.
 
 #include "encoder_layer.cuh"
 
@@ -121,10 +124,16 @@ __device__ __forceinline__ void ln_row_bwd(float* g, const float* xhat, float in
 
 __host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
 
-// Per-chain workspace in device memory, in floats.
+// Whether x1 and f2 fit in shared memory beside the two hidden chunks.
+__host__ __device__ inline bool bwd_x1_in_smem(int L, int D) {
+  return (2 * L * D + 2 * L * kBFC) * (int)sizeof(float) <= kMaxSmem;
+}
+
+// Per-chain workspace in device memory, in floats; x1 and f2 only where
+// they are not in shared memory.
 struct BwdWs {
   int qkv, attn, xhat1, inv1, xhat2, inv2, dx1, da, dao, dattn, dqkv, p, dp, dcol,
-      total;
+      x1, f2, total;
   __host__ __device__ BwdWs(int L, int D) {
     int o = 0;
     qkv = o;   o += up4(L * 3 * D);
@@ -141,6 +150,11 @@ struct BwdWs {
     p = o;     o += up4(L * L);
     dp = o;    o += up4(L * L);
     dcol = o;  o += up4(L);
+    x1 = f2 = 0;
+    if (!bwd_x1_in_smem(L, D)) {
+      x1 = o;  o += up4(L * D);
+      f2 = o;  o += up4(L * D);
+    }
     total = o;
   }
 };
@@ -167,7 +181,7 @@ struct GradOffsets {
 };
 
 __host__ __device__ inline int bwd_smem_floats(int L, int D) {
-  return 2 * L * D + 2 * L * kBFC;
+  return (bwd_x1_in_smem(L, D) ? 2 * L * D : 0) + 2 * L * kBFC;
 }
 
 // Column sums over the chain's L rows: out[c] = sum_l f(l, c).
@@ -205,14 +219,18 @@ __device__ void head_probs(const float* qkv, float* P, int L, int D, int dh, int
   __syncthreads();
 }
 
+// kX1Smem: x1 and f2 in shared memory (bwd_x1_in_smem), else in the workspace.
+template <bool kX1Smem>
 __global__ void __launch_bounds__(kBwdThreads)
 train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                  Weights<float> W, float* __restrict__ dx, float* partials, float* workspace, int L, int D,
                  int H, int F, Dropout dp) {
   extern __shared__ __align__(16) float smem[];
-  float* x1s = smem;               // x1 = LN1 output (L x D)
-  float* f2s = x1s + L * D;        // f2, then dF2 (L x D)
-  float* hs = f2s + L * D;         // hidden chunk: h_pre, then drop(relu(h_pre))
+  const BwdWs wl(L, D);
+  float* ws = workspace + (size_t)blockIdx.x * wl.total;
+  float* x1s = kX1Smem ? smem : ws + wl.x1;         // x1 = LN1 output (L x D)
+  float* f2s = kX1Smem ? x1s + L * D : ws + wl.f2;  // f2, then dF2 (L x D)
+  float* hs = kX1Smem ? f2s + L * D : smem;  // hidden chunk: h_pre, then drop(relu(h_pre))
   float* dhs = hs + L * kBFC;      // hidden chunk gradient
 
   const int tid = threadIdx.x;
@@ -220,9 +238,7 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int b = blockIdx.x;
   const int dh = D / H;
   const int D3 = 3 * D;
-  const BwdWs wl(L, D);
   const GradOffsets go(D, F);
-  float* ws = workspace + (size_t)b * wl.total;
   float* qkv = ws + wl.qkv;
   float* attn = ws + wl.attn;
   float* xhat1 = ws + wl.xhat1;
@@ -449,6 +465,9 @@ extern "C" {
 
 int fdiff_train_fwd_smem_bytes(int L, int D) { return encoder_layer_smem_bytes(L, D); }
 
+// Floats per chain of the forward's K|V workspace (0: none; encoder_layer.cuh).
+int fdiff_train_fwd_kv_floats(int L, int D) { return encoder_layer_kv_floats(L, D); }
+
 int fdiff_train_bwd_smem_bytes(int L, int D) {
   return bwd_smem_floats(L, D) * (int)sizeof(float);
 }
@@ -458,14 +477,16 @@ int fdiff_train_bwd_workspace_floats(int L, int D) { return BwdWs(L, D).total; }
 int fdiff_train_grad_floats(int D, int F) { return GradOffsets(D, F).total; }
 
 // weights: the 12 packed tensors in the order w_qkv, b_qkv, w_out, b_out,
-// ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b. Returns cudaGetLastError()
-// after the launch (0 on success), or the error that stopped it before.
-int fdiff_train_fwd(const void* x, const void* const* weights, void* out, int B, int L,
-                    int D, int H, int F, int group, unsigned int seed, unsigned int thr,
-                    float scale, void* stream) {
+// ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b. kv_ws: B x
+// fdiff_train_fwd_kv_floats floats (null when that is 0). Returns
+// cudaGetLastError() after the launch (0 on success), or the error that
+// stopped it before.
+int fdiff_train_fwd(const void* x, const void* const* weights, void* out, void* kv_ws,
+                    int B, int L, int D, int H, int F, int group, unsigned int seed,
+                    unsigned int thr, float scale, void* stream) {
   const Dropout dp{seed, thr, scale, group};
-  return launch_encoder_layer<float, true>(x, weights_of<float>(weights), out, B, L, D, H,
-                                           F, dp, static_cast<cudaStream_t>(stream));
+  return launch_encoder_layer<float, true>(x, weights_of<float>(weights), out, kv_ws, B, L,
+                                           D, H, F, dp, static_cast<cudaStream_t>(stream));
 }
 
 // Backward body (one CTA per chain, partials (B, grad_floats)), then the
@@ -476,12 +497,13 @@ int fdiff_train_bwd(const void* x, const void* dy, const void* const* weights, v
                     float scale, void* stream) {
   const int bytes = fdiff_train_bwd_smem_bytes(L, D);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = bwd_x1_in_smem(L, D) ? train_bwd_kernel<true> : train_bwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   auto s = static_cast<cudaStream_t>(stream);
   const Dropout dp{seed, thr, scale, group};
-  train_bwd_kernel<<<B, kBwdThreads, bytes, s>>>(
+  kernel<<<B, kBwdThreads, bytes, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(dy),
       weights_of<float>(weights), static_cast<float*>(dx), static_cast<float*>(partials),
       static_cast<float*>(workspace), L, D, H, F, dp);

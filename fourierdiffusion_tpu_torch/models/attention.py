@@ -3,16 +3,20 @@
 
 Weights use the layout of ``nn.MultiheadAttention`` (``in_proj_weight``,
 ``in_proj_bias``, ``out_proj``). The scores and the softmax are fp32 and
-the products take the activation dtype. Two routes share the weights, as
-in the JAX module:
+the products take the activation dtype. The routes are the JAX module's
+with Pallas, with "on CUDA" in place of "on TPU":
 
-* on a CUDA tensor, when no gradient is needed, the attention forward
-  kernel (``ops/flash_attention.py``), as the JAX module takes its Pallas
-  kernel on the TPU: the validation loss and the unfused sampler;
-* otherwise ``dot_product_attention`` in plain tensor operations.
-
-The module draws no dropout: training runs the fused layer
-(``ops/fused_encoder_train.py``), which draws its own masks.
+* no dropout needed (eval mode, or a rate of 0) -> ``flash_attention``:
+  the kernel B2 forward and, when a gradient is taken, B5;
+* training with a rate above 0 -> ``flash_attention_dropout``, the kernels
+  B6 with the mask regenerated in the backward, keyed by a seed drawn per
+  call in ``[0, 2**31 - 1)`` from the caller's ``generator`` on the
+  activations' device, as the JAX module draws it from its dropout rng;
+* on CPU tensors, and with ``plain=True`` on any device (the card's check
+  of the kernels), the plain versions, differentiated by autograd:
+  ``dot_product_attention`` (the JAX module's route off the TPU) and
+  ``flash_attention_dropout_reference``, with the same seed and the same
+  hashed mask as the kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from fourierdiffusion_tpu_torch.models.blocks import TorchLinear
-from fourierdiffusion_tpu_torch.ops.flash_attention import flash_attention
+from fourierdiffusion_tpu_torch.ops import flash_attention as fa
+
+SEED_MAX = 2**31 - 1  # dropout seeds are drawn from [0, SEED_MAX), as in JAX
 
 
 def dot_product_attention(
@@ -38,13 +44,19 @@ def dot_product_attention(
     return out.to(v.dtype)
 
 
+def draw_seed(generator: torch.Generator | None, device: torch.device) -> torch.Tensor:
+    """One int64 seed in ``[0, SEED_MAX)`` from ``generator``, on ``device``."""
+    return torch.randint(0, SEED_MAX, (1,), generator=generator, device=device)
+
+
 class MultiHeadSelfAttention(nn.Module):
-    def __init__(self, d_model: int, n_head: int) -> None:
+    def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0) -> None:
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not a multiple of n_head {n_head}")
         self.d_model = d_model
         self.n_head = n_head
+        self.dropout_rate = dropout_rate
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = TorchLinear(d_model, d_model)
@@ -52,7 +64,10 @@ class MultiHeadSelfAttention(nn.Module):
         nn.init.uniform_(self.in_proj_weight, -bound, bound)
         nn.init.uniform_(self.in_proj_bias, -bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, *,
+        plain: bool = False,
+    ) -> torch.Tensor:
         b, l, d = x.shape
         dh = d // self.n_head
         qkv = F.linear(
@@ -62,12 +77,16 @@ class MultiHeadSelfAttention(nn.Module):
             t.reshape(b, l, self.n_head, dh).transpose(1, 2)
             for t in qkv.split(d, dim=-1)
         )
-        needs_grad = torch.is_grad_enabled() and q.requires_grad
-        if x.device.type == "cuda" and not needs_grad:
-            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        on_card = x.device.type == "cuda" and not plain
+        if self.training and self.dropout_rate > 0.0:
+            seed = draw_seed(generator, x.device)
+            route = fa.flash_attention_dropout if on_card else fa.flash_attention_dropout_reference
+            out = route(q, k, v, seed, self.dropout_rate)
+        elif on_card:
+            out = fa.flash_attention(q, k, v)
         else:
             out = dot_product_attention(q, k, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
 
 
-__all__ = ["MultiHeadSelfAttention", "dot_product_attention"]
+__all__ = ["MultiHeadSelfAttention", "SEED_MAX", "dot_product_attention", "draw_seed"]

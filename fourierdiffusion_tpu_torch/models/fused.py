@@ -11,12 +11,13 @@ the card). Activations stay ``(B, L, D)``: the TPU's transposed, lane-
 padded layout is not needed here. The small embed, time-embedding and
 unembed products stay ``torch.matmul``.
 
-``fused_score_training_forward`` is the training path: the same forward
-with dropout, each encoder layer through ``ops.fused_encoder_train`` (the
-kernels B3 and B4 on the card). Its packing is differentiable, so autograd
-carries the gradients of the packed weights (q-scale folded in, positional
-embedding renormalised with a detached scale) back to the module's
-parameters.
+``fused_score_training_forward`` is the fused training path (the
+trainer's default; ``FDIFF_FUSED_TRAIN=0`` selects the module's own
+forward instead): the same forward with dropout, each encoder layer
+through ``ops.fused_encoder_train`` (the kernels B3 and B4 on the card).
+Its packing is differentiable, so autograd carries the gradients of the
+packed weights (q-scale folded in, positional embedding renormalised with
+a detached scale) back to the module's parameters.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ transformer part of ``ScoreModelConfig`` in
 Channel embed -> learned positional embedding -> Gaussian Fourier time
 embedding -> post-LN encoder stack -> channel unembed. Parameters stay
 fp32; ``dtype`` is the compute dtype, and the score is cast back to the
-input's dtype. The MLP and LSTM score networks are not ported yet.
+input's dtype. In training mode the encoder drops out at ``dropout_rate``
+(default 0.1, as in JAX), drawing from the ``generator`` passed to
+``forward``; eval mode draws nothing. The MLP and LSTM score networks are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ class ScoreTransformer(nn.Module):
         num_layers: int = 10,
         n_head: int = 12,
         dim_feedforward: int = 2048,
-        dropout_rate: float = 0.0,
+        dropout_rate: float = 0.1,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
@@ -49,10 +52,18 @@ class ScoreTransformer(nn.Module):
         self.embedder = TorchLinear(n_channels, d_model)
         self.pos_encoder = PositionalEncoding(d_model, max_len)
         self.time_encoder = GaussianFourierProjection(d_model)
-        self.backbone = TransformerEncoder(d_model, n_head, num_layers, dim_feedforward)
+        self.backbone = TransformerEncoder(
+            d_model, n_head, num_layers, dim_feedforward, dropout_rate
+        )
         self.unembedder = TorchLinear(d_model, n_channels)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, timesteps: torch.Tensor,
+        generator: torch.Generator | None = None, *, plain: bool = False,
+    ) -> torch.Tensor:
+        """Score for ``x`` ``(B, L, C)`` at times ``(B,)``. In training mode
+        the dropout draws come from ``generator`` (on ``x``'s device);
+        ``plain=True`` runs the attention's plain versions on any device."""
         if tuple(x.shape[1:]) != (self.max_len, self.n_channels):
             raise ValueError(
                 f"X has wrong shape, expected (*, {self.max_len}, {self.n_channels}), "
@@ -64,7 +75,7 @@ class ScoreTransformer(nn.Module):
         h = self.embedder(x.to(self.dtype))
         h = self.pos_encoder(h)
         h = self.time_encoder(h, timesteps, use_time_axis=True)
-        h = self.backbone(h)
+        h = self.backbone(h, generator, plain=plain)
         return self.unembedder(h).to(in_dtype)
 
 
@@ -78,7 +89,7 @@ class ScoreModelConfig:
     num_layers: int = 10
     n_head: int = 12
     dim_feedforward: int = 2048
-    dropout_rate: float = 0.0
+    dropout_rate: float = 0.1
     dtype: str = "float32"
 
     def build(self, n_channels: int, max_len: int) -> ScoreTransformer:

@@ -150,13 +150,27 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_encoder")
     lib.fdiff_encoder_layer.restype = ctypes.c_int
     lib.fdiff_encoder_layer.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
-    lib.fdiff_encoder_layer_smem_bytes.restype = ctypes.c_int
-    lib.fdiff_encoder_layer_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for name in ("fdiff_encoder_layer_smem_bytes", "fdiff_encoder_layer_kv_floats"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fdiff_error_string.restype = ctypes.c_char_p
     lib.fdiff_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def kv_workspace(floats_per_chain: int, x: torch.Tensor) -> torch.Tensor | None:
+    """A (B, floats_per_chain) fp32 workspace for the chains' K|V on ``x``'s
+    device, or None where the layer keeps K|V in shared memory."""
+    if not floats_per_chain:
+        return None
+    return torch.empty(x.shape[0], floats_per_chain, device=x.device)
+
+
+def data_ptr(t: torch.Tensor | None) -> int | None:
+    """``t.data_ptr()``, or None (a null pointer for ctypes) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
@@ -175,9 +189,10 @@ def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tor
     if smem > SMEM_LIMIT:
         raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory per block")
     out = torch.empty_like(x)
+    kv = kv_workspace(lib.fdiff_encoder_layer_kv_floats(l, d), x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fdiff_encoder_layer(
-        DTYPES[x.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(),
+        DTYPES[x.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(), data_ptr(kv),
         b, l, d, n_head, d_ff, stream,
     )
     if err != 0:

@@ -33,12 +33,20 @@ import torch.nn.functional as F
 
 from fourierdiffusion_tpu_torch.models.transformer import LN_EPS, TransformerEncoderLayer
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
+from fourierdiffusion_tpu_torch.ops.dropout_hash import (
+    C0,
+    C1,
+    M32,
+    hash_bits,
+    head_group,
+    head_positions,
+    keep_scale,
+    keep_threshold,
+    lanes,
+    mul32,
+)
 
 SITE_ATTN, SITE_OUT, SITE_FF, SITE_FF2 = 0, 1, 2, 3
-LANE = 128
-_VMEM_BUDGET = 14 * 1024 * 1024
-_M32 = 0xFFFFFFFF
-_C0, _C1 = 1000003, 19349663
 
 LAYER_KEYS = fe._LAYER_KEYS  # the packed layout is the sampling kernel's
 
@@ -51,55 +59,15 @@ bwd_launches = 0
 # ---- head groups and dropout masks ---------------------------------------------
 
 
-def head_group(n_head: int, lp: int, live_bytes_per_elem: int) -> int:
-    """Largest divisor of ``n_head`` whose ``(g, Lp, Lp)`` fp32 intermediates
-    fit the TPU kernel's VMEM budget (a copy of ``_head_group``): the mask
-    of the attention site is keyed per head group."""
-    g = n_head
-    while g > 1 and g * lp * lp * live_bytes_per_elem > _VMEM_BUDGET:
-        g -= 1
-        while g > 1 and n_head % g:
-            g -= 1
-    return max(g, 1)
-
-
 def train_group(n_head: int, max_len: int) -> int:
     """Heads per group of the training kernels: one group of 12 at L=100,
-    two of 6 at L=187."""
-    lp = -(-max_len // LANE) * LANE
-    return head_group(n_head, lp, live_bytes_per_elem=24)
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``, without overflow."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def hash_bits(idx: torch.Tensor, key: torch.Tensor | int) -> torch.Tensor:
-    """The TPU kernel's murmur3 finalizer, on uint32 values held in int64."""
-    x = idx ^ key
-    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
-    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
-    return x ^ (x >> 16)
+    two of 6 at L=187, three of 4 at L=365."""
+    return head_group(n_head, lanes(max_len), live_bytes_per_elem=24)
 
 
 def mask_key(seed: int, chain: torch.Tensor, site: int, extra=0) -> torch.Tensor:
     """``seed + chain*131071 + site*7919 + extra*104729`` wrapped to uint32."""
-    return (seed + chain * 131071 + site * 7919 + extra * 104729) & _M32
-
-
-def keep_threshold(rate: float) -> tuple[int, float]:
-    """Keep where the bits are below the threshold; kept values are scaled."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    return int((1.0 - rate) * (2**32 - 1)), 1.0 / (1.0 - rate)
-
-
-def _keep(bits: torch.Tensor, rate: float) -> torch.Tensor:
-    thr, scale = keep_threshold(rate)
-    kept = torch.tensor(scale, dtype=torch.float32, device=bits.device)
-    return torch.where(bits < thr, kept, torch.zeros((), device=bits.device))
+    return (seed + chain * 131071 + site * 7919 + extra * 104729) & M32
 
 
 def dropout_masks(
@@ -118,20 +86,15 @@ def dropout_masks(
     pos = torch.arange(max_len, **i64)
 
     def site_2d(n_cols: int, site: int) -> torch.Tensor:
-        row = _mul32(_mul32(torch.arange(n_cols, **i64), _C0), _C1)  # (N,)
-        idx = (row[None, :] + pos[:, None]) & _M32  # (L, N)
+        row = mul32(mul32(torch.arange(n_cols, **i64), C0), C1)  # (N,)
+        idx = (row[None, :] + pos[:, None]) & M32  # (L, N)
         key = mask_key(seed, chain, site)[:, None, None]
-        return _keep(hash_bits(idx[None], key), rate)
+        return keep_scale(hash_bits(idx[None], key), rate)
 
-    group = train_group(n_head, max_len)
-    head = torch.arange(n_head, **i64)
-    g, g0 = head % group, head - head % group
-    gi = (_mul32(_mul32(g, _C0), _C1)[:, None] + pos[None, :]) & _M32  # (H, L)
-    idx = (_mul32(gi, _C1)[:, :, None] + pos[None, None, :]) & _M32  # (H, L, L)
+    idx, g0 = head_positions(n_head, max_len, train_group(n_head, max_len), device)
     key = mask_key(seed, chain[:, None], SITE_ATTN, g0[None, :])  # (B, H)
-    attn = _keep(hash_bits(idx[None], key[:, :, None, None]), rate)
     return {
-        "attn": attn,
+        "attn": keep_scale(hash_bits(idx[None], key[:, :, None, None]), rate),
         "out": site_2d(d_model, SITE_OUT),
         "ff": site_2d(d_ff, SITE_FF),
         "ff2": site_2d(d_model, SITE_FF2),
@@ -235,13 +198,14 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_encoder_train")
     i, u, p, f = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_float
     dropout = [i, u, u, f, p]  # group, seed, threshold, scale, stream
-    lib.fdiff_train_fwd.argtypes = [p, p, p] + [i] * 5 + dropout
+    lib.fdiff_train_fwd.argtypes = [p, p, p, p] + [i] * 5 + dropout
     lib.fdiff_train_bwd.argtypes = [p] * 7 + [i] * 5 + dropout
     lib.fdiff_dropout_masks.argtypes = [p] * 4 + [i] * 5 + dropout
     for name in ("fdiff_train_fwd", "fdiff_train_bwd", "fdiff_dropout_masks"):
         getattr(lib, name).restype = i
-    for name in ("fdiff_train_fwd_smem_bytes", "fdiff_train_bwd_smem_bytes",
-                 "fdiff_train_bwd_workspace_floats", "fdiff_train_grad_floats"):
+    for name in ("fdiff_train_fwd_smem_bytes", "fdiff_train_fwd_kv_floats",
+                 "fdiff_train_bwd_smem_bytes", "fdiff_train_bwd_workspace_floats",
+                 "fdiff_train_grad_floats"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, i]
     lib.fdiff_train_error_string.restype = ctypes.c_char_p
@@ -268,7 +232,7 @@ def _dims(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tuple
 def _dropout_args(seed: int, rate: float, x: torch.Tensor) -> list:
     thr, scale = keep_threshold(rate)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return [seed & _M32, thr, scale, stream]
+    return [seed & M32, thr, scale, stream]
 
 
 def _weight_ptrs(layer: dict[str, torch.Tensor]):
@@ -279,11 +243,13 @@ def _launch_fwd(x, layer, seed: int, n_head: int, rate: float) -> torch.Tensor:
     global fwd_launches
     b, l, d, h, f, group = _dims(x, layer, n_head)
     lib = _library()
-    if lib.fdiff_train_fwd_smem_bytes(l, d) > 232448:
+    if lib.fdiff_train_fwd_smem_bytes(l, d) > fe.SMEM_LIMIT:
         raise ValueError(f"L={l}, D={d} needs too much shared memory for the forward")
     out = torch.empty_like(x)
+    kv = fe.kv_workspace(lib.fdiff_train_fwd_kv_floats(l, d), x)
     err = lib.fdiff_train_fwd(
-        x.data_ptr(), _weight_ptrs(layer), out.data_ptr(), b, l, d, h, f, group,
+        x.data_ptr(), _weight_ptrs(layer), out.data_ptr(), fe.data_ptr(kv), b, l, d, h, f,
+        group,
         *_dropout_args(seed, rate, x),
     )
     _raise_on(err, "training forward kernel")
@@ -296,7 +262,7 @@ def _launch_bwd(x, dy, layer, seed: int, n_head: int, rate: float):
     b, l, d, h, f, group = _dims(x, layer, n_head)
     dy = dy.contiguous()
     lib = _library()
-    if lib.fdiff_train_bwd_smem_bytes(l, d) > 232448:
+    if lib.fdiff_train_bwd_smem_bytes(l, d) > fe.SMEM_LIMIT:
         raise ValueError(f"L={l}, D={d} needs too much shared memory for the backward")
     n_grad = lib.fdiff_train_grad_floats(d, f)
     workspace = torch.empty(b, lib.fdiff_train_bwd_workspace_floats(l, d), device=x.device)

@@ -4,11 +4,17 @@
 
 * each epoch draws a wrap-around permutation of the training split
   (``ceil(n / B)`` steps of ``B`` series);
-* each step draws ``t``, ``z`` and one dropout seed per layer, takes the
-  DSM loss through ``fused_score_training_forward`` (on the card every
-  layer runs the training kernels B3 forward and B4 backward), clips the
-  gradient to global norm ``gradient_clip_val`` and applies AdamW with the
-  warmup-cosine schedule (``training/optim.py``), then the EMA;
+* each step draws ``t`` and ``z``, takes the DSM loss through the score
+  network in training mode, clips the gradient to global norm
+  ``gradient_clip_val`` and applies AdamW with the warmup-cosine schedule
+  (``training/optim.py``), then the EMA. The score network runs one of two
+  paths, chosen as JAX's ``_use_fused_train`` does from
+  ``FDIFF_FUSED_TRAIN``: unset or ``1``, the fused path
+  (``fused_score_training_forward``, one dropout seed per layer drawn per
+  step; on the card every layer runs the training kernels B3 forward and
+  B4 backward); ``0``, the unfused path (the module's own forward in
+  training mode, drawing its dropout from the step's generator; on the
+  card its attention runs B6 forward and backward, or B2 and B5 at rate 0);
 * after each epoch the validation loss is the mean over ``val_noise_draws``
   fixed draws of ``(t, z)``, drawn once per ``fit`` and reused every epoch,
   of the loss over the batches ``arange(ceil(n / B) * B) % n``, computed by
@@ -18,17 +24,22 @@
   loss is not finite or exceeds ``spike_rollback_factor`` times the median
   of the last (up to 10) epochs, with at least 5 recorded, the state
   rewinds to the older of two snapshots and training continues under a
-  perturbed random stream, at most ``spike_rollback_retries`` times.
+  perturbed random stream, at most ``spike_rollback_retries`` times;
+* each epoch's ``steps_per_sec`` is its steps over the seconds from the
+  start of the epoch through validation and the guard, as in JAX;
+  ``train_seconds`` and ``val_seconds`` are the two parts.
 
 Random draws come from ``torch.Generator``s seeded with ``seed``; they
 differ from ``jax.random``'s, so the parity tests hand the JAX draws in
 through ``loss_and_grads``/``train_step``. Checkpoints, resume, callbacks,
-the device mesh, gradient accumulation and bf16 training are not ported.
+the device mesh, gradient accumulation, bf16 training and the MLP and LSTM
+score networks are not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import statistics
 import time
 from collections import deque
@@ -39,19 +50,26 @@ from fourierdiffusion_tpu_torch import resolve_device
 from fourierdiffusion_tpu_torch.data.batch import DiffusableBatch
 from fourierdiffusion_tpu_torch.data.datamodules import Datamodule
 from fourierdiffusion_tpu_torch.losses import draw_loss_noise, sde_loss
+from fourierdiffusion_tpu_torch.models.attention import SEED_MAX
 from fourierdiffusion_tpu_torch.models.fused import fused_score_training_forward
 from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
 from fourierdiffusion_tpu_torch.training.optim import cosine_warmup_schedule, make_optimizer
 
-SEED_MAX = 2**31 - 1  # layer seeds are drawn from [0, SEED_MAX), as in JAX
+
+def use_fused_train() -> bool:
+    """The fused training path unless ``FDIFF_FUSED_TRAIN=0`` (JAX's
+    ``_use_fused_train``; the port takes the fused path on any device)."""
+    return os.environ.get("FDIFF_FUSED_TRAIN") != "0"
 
 
 class Trainer:
     """Fits a ``ScoreTransformer`` (moved to ``device``) on a datamodule.
 
-    ``plain=True`` runs each training layer's plain PyTorch version instead
-    of the kernels, with the same masks: a check of the kernels on the card.
+    ``plain=True`` runs the plain PyTorch versions instead of the kernels,
+    with the same seeds, masks and draws: a check of the kernels on the card
+    (each training layer's plain version on the fused path, the attention's
+    on the unfused path).
     """
 
     def __init__(
@@ -109,14 +127,25 @@ class Trainer:
         )
 
     def train_loss(
-        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
+        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """DSM loss of one batch through the fused training forward."""
+        """DSM loss of one batch in training mode: on the fused path with one
+        dropout seed per layer (``layer_seeds``), on the unfused path with
+        the dropout drawn from ``generator`` (on the model's device)."""
+        if use_fused_train():
+            if layer_seeds is None:
+                raise ValueError("the fused training path needs layer_seeds")
 
-        def score_fn(b: DiffusableBatch) -> torch.Tensor:
-            return fused_score_training_forward(
-                self.model, b.X, b.timesteps, layer_seeds, plain=self.plain
-            )
+            def score_fn(b: DiffusableBatch) -> torch.Tensor:
+                return fused_score_training_forward(
+                    self.model, b.X, b.timesteps, layer_seeds, plain=self.plain
+                )
+        else:
+            self.model.train()
+
+            def score_fn(b: DiffusableBatch) -> torch.Tensor:
+                return self.model(b.X, b.timesteps, generator, plain=self.plain)
 
         return sde_loss(
             score_fn, self.scheduler, DiffusableBatch(X=x, timesteps=t), z=z,
@@ -124,16 +153,18 @@ class Trainer:
         )
 
     def loss_and_grads(
-        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
+        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        loss = self.train_loss(x, t, z, layer_seeds)
+        loss = self.train_loss(x, t, z, layer_seeds, generator=generator)
         return loss.detach(), list(torch.autograd.grad(loss, self.params))
 
     def train_step(
-        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor, layer_seeds: list[int]
+        self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
+        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Loss, gradients, clipped AdamW update and EMA; returns the loss."""
-        loss, grads = self.loss_and_grads(x, t, z, layer_seeds)
+        loss, grads = self.loss_and_grads(x, t, z, layer_seeds, generator=generator)
         self.optimizer.step(grads)
         if self.ema_decay > 0.0:
             t_ema = float(self.step + 1)
@@ -152,8 +183,10 @@ class Trainer:
 
     @torch.no_grad()
     def val_loss(self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """DSM loss of one batch through the module's forward, no dropout."""
+        """DSM loss of one batch through the module's forward in eval mode
+        (no dropout)."""
         state = {**self.eval_params(), **dict(self.model.named_buffers())}
+        self.model.eval()
 
         def score_fn(b: DiffusableBatch) -> torch.Tensor:
             return torch.func.functional_call(self.model, state, (b.X, b.timesteps))
@@ -234,11 +267,17 @@ class Trainer:
                 snapshots.append((epoch, self._snapshot()))
             t0 = time.perf_counter()
             losses = []
+            fused = use_fused_train()
             for idx in perm:
                 x = x_train[idx]
                 t, z = draw_loss_noise(self.scheduler, x, dev_gen)
-                seeds = torch.randint(0, SEED_MAX, (self.model.num_layers,), generator=host_gen)
-                losses.append(self.train_step(x, t, z, seeds.tolist()))
+                if fused:
+                    seeds = torch.randint(
+                        0, SEED_MAX, (self.model.num_layers,), generator=host_gen
+                    )
+                    losses.append(self.train_step(x, t, z, seeds.tolist()))
+                else:
+                    losses.append(self.train_step(x, t, z, generator=dev_gen))
             train_loss = torch.stack(losses).mean().item()
             self._sync()
             train_s = time.perf_counter() - t0
@@ -268,6 +307,7 @@ class Trainer:
                     epoch = rewind_epoch
                     continue
             recent.append(train_loss)
+            epoch_s = time.perf_counter() - t0
             metrics = {
                 "train/loss": train_loss,
                 "val/loss": val_loss,
@@ -276,7 +316,7 @@ class Trainer:
                 "step": self.step,
                 "train_seconds": train_s,
                 "val_seconds": val_s,
-                "steps_per_sec": steps_per_epoch / train_s,
+                "steps_per_sec": steps_per_epoch / epoch_s,
             }
             if stream_salt:
                 metrics["stream_salt"] = stream_salt
@@ -286,4 +326,4 @@ class Trainer:
         return history
 
 
-__all__ = ["SEED_MAX", "Trainer"]
+__all__ = ["SEED_MAX", "Trainer", "use_fused_train"]

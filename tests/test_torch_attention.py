@@ -1,30 +1,40 @@
-"""Port parity of the attention forward (``ops/flash_attention.py``) against
-the JAX package's ``flash_attention``, on the CPU.
+"""Port parity of the attention forward and backward, with and without
+dropout (``ops/flash_attention.py``), against the JAX package's
+``flash_attention`` and ``flash_attention_dropout``, on the CPU.
 
-The JAX side runs its Pallas forward kernels in interpret mode, as
-``tests/test_flash_attention.py`` does; the port's wrapper, given CPU
-tensors, runs its plain PyTorch version. The kernel itself runs only on a
-CUDA card (``tests/test_torch_cuda.py``).
+The JAX side runs its Pallas kernels in interpret mode, as
+``tests/test_flash_attention.py`` does; the port's wrappers, given CPU
+tensors, run their plain PyTorch versions (forward and backward). The
+kernels themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
 
 Tolerances: fp32 1e-5 absolute and relative (the same arithmetic, summed
-in other orders). bf16 2**-5 absolute on outputs of size up to ~2: both
-round q, P and O to bf16 at the same points, and a different fp32 sum
-order can flip one rounding, which moves an output by one bf16 ulp
-(2**-7 to 2**-6 at these sizes).
+in other orders); gradients 1e-5 of each tensor's largest entry (the same
+fp32 backward arithmetic, summed in other orders: JAX over 128 padded
+lanes, the port over exactly L keys). bf16 2**-5 absolute on outputs of
+size up to ~2: both round q, P and O to bf16 at the same points, and a
+different fp32 sum order can flip one rounding, which moves an output by
+one bf16 ulp (2**-7 to 2**-6 at these sizes). The dropout masks bit for
+bit (the same hash of the same positions).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 from test_torch_models import jax_and_port_models, numpy_inputs
 
+from fourierdiffusion_tpu.ops import flash_attention as jax_fa
 from fourierdiffusion_tpu.ops.flash_attention import flash_attention as jax_flash
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2.0**-5, rtol=0.0)}
+GRAD_REL = 1e-5
+RATE = 0.1
 
 
 def _qkv(shape, seed=3):
@@ -58,12 +68,116 @@ def test_fast_form_only_for_bf16_below_dh16() -> None:
     assert not fa._fast(torch.zeros(1, 1, 2, 6))
 
 
-def test_flash_attention_refuses_gradients() -> None:
-    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((1, 2, 5, 6)))
-    with pytest.raises(RuntimeError, match="B5"):
-        fa.flash_attention(q, k, v)
-    with torch.no_grad():
-        assert fa.flash_attention(q, k, v).shape == q.shape
+def _assert_grads_close(ours, ref, names=("dq", "dk", "dv")) -> None:
+    for name, got, want in zip(names, ours, ref):
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(got.detach().numpy() - want).max()) / float(np.abs(want).max())
+        assert err <= GRAD_REL, (name, err)
+
+
+def _port_vjp(fn, q, k, v, do):
+    """The port's output and autograd gradients of ``fn`` on CPU tensors."""
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fn(qt, kt, vt)
+    return out, torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("l", [100, 365], ids=["L100", "L365"])
+def test_flash_attention_backward_matches_jax(l: int) -> None:
+    """B5's plain version: the port's forward and autograd backward against
+    ``jax.vjp`` of JAX's ``flash_attention`` (its ``_bwd_kernel``)."""
+    q, k, v = _qkv((2, 12, l, 4), seed=4)
+    do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    out_ref, vjp = jax.vjp(jax_flash, *(jnp.asarray(a) for a in (q, k, v)))
+    before = (fa.launches, fa.bwd_launches)
+    out, grads = _port_vjp(fa.flash_attention, q, k, v, do)
+    assert (fa.launches, fa.bwd_launches) == before  # CPU tensors never reach a kernel
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **TOL["float32"])
+    _assert_grads_close(grads, vjp(jnp.asarray(do)))
+
+
+def test_flash_attention_backward_takes_noncontiguous_heads() -> None:
+    """The module hands in heads transposed out of (B, L, H, dh)."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).requires_grad_(True)
+               for a in _qkv((2, 19, 4, 6), seed=6))
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    qc, kc, vc = (t.detach().contiguous().requires_grad_(True) for t in (q, k, v))
+    ref = torch.autograd.grad(fa.flash_attention_reference(qc, kc, vc).sum(), (qc, kc, vc))
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _jax_attention_masks(batch: int, n_head: int, max_len: int, seed: int) -> np.ndarray:
+    """The masks JAX's dropout kernels draw: ``_keep_scale`` per head group
+    inside an interpret-mode Pallas call with one program per chain, as
+    ``(B, H, L, L)``."""
+    lp = -(-max_len // 128) * 128
+    group = jax_fa._bwd_group(n_head, lp)
+    n_groups = n_head // group
+
+    def kernel(seed_ref, out_ref):
+        for gi in range(n_groups):
+            out_ref[0, gi] = jax_fa._keep_scale((group, lp, lp), RATE, seed_ref[0], gi * group)
+
+    shape = (n_groups, group, lp, lp)
+    spec = pl.BlockSpec((1,) + shape, lambda b, s: (b, 0, 0, 0, 0), memory_space=pltpu.VMEM)
+    out = pl.pallas_call(
+        kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(batch,), in_specs=[], out_specs=spec),
+        out_shape=jax.ShapeDtypeStruct((batch,) + shape, jnp.float32),
+        interpret=True,
+    )(jnp.asarray([seed], jnp.int32))
+    return np.asarray(out).reshape(batch, n_head, lp, lp)[:, :, :max_len, :max_len]
+
+
+@pytest.mark.parametrize(
+    "l,seed,groups",
+    [(100, 1234567, 1), (100, 2**31 - 2, 1), (365, 77, 3), (365, 2**31 - 2, 3)],
+    ids=["L100", "L100-tag-wraps", "L365-three-groups", "L365-tag-wraps"],
+)
+def test_dropout_masks_match_jax_bit_for_bit(l: int, seed: int, groups: int) -> None:
+    """B6's mask: tag ``seed + b*131071 + g0`` (no site term), bits at the
+    head's (g, i, j) inside its group, one group of 12 at L=100, three of 4
+    at L=365."""
+    n_head = 12
+    lp = -(-l // 128) * 128
+    assert fa.attention_group(n_head, l) == jax_fa._bwd_group(n_head, lp) == n_head // groups
+    ours = fa.attention_keep(2, n_head, l, seed, RATE).numpy()
+    np.testing.assert_array_equal(ours, _jax_attention_masks(2, n_head, l, seed))
+    # Near 2**31 the second chain's tag passes the int32 range, where JAX's
+    # int32 sum wraps; both sides take the tag mod 2**32.
+    assert abs(float(np.mean(ours > 0)) - (1 - RATE)) < 0.01
+
+
+@pytest.mark.parametrize("l,seed", [(100, 2**31 - 2), (365, 99)], ids=["L100", "L365"])
+def test_flash_attention_dropout_matches_jax(l: int, seed: int) -> None:
+    """B6's plain versions: forward and dq, dk, dv against JAX's
+    ``flash_attention_dropout`` in interpret mode."""
+    q, k, v = _qkv((2, 12, l, 4), seed=7)
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    jseed = jnp.asarray(seed, jnp.int32)
+    out_ref, vjp = jax.vjp(
+        lambda a, b, c: jax_fa.flash_attention_dropout(a, b, c, jseed, RATE),
+        *(jnp.asarray(a) for a in (q, k, v)),
+    )
+    before = (fa.dropout_fwd_launches, fa.dropout_bwd_launches)
+    out, grads = _port_vjp(
+        lambda a, b, c: fa.flash_attention_dropout(a, b, c, seed, RATE), q, k, v, do)
+    assert (fa.dropout_fwd_launches, fa.dropout_bwd_launches) == before
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **TOL["float32"])
+    _assert_grads_close(grads, vjp(jnp.asarray(do)))
+
+
+def test_dropout_seed_may_be_a_tensor() -> None:
+    q, k, v = (torch.from_numpy(a) for a in _qkv((2, 4, 19, 6), seed=9))
+    a = fa.flash_attention_dropout(q, k, v, 2**31 - 7, RATE)
+    b = fa.flash_attention_dropout(q, k, v, torch.tensor([2**31 - 7]), RATE)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="rate"):
+        fa.flash_attention_dropout(q, k, v, 1, 1.0)
 
 
 def test_flash_attention_checks_inputs() -> None:
@@ -76,14 +190,32 @@ def test_flash_attention_checks_inputs() -> None:
         fa.flash_attention(q.half(), k.half(), v.half())
 
 
-def test_module_forward_draws_no_dropout() -> None:
-    """The unfused module never draws dropout, whatever its rate: it matches
-    the JAX module's deterministic forward, and two calls agree exactly."""
+def test_module_eval_mode_draws_nothing() -> None:
+    """In eval mode the module draws no dropout, whatever its rate: the
+    generator it is handed stays where it was, and the output is the JAX
+    module's deterministic forward."""
     jmodel, variables, model = jax_and_port_models(19, 1, dropout_rate=0.5)
-    x, t = numpy_inputs(2, 19, 1)
-    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x), jnp.asarray(t)))
+    x, t = (torch.from_numpy(a) for a in numpy_inputs(2, 19, 1))
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x.numpy()), jnp.asarray(t.numpy())))
+    g = torch.Generator().manual_seed(3)
+    state = g.get_state()
     with torch.no_grad():
-        a = model(torch.from_numpy(x), torch.from_numpy(t))
-        b = model(torch.from_numpy(x), torch.from_numpy(t))
+        a = model(x, t, g)
+        b = model(x, t)
+    assert torch.equal(g.get_state(), state)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     np.testing.assert_allclose(a.numpy(), ref, **TOL["float32"])
+
+
+def test_module_training_mode_draws_from_the_generator() -> None:
+    _, _, model = jax_and_port_models(19, 1, dropout_rate=0.3)
+    model.train()
+    x, t = (torch.from_numpy(a) for a in numpy_inputs(2, 19, 1))
+    with torch.no_grad():
+        a = model(x, t, torch.Generator().manual_seed(1))
+        b = model(x, t, torch.Generator().manual_seed(1))
+        c = model(x, t, torch.Generator().manual_seed(2))
+        model.eval()
+        d = model(x, t)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c) and not torch.equal(a, d)

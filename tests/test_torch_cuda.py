@@ -11,12 +11,19 @@ without JAX. There, from the repository root::
 Tolerances, as in ``chip_smoke.py``: a kernel's output against its plain
 version, 1e-4 in fp32 (fp32 sums in other orders) and 2**-4 in bf16 (one
 flipped rounding of an intermediate moves an output by about one bf16 ulp);
-the training backward's gradients 1e-3 of each tensor's largest gradient
-(sums over up to 64 x 187 positions, in other orders); the dropout masks
+the backward kernels' gradients 1e-3 of each tensor's largest gradient
+(sums over up to 64 x 365 positions, in other orders); the dropout masks
 bit for bit.
+
+The long sequences of the real datasets (NASA L=251, NASDAQ 252,
+USDroughts 365 at d_model 72) and the d_model 128 shapes at ECG's L=187
+(``configs/score_model/fast.yaml`` F 2048, ``fast512.yaml`` F 512) take the
+layer kernels' device-memory workspaces.
 """
 
 from __future__ import annotations
+
+import math
 
 import pytest
 import torch
@@ -32,6 +39,10 @@ from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-4}
+# (b, l, d, n_head, d_ff) of the long sequences and the wide layers.
+LONG_SHAPES = [(2, 251, 72, 12, 2048), (2, 252, 72, 12, 2048), (2, 365, 72, 12, 2048),
+               (2, 187, 128, 8, 2048), (2, 187, 128, 8, 512)]
+LONG_IDS = ["L251", "L252", "L365", "D128-F2048", "D128-F512"]
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +77,12 @@ def test_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff) -> None:
     ref = fe.fused_encoder_layer_reference(x, packed, n_head)
     assert out.dtype == dtype and out.shape == x.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", LONG_SHAPES, ids=LONG_IDS)
+def test_kernel_matches_plain_on_long_sequences(cuda, dtype, b, l, d, n_head, d_ff) -> None:
+    test_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff)
 
 
 def test_kernel_rejects_noncontiguous_input(cuda) -> None:
@@ -136,13 +153,69 @@ def test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff) -> None
         assert rel <= 1e-3, (name, rel)
 
 
-@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", LONG_SHAPES, ids=LONG_IDS)
+def test_training_kernels_match_plain_on_long_sequences(cuda, b, l, d, n_head, d_ff) -> None:
+    test_training_kernels_match_plain(cuda, 0.1, b, l, d, n_head, d_ff)
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES + LONG_SHAPES[2:3], ids=SHAPE_IDS + ["L365"])
 def test_kernel_masks_are_bit_identical(cuda, b, l, d, n_head, d_ff) -> None:
     args = (b, l, d, d_ff, n_head, 2**31 - 2, 0.1)
     ours = fet.dropout_masks_cuda(*args, device=cuda)
     ref = fet.dropout_masks(*args, device=cuda)
     for key in ref:
         assert torch.equal(ours[key], ref[key]), key
+
+
+def _attention_grads(fn, q, k, v, do):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    return out, torch.autograd.grad(out, (q, k, v), do)
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,l", [(64, 100), (8, 365), (3, 19)], ids=["L100", "L365", "L19"])
+def test_attention_backward_kernels_match_plain(cuda, rate, b, l) -> None:
+    """B5 (rate 0) and B6 (rate 0.1), forward and backward, against their
+    plain versions, on heads transposed out of (B, L, H, dh) as the module
+    hands them in."""
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(b, l, 12, 6, generator=g).to(cuda).transpose(1, 2)
+               for _ in range(3))
+    do = torch.randn(b, 12, l, 6, generator=g).to(cuda)
+    seed = 2**31 - 3
+    if rate:
+        kernel = lambda *t: fa.flash_attention_dropout(*t, seed, rate)  # noqa: E731
+        plain = lambda *t: fa.flash_attention_dropout_reference(*t, seed, rate)  # noqa: E731
+        counts = ("dropout_fwd_launches", "dropout_bwd_launches")
+    else:
+        kernel, plain = fa.flash_attention, fa.flash_attention_reference
+        counts = ("launches", "bwd_launches")
+    before = [getattr(fa, c) for c in counts]
+    out, grads = _attention_grads(kernel, q, k, v, do)
+    torch.cuda.synchronize()
+    assert [getattr(fa, c) for c in counts] == [n + 1 for n in before]
+    ref, ref_grads = _attention_grads(plain, q, k, v, do)
+    assert (out - ref).abs().max().item() <= 1e-4
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert _rel(got, want) <= 1e-3, name
+    if rate:
+        ref_bwd = fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed, rate)
+        assert fa.dropout_bwd_launches == before[1] + 1
+    else:
+        ref_bwd = fa.flash_attention_bwd_reference(q, k, v, do)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_bwd):
+        assert _rel(got, want) <= 1e-3, name
+
+
+@pytest.mark.parametrize("l,seed", [(100, 2**31 - 2), (365, 5)], ids=["L100", "L365"])
+def test_attention_masks_are_bit_identical(cuda, l, seed) -> None:
+    ours = fa.attention_keep_cuda(3, 12, l, seed, 0.1, device=cuda)
+    assert torch.equal(ours, fa.attention_keep(3, 12, l, seed, 0.1, device=cuda))
 
 
 def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
@@ -155,9 +228,43 @@ def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
     q = torch.zeros(1, 2, 5, 6, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q, q, q)
-    q = torch.zeros(1, 2, 5, 6, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="B5"):
-        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 5, 6, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="fp32 only"):
+        fa.flash_attention(q, q, q).sum().backward()
+    with pytest.raises(ValueError, match="fp32 only"):
+        fa.flash_attention_dropout(q, q, q, 1, 0.1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_unfused_trainer_runs_every_layer_through_the_kernels(cuda, rate, monkeypatch) -> None:
+    from fourierdiffusion_tpu_torch.data import DummyDatamodule
+    from fourierdiffusion_tpu_torch.schedulers import VPScheduler
+    from fourierdiffusion_tpu_torch.training import Trainer
+
+    monkeypatch.setenv("FDIFF_FUSED_TRAIN", "0")
+    torch.manual_seed(3)
+    model = ScoreModelConfig(
+        d_model=24, n_head=4, num_layers=2, dim_feedforward=64, dropout_rate=rate
+    ).build(2, 19)
+    dm = DummyDatamodule(batch_size=8, n_channels=2, max_len=19, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    trainer = Trainer(model, VPScheduler(), max_epochs=1, val_noise_draws=2, device=cuda)
+    fet.fwd_launches = fet.bwd_launches = fa.launches = fa.bwd_launches = 0
+    fa.dropout_fwd_launches = fa.dropout_bwd_launches = 0
+    history = trainer.fit(dm)
+    steps = dm.steps_per_epoch
+    train = steps * 2  # steps x layers
+    assert (fet.fwd_launches, fet.bwd_launches) == (0, 0)
+    if rate:
+        assert (fa.dropout_fwd_launches, fa.dropout_bwd_launches, fa.bwd_launches) == (
+            train, train, 0)
+        assert fa.launches == 2 * steps * 2  # validation only
+    else:
+        assert (fa.dropout_fwd_launches, fa.bwd_launches) == (0, train)
+        assert fa.launches == train + 2 * steps * 2
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert len(history) == 1 and history[0]["step"] == steps
 
 
 def test_trainer_runs_every_layer_through_the_kernels(cuda) -> None:
@@ -181,3 +288,29 @@ def test_trainer_runs_every_layer_through_the_kernels(cuda) -> None:
     assert fa.launches == 2 * steps * 2  # draws x validation batches x layers
     assert all(torch.isfinite(p).all() for p in model.parameters())
     assert len(history) == 1 and history[0]["step"] == steps
+
+
+def test_sampler_and_fused_trainer_run_at_L365(cuda) -> None:
+    """The sampler's fused route (B1) and the fused trainer (B3, B4) at
+    USDroughts' length, where the layer kernels use their workspaces."""
+    from fourierdiffusion_tpu_torch.data import DummyDatamodule
+    from fourierdiffusion_tpu_torch.sampling import DiffusionSampler
+    from fourierdiffusion_tpu_torch.schedulers import VPScheduler
+    from fourierdiffusion_tpu_torch.training import Trainer
+
+    torch.manual_seed(4)
+    model = ScoreModelConfig(d_model=72, n_head=12, num_layers=1).build(1, 365)
+    sampler = DiffusionSampler(model, VPScheduler(fourier_noise_scaling=True), max_len=365,
+                               n_channels=1, sample_batch_size=4, device=cuda)
+    fe.launches = 0
+    out = sampler.sample(4, num_diffusion_steps=3,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    assert fe.launches == 3 and out.shape == (4, 365, 1) and torch.isfinite(out).all()
+    dm = DummyDatamodule(batch_size=4, n_channels=1, max_len=365, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    trainer = Trainer(model, VPScheduler(), max_epochs=1, val_noise_draws=1, device=cuda)
+    fet.fwd_launches = fet.bwd_launches = 0
+    history = trainer.fit(dm)
+    assert (fet.fwd_launches, fet.bwd_launches) == (dm.steps_per_epoch,) * 2
+    assert math.isfinite(history[0]["train/loss"]) and math.isfinite(history[0]["val/loss"])

@@ -6,10 +6,9 @@
 * ``chip_smoke.py`` fails, and prints no result, where CUDA is absent.
 * A CPU tensor never reaches a kernel, and the public sampler's and the
   trainer's default device is CUDA, which they do not trade for the CPU.
-* The kernel wrappers check the dtype before they look at the device, hold
-  no ``try`` that could fall back to the plain version, and the attention
-  forward (B2) refuses to be differentiated (its backward, B5, is not
-  ported). The CUDA-tensor cases are in ``tests/test_torch_cuda.py``.
+* The kernel wrappers check the dtype before they look at the device and
+  hold no ``try`` that could fall back to the plain version. The
+  CUDA-tensor cases are in ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -159,10 +158,14 @@ def test_wrappers_run_only_on_cuda_or_cpu() -> None:
         )
 
 
-def test_attention_forward_refuses_gradients() -> None:
-    q = torch.randn(1, 2, 5, 6, requires_grad=True)
-    with pytest.raises(RuntimeError, match="B5"):
-        fa.flash_attention(q, q, q)
+def test_cpu_attention_gradients_never_launch_a_kernel() -> None:
+    q, k, v = (torch.randn(1, 2, 5, 6, requires_grad=True) for _ in range(3))
+    counts = ("launches", "bwd_launches", "dropout_fwd_launches", "dropout_bwd_launches")
+    before = [getattr(fa, c) for c in counts]
+    (fa.flash_attention(q, k, v).sum() + fa.flash_attention_dropout(q, k, v, 3, 0.1).sum()
+     ).backward()
+    assert [getattr(fa, c) for c in counts] == before
+    assert all(t.grad is not None for t in (q, k, v))
 
 
 def test_cpu_tensors_never_launch_the_training_kernels() -> None:

@@ -64,12 +64,13 @@ def test_hash_bits_match_jax(seed: int) -> None:
         np.testing.assert_array_equal(ours, ref.astype(np.int64))
 
 
-def _jax_masks(batch: int, lp: int, d_ff: int, group: int, seed: int, rate: float):
+def _jax_masks(batch: int, lp: int, d_ff: int, group: int, seed: int, rate: float,
+               d_model: int = D, n_head: int = H):
     """The JAX kernel's masks, drawn by ``_keep`` inside an interpret-mode
     Pallas call with one program per chain: ATTN (groups, g, Lp, Lp)."""
-    n_groups = H // group
-    shapes = {"attn": (n_groups, group, lp, lp), "out": (D, lp), "ff": (d_ff, lp),
-              "ff2": (D, lp)}
+    n_groups = n_head // group
+    shapes = {"attn": (n_groups, group, lp, lp), "out": (d_model, lp), "ff": (d_ff, lp),
+              "ff2": (d_model, lp)}
 
     def kernel(seed_ref, attn_ref, out_ref, ff_ref, ff2_ref):
         s = seed_ref[0]
@@ -77,9 +78,9 @@ def _jax_masks(batch: int, lp: int, d_ff: int, group: int, seed: int, rate: floa
             attn_ref[0, gi] = jax_fet._keep(
                 (group, lp, lp), rate, s, jax_fet._SITE_ATTN, extra=gi * group
             )
-        out_ref[0] = jax_fet._keep((D, lp), rate, s, jax_fet._SITE_OUT)
+        out_ref[0] = jax_fet._keep((d_model, lp), rate, s, jax_fet._SITE_OUT)
         ff_ref[0] = jax_fet._keep((d_ff, lp), rate, s, jax_fet._SITE_FF)
-        ff2_ref[0] = jax_fet._keep((D, lp), rate, s, jax_fet._SITE_FF2)
+        ff2_ref[0] = jax_fet._keep((d_model, lp), rate, s, jax_fet._SITE_FF2)
 
     def spec(shape):
         return pl.BlockSpec((1,) + shape, lambda b, s, _n=len(shape): (b,) + (0,) * _n,
@@ -224,7 +225,7 @@ def test_training_forward_matches_jax(rate: float) -> None:
 
 
 def test_training_forward_without_dropout_matches_module() -> None:
-    _, _, model = jax_and_port_models(L, C, num_layers=2, dim_feedforward=F)
+    _, _, model = jax_and_port_models(L, C, num_layers=2, dim_feedforward=F, dropout_rate=0.0)
     x, t = (torch.from_numpy(a) for a in numpy_inputs(3, L, C, seed=4))
     torch.testing.assert_close(
         fused_score_training_forward(model, x, t, [1, 2]), model(x, t), **VALUE
