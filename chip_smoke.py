@@ -10,9 +10,10 @@ Phases, each printed with its seconds as it ends:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: ``csrc/fused_encoder.cu`` (B1), ``csrc/flash_attention.cu`` (B2,
-   B5, B6) and ``csrc/fused_encoder_train.cu`` (B3, B4), one ``nvcc`` each,
-   all started together (a library already built is reused), with ptxas's
-   registers, stack and spills for every kernel instance.
+   B5, B6), ``csrc/fused_encoder_train.cu`` (B3, B4) and
+   ``csrc/fused_encoder_int8.cu`` (B7, B8), one ``nvcc`` each, all started
+   together (a library already built is reused), with ptxas's registers,
+   stack and spills for every kernel instance.
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel, the
@@ -68,6 +69,27 @@ Phases, each printed with its seconds as it ends:
    ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch (16 steps), at dropout 0.1 (B6-fwd
    = B6-bwd = steps x 10) and at dropout 0 (B5 = steps x 10), B2 for
    validation; all losses finite; its steps/s beside phase 8's.
+13. int8 kernels: B7 (``FDIFF_FUSED_INT8=1``) and B8 (``=2``) against their
+   plain versions on the trained flagship's layer 0 at L=100, B=64 and 32,
+   fp32 and bf16, and at B=8 on phase 9's shapes (random weights). The
+   kernel writes the int8 codes of every quantization site; the plain
+   version is run with those codes put in, site by site, and every code
+   where the two part is located (``locate_code_flips``) and held to a
+   band around a rounding boundary (INT8_FLIP_BAND); the output is held
+   to B1's tolerance against that run. Times of each kernel, its plain
+   version and B1 at the same shape and dtype, and the bound.
+14. int8 main path: phase 4's sampler in bf16 with ``FDIFF_FUSED_INT8=1``
+   and then ``=2``: B7 (or B8) K x 10 launches and B1 none; the samples
+   finite, their samples/s and relative L2 distance from phase 4's bf16
+   samples (the same generator seed); a 20-step fp32 trajectory through
+   B7/B8 and through their plain versions on the card and on the CPU with
+   the kernel's int8 codes of every layer and step put in (every flip
+   located), pairwise.
+15. pc main path: ``DiffusionSampler(method="pc", corrector_steps=1,
+   snr=0.16, divergence_threshold=8.0)``, K=250 (``bench.py``'s pc250), 32
+   chains, bf16, the same weights: B1 K x 2 x 10 launches for each draw of
+   the batch (the first and each redraw the guard makes, from
+   ``last_resample_stats``); its samples/s.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -136,7 +158,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
-SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train")
+SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
 
 # The training slice: the flagship's training configuration
 # (runs/4ffeaa7e/train_config.yaml), cut to TRAIN_EPOCHS epochs.
@@ -194,6 +216,45 @@ ATTN_SHAPES = ((TRAIN_BATCH, MAX_LEN), (8, 365))
 # other orders, |o| < 4: 1e-4 as for B1. Gradients: GRAD_TOL, as for B4.
 ATTN_TOL = 1e-4
 UNFUSED_EPOCHS = 1
+
+# The int8 layers B7 (level 1) and B8 (level 2).
+INT8_LEVELS = (1, 2)
+INT8_NAMES = {1: "B7", 2: "B8"}
+INT8_SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder_int8.cu"
+INT8_REPLACES = {1: "fourierdiffusion_tpu/ops/fused_encoder.py:238",
+                 2: "fourierdiffusion_tpu/ops/fused_encoder.py:384"}
+PEAK_INT8_OPS = 1979e12  # H100 SXM data sheet, dense int8 tensor cores, 700 W
+# Kernel against its plain version run with the kernel's own int8 codes put
+# in (locate_code_flips): then the two differ only by float rounding, so
+# B1's TOL holds. Each code where they part is located at its site:
+# - fp32: the two versions' fp32 inputs to a quantization are sums taken in
+#   other orders, ~1e-6 relative apart, so ~1e-4 of a code at |x/scale| up
+#   to 127: a flipped code must move by one and its plain input lie within
+#   INT8_FLIP_BAND of a rounding boundary (k + 1/2).
+# - bf16: a bf16 rounding upstream that flipped between the two (q, k, P or
+#   O, B1's own case under its 2**-4 tolerance) moves a quantizer's input by
+#   up to about a code, so the band does not apply; at most
+#   INT8_BF16_FLIP_SHARE of a site's codes may flip.
+# - the sites whose inputs both compute alike (x; V from exact integer sums
+#   dequantized in one order) flip nowhere, in either dtype.
+INT8_FLIP_BAND = 1e-3
+INT8_BF16_FLIP_SHARE = 1e-2
+INT8_EXACT_SITES = ("x", "v")
+# The 20-step fp32 trajectories through B7/B8 and through their plain
+# versions on the card and on the CPU are compared with the kernel's int8
+# codes of every layer and step put into the plain versions, each flip
+# located, and then held to TRAJ_TOL like phase 5's. Each version follows
+# its own states (and every layer after the first its own input), so the
+# inputs of a quantization differ by the trajectories' own distance, not
+# by one layer's rounding: a flip there must move by one code, and the
+# band and the exact sites of phase 13 (same inputs) do not apply. (With their own codes,
+# a flip moves a layer output by up to a quantization step, and the last
+# steps near t = eps, where the score is scaled by 1/std(t), carry it into
+# the samples: the two plain versions alone, the same code on an H100 and
+# on the CPU, ended 1.1e-2 apart in relative L2.)
+PC_STEPS, PC_CORRECTOR_STEPS, PC_SNR = 250, 1, 0.16
+# configs/sampler/default.yaml of the JAX package recommends 8.0.
+DIVERGENCE_THRESHOLD = 8.0
 
 
 def phase(name: str, t0: float) -> None:
@@ -310,7 +371,7 @@ def run_main_path(dtype: torch.dtype) -> dict:
         f"std after idft {series.std().item():.4f}",
         flush=True,
     )
-    return {"launches": launches, "seconds": seconds, "samples_per_s": rate}
+    return {"launches": launches, "seconds": seconds, "samples_per_s": rate, "samples": out}
 
 
 def check_trajectory() -> dict:
@@ -661,7 +722,7 @@ def run_training(dm: SyntheticDatamodule) -> dict:
     val_batches = -(-TRAIN_SERIES // TRAIN_BATCH)
     expected = {"B3": steps * N_LAYERS, "B4": steps * N_LAYERS,
                 "B2": TRAIN_EPOCHS * val_batches * VAL_DRAWS * N_LAYERS,
-                "B1": 0, "B5": 0, "B6-fwd": 0, "B6-bwd": 0}
+                "B1": 0, "B5": 0, "B6-fwd": 0, "B6-bwd": 0, "B7": 0, "B8": 0}
     for h in history:
         print(f"  epoch {h['epoch']}: {json.dumps(h)}", flush=True)
     for name, n in expected.items():
@@ -801,17 +862,22 @@ def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
 
 
 @contextlib.contextmanager
-def unfused_training():
-    """``FDIFF_FUSED_TRAIN=0`` inside the block: the trainer's unfused path."""
-    before = os.environ.get("FDIFF_FUSED_TRAIN")
-    os.environ["FDIFF_FUSED_TRAIN"] = "0"
+def environ(name: str, value: str):
+    """``name=value`` in the environment inside the block."""
+    before = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if before is None:
-            del os.environ["FDIFF_FUSED_TRAIN"]
+            del os.environ[name]
         else:
-            os.environ["FDIFF_FUSED_TRAIN"] = before
+            os.environ[name] = before
+
+
+def unfused_training():
+    """``FDIFF_FUSED_TRAIN=0`` inside the block: the trainer's unfused path."""
+    return environ("FDIFF_FUSED_TRAIN", "0")
 
 
 def unfused_step0(trainer: Trainer, step: tuple, force: dict | None = None) -> tuple:
@@ -911,13 +977,15 @@ def check_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
 
 def reset_counts() -> None:
     fet.fwd_launches = fet.bwd_launches = fe.launches = 0
+    fe.int8_launches = fe.int8_attn_launches = 0
     fa.launches = fa.bwd_launches = fa.dropout_fwd_launches = fa.dropout_bwd_launches = 0
 
 
 def read_counts() -> dict:
     return {"B1": fe.launches, "B2": fa.launches, "B3": fet.fwd_launches,
             "B4": fet.bwd_launches, "B5": fa.bwd_launches,
-            "B6-fwd": fa.dropout_fwd_launches, "B6-bwd": fa.dropout_bwd_launches}
+            "B6-fwd": fa.dropout_fwd_launches, "B6-bwd": fa.dropout_bwd_launches,
+            "B7": fe.int8_launches, "B8": fe.int8_attn_launches}
 
 
 def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
@@ -934,7 +1002,7 @@ def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
     steps = dm.steps_per_epoch * UNFUSED_EPOCHS
     train = steps * N_LAYERS
     val = UNFUSED_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH) * VAL_DRAWS * N_LAYERS
-    expected = {"B1": 0, "B3": 0, "B4": 0}
+    expected = {"B1": 0, "B3": 0, "B4": 0, "B7": 0, "B8": 0}
     if rate > 0.0:
         expected.update({"B2": val, "B5": 0, "B6-fwd": train, "B6-bwd": train})
     else:
@@ -959,6 +1027,292 @@ def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
           f"{r['steps_per_s']:.3f} steps/s ({r['step_ms']:.2f} ms/step); launches {counts}",
           flush=True)
     return r
+
+
+def int8_bound_ms(b: int, l: int, d: int, d_ff: int, dtype: torch.dtype,
+                  level: int) -> tuple[float, str]:
+    """Least time for one B7/B8 call: the int8 products at the int8 rate plus
+    the others at the rate of the input dtype, or the bytes (x in, y out,
+    codes, scales, the dtype's weights and the fp32 vectors read once) over
+    the memory rate, whichever is larger."""
+    size = torch.finfo(dtype).bits // 8
+    ffn, qkv, out = 4 * b * l * d * d_ff, 2 * b * l * 3 * d * d, 2 * b * l * d * d
+    s_dot = pv = 2 * b * l * l * d
+    int8_ops = ffn + (qkv + out + pv if level == 2 else 0)
+    other_ops = s_dot + (0 if level == 2 else qkv + out + pv)
+    t_ops = int8_ops / PEAK_INT8_OPS + other_ops / PEAK_FLOPS[dtype]
+    codes = 2 * d * d_ff + (4 * d * d if level == 2 else 0)
+    dtype_weights = 0 if level == 2 else 4 * d * d * size
+    scales = 4 * (d_ff + d + (4 * d if level == 2 else 0))
+    vectors = 4 * (3 * d + d + 4 * d + d_ff + d)
+    t_bytes = (2 * b * l * d * size + codes + dtype_weights + scales + vectors) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_int8_flips(flips: dict, dtype: torch.dtype, what: str,
+                     same_inputs: bool = True) -> None:
+    """The located flips against INT8_FLIP_BAND and its companions. Where
+    the two versions did not start from the same layer input (along a
+    trajectory, each follows its own states), only the step of one code is
+    held."""
+    for site, f in flips.items():
+        if not same_inputs:
+            ok = f["max_step"] <= 1
+        elif site in INT8_EXACT_SITES:
+            ok = f["flipped"] == 0
+        elif dtype == torch.float32:
+            ok = f["max_step"] <= 1 and f["max_dist"] <= INT8_FLIP_BAND
+        else:
+            ok = f["flipped"] <= INT8_BF16_FLIP_SHARE * f["codes"]
+        if not ok:
+            raise AssertionError(f"{what}: site {site}: codes flipped out of bounds: {f}")
+
+
+def check_int8_layer(layer, n_head: int, dtype: torch.dtype, batch: int, l: int, level: int,
+                     b1_ms: float) -> dict:
+    """B7 (level 1) or B8 (level 2) on one encoder layer at (batch, l): the
+    kernel against its plain version with the kernel's codes put in, every
+    flipped code located, and the times of the kernel and its plain version
+    beside B1's (``b1_ms``) and the bound."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    packed = fe.pack_encoder_layer(layer, n_head, dtype, int8_ffn=True, int8_attn=level == 2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((batch, l, d), generator=g, device="cuda").to(dtype)
+    what = f"{INT8_NAMES[level]} {dtype} B={batch} L={l} D={d} H={n_head} F={d_ff}"
+    with torch.no_grad():
+        out = fe.fused_encoder_layer(x, packed, n_head=n_head)
+        codes = fe.int8_codes_buffers(x, packed, n_head)
+        probed = fe.launch_int8(x, packed, n_head, probe=codes)
+        plain = fe.fused_encoder_layer_plain(x, packed, n_head=n_head)
+        matched, flips = fe.locate_code_flips(x, packed, n_head, codes)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{what}: kernel output is not finite")
+        if not torch.equal(out, probed):
+            raise AssertionError(f"{what}: the probe changed the kernel's output")
+        err = (out.float() - matched.float()).abs().max().item()
+        err_plain = (out.float() - plain.float()).abs().max().item()
+        print(f"  {what}: max |kernel - plain with the kernel's codes| = {err:.3e} (tol "
+              f"{TOL[dtype]:.3e}); max |kernel - plain| = {err_plain:.3e}; flips per site "
+              f"{json.dumps(flips)}", flush=True)
+        if not err <= TOL[dtype]:
+            raise AssertionError(f"{what}: kernel disagrees with plain version: {err}")
+        check_int8_flips(flips, dtype, what)
+        kernel_ms = time_ms(lambda: fe.fused_encoder_layer(x, packed, n_head=n_head))
+        plain_ms = time_ms(lambda: fe.fused_encoder_layer_plain(x, packed, n_head=n_head),
+                           iters=10, warmup=2)
+    bound_ms, bound_by = int8_bound_ms(batch, l, d, d_ff, dtype, level)
+    print(f"  {what}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, B1 {b1_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": err, "max_abs_err_vs_plain": err_plain, "tol": TOL[dtype],
+            "flips": flips, "ms": kernel_ms, "plain_ms": plain_ms, "b1_ms": b1_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_int8_kernels(phase3: dict, coverage: dict) -> dict:
+    """Phase 13: B7 and B8 on the trained layer 0 at L=100 (B=64, 32) and at
+    phase 9's shapes (B=8, random weights), fp32 and bf16."""
+    out: dict = {level: {} for level in INT8_LEVELS}
+    for dtype in TOL:
+        name = str(dtype).removeprefix("torch.")
+        layer0 = load_flagship(dtype, "cuda").backbone.layers[0]
+        for level in INT8_LEVELS:
+            for b in KERNEL_BATCHES:
+                out[level][f"{name} L={MAX_LEN} D=72 B={b}"] = check_int8_layer(
+                    layer0, N_HEAD, dtype, b, MAX_LEN, level, phase3[dtype][b]["kernel_ms"])
+    for l, d, n_head, d_ff in COVERAGE:
+        torch.manual_seed(0)
+        layer = TransformerEncoderLayer(d, n_head, d_ff).to("cuda")
+        key = f"L={l} D={d} H={n_head} F={d_ff}"
+        for dtype in TOL:
+            name = str(dtype).removeprefix("torch.")
+            for level in INT8_LEVELS:
+                out[level][f"{name} {key} B={COVERAGE_BATCH}"] = check_int8_layer(
+                    layer, n_head, dtype, COVERAGE_BATCH, l, level,
+                    coverage[key]["B1"][name]["kernel_ms"])
+    lib = fe._int8_library()
+    sizes = {f"{INT8_NAMES[level]} L={l} D={d}": {
+        "smem bytes": lib.fdiff_encoder_layer_int8_smem_bytes(level - 1, l, d),
+        "K|V workspace floats per chain": lib.fdiff_encoder_layer_int8_kv_floats(level - 1, l, d)}
+        for level in INT8_LEVELS for l, d in ((MAX_LEN, 72), (187, 72), (365, 72), (187, 128))}
+    print(f"  int8 plans: {json.dumps(sizes)}", flush=True)
+    return out
+
+
+def run_int8_main_path(level: int, bf16: dict) -> dict:
+    """Phase 4's bf16 sampler with FDIFF_FUSED_INT8=level: every layer of
+    every step through B7 (level 1) or B8 (level 2), none through B1; the
+    samples against phase 4's bf16 ones, drawn with the same generator."""
+    with environ("FDIFF_FUSED_INT8", str(level)):
+        model = load_flagship(torch.bfloat16, "cuda")
+        sampler = DiffusionSampler(
+            model, VPScheduler(fourier_noise_scaling=True), max_len=MAX_LEN,
+            n_channels=N_CHANNELS, sample_batch_size=SAMPLE_CHAINS, method="em", device="cuda",
+        )
+        g = torch.Generator(device="cuda").manual_seed(42)
+        sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=2, generator=g)  # as phase 4
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=SAMPLE_STEPS, generator=g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    name = INT8_NAMES[level]
+    expected = {k: 0 for k in counts}
+    expected[name] = SAMPLE_STEPS * N_LAYERS
+    if counts != expected:
+        raise AssertionError(f"int8 level {level}: launches {counts}, expected {expected}")
+    if tuple(out.shape) != (SAMPLE_CHAINS, MAX_LEN, N_CHANNELS) or not (
+        torch.isfinite(out).all() and torch.isfinite(fourier.idft(out)).all()
+    ):
+        raise AssertionError(f"int8 level {level}: samples wrong or not finite")
+    ref = bf16["samples"]
+    rel = ((out - ref).norm() / ref.norm()).item()
+    rate = SAMPLE_CHAINS / seconds
+    print(f"  int8 level {level} ({name}), bf16: {SAMPLE_CHAINS} chains x {SAMPLE_STEPS} steps "
+          f"in {seconds:.3f} s = {rate:.3f} samples/s (bf16 B1, phase 4: "
+          f"{bf16['samples_per_s']:.3f}); launches {counts}; relative L2 distance from the "
+          f"bf16 samples {rel:.4e}", flush=True)
+    return {"launches": counts[name], "seconds": seconds, "samples_per_s": rate,
+            "rel_l2_vs_bf16": rel}
+
+
+def recording_layer(record: list) -> fe.LayerFn:
+    """A layer function that launches B7/B8 with the probe and appends each
+    call's int8 codes to ``record``."""
+    def layer_fn(h, layer, *, n_head):
+        codes = fe.int8_codes_buffers(h, layer, n_head)
+        out = fe.launch_int8(h, layer, n_head, probe=codes)
+        record.append(codes)
+        return out
+    return layer_fn
+
+
+def matched_layer(record: list, flips: dict) -> fe.LayerFn:
+    """A layer function that runs the plain B7/B8 version with the codes of
+    ``record``, in order, put in (``locate_code_flips``), merging the
+    located flips into ``flips``."""
+    calls = iter(record)
+
+    def layer_fn(h, layer, *, n_head):
+        codes = {k: v.to(h.device) for k, v in next(calls).items()}
+        out, located = fe.locate_code_flips(h, layer, n_head, codes)
+        for site, f in located.items():
+            acc = flips.setdefault(site, {"codes": 0, "flipped": 0, "max_step": 0,
+                                          "max_dist": 0.0})
+            acc["codes"] += f["codes"]
+            acc["flipped"] += f["flipped"]
+            acc["max_step"] = max(acc["max_step"], f["max_step"])
+            acc["max_dist"] = max(acc["max_dist"], f["max_dist"])
+        return out
+    return layer_fn
+
+
+def check_int8_trajectory(level: int) -> dict:
+    """Phase 5's 20-step fp32 trajectory at int8 level ``level``: through the
+    kernel (B7/B8) on the main path's route, and through the plain versions
+    on the card and on the CPU with the kernel's codes of every layer and
+    step put in, each flip located; pairwise within TRAJ_TOL, each flip by
+    one code. The plain versions' own trajectories, whose codes part from
+    the kernel's where an fp32 input lies on a rounding boundary, are
+    printed beside them."""
+    model = load_flagship(torch.float32, "cuda")
+    cpu_model = load_flagship(torch.float32, "cpu")
+    scheduler = VPScheduler(fourier_noise_scaling=True)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (TRAJ_CHAINS, MAX_LEN, N_CHANNELS)
+    x_T = scheduler.prior_sampling(shape, generator=g, device="cuda")
+    z = torch.randn((TRAJ_STEPS, *shape), generator=g, device="cuda")
+    packed, packed_cpu = pack_score_transformer(model, level), pack_score_transformer(
+        cpu_model, level)
+    kw = dict(num_diffusion_steps=TRAJ_STEPS)
+
+    def run(m, p, x0, zs, layer_fn=fe.fused_encoder_layer):
+        return reverse_diffusion(
+            lambda x, t: fused_score_forward(m, p, x, t, layer_fn=layer_fn), scheduler, x0,
+            z=zs, **kw).cpu()
+
+    reset_counts()
+    kernel = run(model, packed, x_T, z)
+    counts = read_counts()
+    record: list = []
+    recorded = run(model, packed, x_T, z, recording_layer(record))
+    flips_card: dict = {}
+    flips_cpu: dict = {}
+    trajs = {
+        "kernel": kernel,
+        "plain_card_kernel_codes": run(model, packed, x_T, z, matched_layer(record, flips_card)),
+        "plain_cpu_kernel_codes": run(cpu_model, packed_cpu, x_T.cpu(), z.cpu(),
+                                      matched_layer(record, flips_cpu)),
+    }
+    own = {"plain_card": run(model, packed, x_T, z, fe.fused_encoder_layer_plain),
+           "plain_cpu": run(cpu_model, packed_cpu, x_T.cpu(), z.cpu(),
+                            fe.fused_encoder_layer_plain)}
+    name = INT8_NAMES[level]
+    if counts[name] != TRAJ_STEPS * N_LAYERS or counts["B1"]:
+        raise AssertionError(f"int8 trajectory level {level}: launches {counts}")
+    if not torch.equal(kernel, recorded):
+        raise AssertionError(f"int8 trajectory level {level}: the probe changed the samples")
+
+    def dist(a: torch.Tensor, b: torch.Tensor) -> dict:
+        return {"max_abs": (a - b).abs().max().item(),
+                "rel_l2": ((a - b).norm() / b.norm()).item()}
+
+    names = list(trajs)
+    diffs = {f"{a}_vs_{b}": dist(trajs[a], trajs[b])
+             for i, a in enumerate(names) for b in names[i + 1:]}
+    own_diffs = {"kernel_vs_plain_card": dist(kernel, own["plain_card"]),
+                 "kernel_vs_plain_cpu": dist(kernel, own["plain_cpu"]),
+                 "plain_card_vs_plain_cpu": dist(own["plain_card"], own["plain_cpu"])}
+    print(f"  int8 level {level} ({name}) fp32 trajectories, the plain versions with the "
+          f"kernel's codes: {json.dumps(diffs)} (max abs tol {TRAJ_TOL:.0e} each); codes "
+          f"flipped along the trajectory, card {json.dumps(flips_card)}, CPU "
+          f"{json.dumps(flips_cpu)}; the plain versions with their own codes: "
+          f"{json.dumps(own_diffs)}", flush=True)
+    for where, flips in (("card", flips_card), ("CPU", flips_cpu)):
+        check_int8_flips(flips, torch.float32, f"int8 trajectory level {level} ({where})",
+                         same_inputs=False)
+    if not all(d["max_abs"] <= TRAJ_TOL for d in diffs.values()):
+        raise AssertionError(f"int8 trajectories disagree: {diffs}")
+    return {"with_kernel_codes": diffs, "flips_card": flips_card, "flips_cpu": flips_cpu,
+            "with_own_codes": own_diffs}
+
+
+def run_pc_main_path() -> dict:
+    """Phase 15: the pc250 sampler with the divergence guard, bf16, through
+    B1: K x (1 + corrector steps) x 10 launches per draw of the batch."""
+    model = load_flagship(torch.bfloat16, "cuda")
+    sampler = DiffusionSampler(
+        model, VPScheduler(fourier_noise_scaling=True), max_len=MAX_LEN, n_channels=N_CHANNELS,
+        sample_batch_size=SAMPLE_CHAINS, method="pc", corrector_steps=PC_CORRECTOR_STEPS,
+        snr=PC_SNR, divergence_threshold=DIVERGENCE_THRESHOLD, device="cuda",
+    )
+    g = torch.Generator(device="cuda").manual_seed(42)
+    sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=2, generator=g)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=PC_STEPS, generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    stats = dict(sampler.last_resample_stats)
+    per_draw = PC_STEPS * (1 + PC_CORRECTOR_STEPS) * N_LAYERS
+    expected = {k: 0 for k in counts}
+    expected["B1"] = per_draw * (1 + stats["redraws"])
+    if counts != expected:
+        raise AssertionError(f"pc: launches {counts}, expected {expected} (guard {stats})")
+    if tuple(out.shape) != (SAMPLE_CHAINS, MAX_LEN, N_CHANNELS) or not torch.isfinite(
+            out).all():
+        raise AssertionError("pc: samples wrong or not finite")
+    rate = SAMPLE_CHAINS / seconds
+    print(f"  pc{PC_STEPS}, bf16, guard at {DIVERGENCE_THRESHOLD}: {SAMPLE_CHAINS} chains in "
+          f"{seconds:.3f} s = {rate:.3f} samples/s; B1 launches {counts['B1']} = {per_draw} x "
+          f"(1 + {stats['redraws']} redraws); last_resample_stats {json.dumps(stats)}; "
+          f"largest |x| {out.abs().max().item():.3f}", flush=True)
+    return {"launches": counts["B1"], "seconds": seconds, "samples_per_s": rate,
+            "resample_stats": stats}
 
 
 def step_rates(dm: SyntheticDatamodule) -> dict:
@@ -1084,6 +1438,19 @@ def main() -> int:
               flush=True)
         phase("12 unfused training main path", t0)
 
+    t0 = time.perf_counter()
+    int8_checks = check_int8_kernels(checks, coverage)
+    phase("13 int8 kernels vs plain", t0)
+
+    t0 = time.perf_counter()
+    int8_main = {level: run_int8_main_path(level, main[torch.bfloat16]) for level in INT8_LEVELS}
+    int8_traj = {level: check_int8_trajectory(level) for level in INT8_LEVELS}
+    phase("14 int8 main path", t0)
+
+    t0 = time.perf_counter()
+    pc = run_pc_main_path()
+    phase("15 pc main path", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -1153,6 +1520,29 @@ def main() -> int:
             "sdpa_backend": attn_main["sdpa_backend"],
             "checked_shapes": {k: a[key] for k, a in attn_kernels.items()},
         })
+    for level in INT8_LEVELS:
+        by_shape = int8_checks[level]
+        r = by_shape[f"bfloat16 L={MAX_LEN} D=72 B={SAMPLE_CHAINS}"]  # the main path's shape
+        kernels.append({
+            "name": "fused_encoder_layer_int8" + ("_attn" if level == 2 else "") + "/bfloat16",
+            "route": "cuda", "source": INT8_SOURCE, "replaces": INT8_REPLACES[level],
+            "launches": int8_main[level]["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in by_shape.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_note": "no one PyTorch call computes a W8A8 encoder layer",
+            "b1_ms": r["b1_ms"],
+            "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048 bfloat16, "
+                     f"FDIFF_FUSED_INT8={level}",
+            "samples_per_s": int8_main[level]["samples_per_s"],
+            "rel_l2_vs_bf16_samples": int8_main[level]["rel_l2_vs_bf16"],
+            "trajectory": {k: int8_traj[level][k] for k in ("with_kernel_codes",
+                                                             "with_own_codes")},
+            "checked_shapes": {k: {f: c[f] for f in ("max_abs_err", "ms", "plain_ms", "b1_ms",
+                                                     "bound_ms")}
+                               for k, c in by_shape.items()},
+        })
+    print(f"pc: {json.dumps(pc)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)

@@ -2,7 +2,8 @@
 // the reverse-diffusion sampling path on Hopper (sm_90a).
 //
 // Replaces the TPU kernel fourierdiffusion_tpu/ops/fused_encoder.py::
-// _encoder_layer_kernel (fp32 and bf16; the int8 variants are not ported).
+// _encoder_layer_kernel (fp32 and bf16; its int8 variants, B7 and B8, are
+// in fused_encoder_int8.cu).
 // The kernel body, its numerics, layout, bound and design are in
 // encoder_layer.cuh, which the training forward (fused_encoder_train.cu)
 // shares; here it runs without dropout: encoder_layer_kernel<T, false, *>,

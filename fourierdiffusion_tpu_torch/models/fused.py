@@ -4,7 +4,9 @@
 
 ``pack_score_transformer`` repacks a ``ScoreTransformer``'s weights once
 per sampling run: the positional embedding with its max-norm renorm
-applied, and every encoder layer through ``pack_encoder_layer``.
+applied, and every encoder layer through ``pack_encoder_layer``, with int8
+weights where ``FDIFF_FUSED_INT8`` (or its ``int8`` argument) asks for the
+W8A8 kernels B7 (level 1) or B8 (level 2).
 ``fused_score_forward`` then computes what ``model(x, t)`` computes, with
 the encoder stack in ``ops.fused_encoder`` (one kernel launch per layer on
 the card). Activations stay ``(B, L, D)``: the TPU's transposed, lane-
@@ -23,12 +25,18 @@ a detached scale) back to the module's parameters.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from fourierdiffusion_tpu_torch.models.blocks import max_norm_renorm
 from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
-from fourierdiffusion_tpu_torch.ops.fused_encoder import fused_encoder, pack_encoder_layer
+from fourierdiffusion_tpu_torch.ops.fused_encoder import (
+    LayerFn,
+    fused_encoder,
+    fused_encoder_layer,
+    pack_encoder_layer,
+)
 from fourierdiffusion_tpu_torch.ops.fused_encoder_train import (
     fused_encoder_layer_train,
     fused_encoder_layer_train_reference,
@@ -36,10 +44,23 @@ from fourierdiffusion_tpu_torch.ops.fused_encoder_train import (
 )
 
 
-def pack_score_transformer(model: ScoreTransformer) -> dict:
+def int8_level(int8: bool | int | None = None) -> int:
+    """The int8 level of the sampling path: 0 (fp32/bf16, B1), 1 (W8A8 FFN,
+    B7) or 2 (also the attention's QKV, PV and out-projection, B8).
+    ``None`` reads ``FDIFF_FUSED_INT8`` as JAX does: unset, "" or "0" is 0,
+    "2" is 2, anything else 1."""
+    if int8 is None:
+        raw = os.environ.get("FDIFF_FUSED_INT8", "").strip()
+        return 0 if raw in ("", "0") else (2 if raw == "2" else 1)
+    return int(int8)
+
+
+def pack_score_transformer(model: ScoreTransformer, int8: bool | int | None = None) -> dict:
     """Repack ``model``'s weights for ``fused_score_forward`` (detached
-    copies in the compute dtype; the model itself is left as it is)."""
+    copies in the compute dtype; the model itself is left as it is), at the
+    int8 level ``int8_level(int8)``."""
     dtype = model.dtype
+    level = int8_level(int8)
     with torch.no_grad():
         pe = max_norm_renorm(model.pos_encoder.embedding.weight, math.sqrt(model.d_model))
 
@@ -56,20 +77,24 @@ def pack_score_transformer(model: ScoreTransformer) -> dict:
             "unembed_w": cast(model.unembedder.weight.t()),  # (D, C)
             "unembed_b": cast(model.unembedder.bias),
             "layers": [
-                pack_encoder_layer(layer, model.n_head, dtype)
+                pack_encoder_layer(layer, model.n_head, dtype,
+                                   int8_ffn=level >= 1, int8_attn=level >= 2)
                 for layer in model.backbone.layers
             ],
         }
 
 
 def fused_score_forward(
-    model: ScoreTransformer, packed: dict, x: torch.Tensor, timesteps: torch.Tensor
+    model: ScoreTransformer, packed: dict, x: torch.Tensor, timesteps: torch.Tensor,
+    *, layer_fn: LayerFn = fused_encoder_layer,
 ) -> torch.Tensor:
     """Score for ``x`` ``(B, L, C)`` at times ``(B,)``, same shape and dtype
-    as ``x``."""
+    as ``x``. ``layer_fn`` runs each encoder layer: the kernel's wrapper, or
+    for instance ``fused_encoder_layer_plain`` on any device (to check the
+    kernels against their plain versions on the card)."""
     in_dtype = x.dtype
     h = _embed(model, packed, x, timesteps)
-    h = fused_encoder(h, packed["layers"], n_head=model.n_head)
+    h = fused_encoder(h, packed["layers"], n_head=model.n_head, layer_fn=layer_fn)
     score = h @ packed["unembed_w"] + packed["unembed_b"]
     return score.to(in_dtype)
 
@@ -132,6 +157,7 @@ def fused_score_training_forward(
 __all__ = [
     "fused_score_forward",
     "fused_score_training_forward",
+    "int8_level",
     "pack_score_transformer",
     "pack_score_transformer_train",
 ]

@@ -1,20 +1,34 @@
 """One whole post-LN encoder layer per kernel launch, for the sampling path.
 
-Port of ``fourierdiffusion_tpu/ops/fused_encoder.py`` (fp32 and bf16; the
-int8 variants are not ported yet). ``pack_encoder_layer`` repacks an
-encoder layer's weights once per sampling run; ``fused_encoder_layer``
-runs the layer over activations ``(B, L, D)``:
+Port of ``fourierdiffusion_tpu/ops/fused_encoder.py``: the fp32/bf16 layer
+and its two W8A8 int8 variants. ``pack_encoder_layer`` repacks an encoder
+layer's weights once per sampling run (``int8_ffn``/``int8_attn`` quantize
+them); ``fused_encoder_layer`` runs the layer over activations
+``(B, L, D)``, choosing the kernel by the packed keys as JAX does:
 
-* on a CUDA tensor it launches the hand-written kernel
-  ``csrc/fused_encoder.cu`` and adds one to ``launches``;
-* on a CPU tensor it runs ``fused_encoder_layer_reference``, the plain
-  PyTorch version of the same arithmetic.
+* ``w_qkv_q``: the int8 FFN and attention layer (B8, ``FDIFF_FUSED_INT8=2``);
+* ``w1_q``: the int8 FFN layer (B7, ``FDIFF_FUSED_INT8=1``);
+* otherwise the fp32/bf16 layer (B1).
 
-Numerics of both: products take operands in the activation dtype and
+On a CUDA tensor it launches the hand-written kernel (``csrc/fused_encoder.cu``
+for B1, ``csrc/fused_encoder_int8.cu`` for B7 and B8) and adds one to that
+kernel's count (``launches``, ``int8_launches``, ``int8_attn_launches``); on
+a CPU tensor it runs the plain PyTorch version of the same arithmetic.
+
+Numerics of B1: products take operands in the activation dtype and
 accumulate in fp32; results are rounded to the activation dtype after
 qkv, the softmax, PV, LN1, the ReLU and LN2; LayerNorm statistics are fp32
 (eps 1e-5). fp32 takes the exact softmax, bf16 the max-free one (scores
 clamped to +-60, exp, reciprocal of the row sum), as on the TPU.
+
+Numerics of B7 and B8 (the TPU kernels' rounding points): int8 codes with
+one fp32 scale per slice (``quantize_along``, bit for bit JAX's), exact
+integer sums, dequantized as ``sum * (w_scale * a_scale) + bias``. B7 runs
+B1's attention, keeps x1 in fp32 and quantizes x1 per token and the ReLU
+output per (512-unit chunk, token). B8 also quantizes x per token for the
+QKV product (q and k then rounded to the dtype, V kept fp32 and quantized
+per column over the chain's keys), the unrounded softmax per (head, query)
+and the attention output per token.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -32,27 +47,91 @@ SCORE_CLAMP = 60.0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a block can opt into on sm_90
 
-#: Kernel launches so far in this process; only the CUDA branch of
-#: ``fused_encoder_layer`` adds to it. Callers reset it to 0 to count a run.
+#: Kernel launches so far in this process, of B1, B7 and B8; only the CUDA
+#: branch of ``fused_encoder_layer`` adds to them. Callers reset them to 0
+#: to count a run.
 launches = 0
+int8_launches = 0
+int8_attn_launches = 0
+
+#: Hidden units per chunk of the int8 FFN (JAX's ``_INT8_FFN_CHUNK``): the
+#: hidden layer's scales are per (chunk, token), whatever the kernel's tiles.
+INT8_FFN_CHUNK = 512
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)  # JAX's fp32 constant
 
 _LAYER_KEYS = (
     "w_qkv", "b_qkv", "w_out", "b_out", "ln1_s", "ln1_b",
     "w1", "b1", "w2", "b2", "ln2_s", "ln2_b",
 )
+_LAYER_KEYS_INT8 = (
+    "w_qkv", "b_qkv", "w_out", "b_out", "ln1_s", "ln1_b",
+    "w1_q", "w1_s", "b1", "w2_q", "w2_s", "b2", "ln2_s", "ln2_b",
+)
+_LAYER_KEYS_INT8_ATTN = (
+    "w_qkv_q", "w_qkv_s", "b_qkv", "w_out_q", "w_out_s", "b_out", "ln1_s", "ln1_b",
+    "w1_q", "w1_s", "b1", "w2_q", "w2_s", "b2", "ln2_s", "ln2_b",
+)
+#: The order of the int8 kernel's weight pointers (``Int8Weights``).
+_INT8_ARGS = (
+    "w_qkv", "w_qkv_q", "w_qkv_s", "b_qkv", "w_out", "w_out_q", "w_out_s", "b_out",
+    "ln1_s", "ln1_b", "w1_q", "w1_s", "b1", "w2_q", "w2_s", "b2", "ln2_s", "ln2_b",
+)
+#: Quantization sites of B7/B8, in the order of the kernel's probe buffers.
+PROBE_SITES = ("x", "v", "p", "o", "x1", "h")
+
+
+def quantize_along(xf: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes with one scale per slice along ``dim``.
+
+    ``xf`` fp32; returns ``(q int8, scale fp32)`` with ``xf ~= q * scale``,
+    ``scale`` keeping ``dim`` with size 1. Bit for bit JAX's
+    ``_quantize_along``: ``scale = max(absmax, 1e-12) * fp32(1/127)``,
+    ``q = clamp(round(xf * (1/scale)), -127, 127)``, the reciprocal
+    correctly rounded and ``round`` half to even.
+    """
+    absmax = xf.abs().amax(dim=dim, keepdim=True)
+    scale = absmax.clamp_min(1e-12) * _INV_127.to(xf.device)
+    q = torch.round(xf * torch.reciprocal(scale)).clamp(-127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def quantize_rows(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-row int8 codes of an ``(out, in)`` weight: ``(q (out, in)
+    int8 row-major, scale (out,) fp32)``, as JAX's ``_quantize_rows``."""
+    q, scale = quantize_along(w.detach().float(), 1)
+    return q.contiguous(), scale[:, 0].contiguous()
+
+
+def layer_kind(layer: dict[str, torch.Tensor]) -> str:
+    """Which kernel the packed layer selects: "int8_attn" (B8), "int8"
+    (B7) or "float" (B1), by its keys as in JAX."""
+    if "w_qkv_q" in layer:
+        return "int8_attn"
+    if "w1_q" in layer:
+        return "int8"
+    return "float"
 
 
 def pack_encoder_layer(
-    layer: TransformerEncoderLayer, n_head: int, dtype: torch.dtype
+    layer: TransformerEncoderLayer, n_head: int, dtype: torch.dtype,
+    int8_ffn: bool = False, int8_attn: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Repack one encoder layer for the kernel.
 
     Weight matrices become ``(in, out)`` row-major in ``dtype``; the q
     columns of the QKV weight and bias carry the ``1/sqrt(dh)`` scale.
-    Biases and LayerNorm parameters stay fp32.
+    Biases and LayerNorm parameters stay fp32. ``int8_ffn`` replaces W1
+    and W2 with int8 codes ``(out, in)`` and one fp32 scale per output row
+    (``w1_q``, ``w1_s``, ``w2_q``, ``w2_s``); ``int8_attn`` (which needs
+    ``int8_ffn``) does the same for the QKV weight, after the q scale is
+    folded in, and the out-projection (``w_qkv_q``, ``w_qkv_s``,
+    ``w_out_q``, ``w_out_s``). The codes are JAX's without its zero pad
+    rows (each head padded from dh to 16).
     """
     if dtype not in DTYPES:
         raise ValueError(f"fused encoder supports float32 and bfloat16, not {dtype}")
+    if int8_attn and not int8_ffn:
+        raise ValueError("int8_attn needs int8_ffn, as in JAX")
     with torch.no_grad():
         d_model = layer.norm1.weight.shape[0]
         scale = 1.0 / math.sqrt(d_model // n_head)
@@ -67,54 +146,175 @@ def pack_encoder_layer(
         def vec(v: torch.Tensor) -> torch.Tensor:
             return v.detach().float().contiguous()
 
-        return {
-            "w_qkv": mat(w_in),
-            "b_qkv": vec(b_in),
-            "w_out": mat(layer.self_attn.out_proj.weight),
-            "b_out": vec(layer.self_attn.out_proj.bias),
-            "ln1_s": vec(layer.norm1.weight),
-            "ln1_b": vec(layer.norm1.bias),
-            "w1": mat(layer.linear1.weight),
-            "b1": vec(layer.linear1.bias),
-            "w2": mat(layer.linear2.weight),
-            "b2": vec(layer.linear2.bias),
-            "ln2_s": vec(layer.norm2.weight),
-            "ln2_b": vec(layer.norm2.bias),
-        }
+        packed = {}
+        if int8_attn:
+            packed["w_qkv_q"], packed["w_qkv_s"] = quantize_rows(w_in)
+        else:
+            packed["w_qkv"] = mat(w_in)
+        packed["b_qkv"] = vec(b_in)
+        if int8_attn:
+            packed["w_out_q"], packed["w_out_s"] = quantize_rows(layer.self_attn.out_proj.weight)
+        else:
+            packed["w_out"] = mat(layer.self_attn.out_proj.weight)
+        packed["b_out"] = vec(layer.self_attn.out_proj.bias)
+        packed["ln1_s"] = vec(layer.norm1.weight)
+        packed["ln1_b"] = vec(layer.norm1.bias)
+        for name, lin in (("1", layer.linear1), ("2", layer.linear2)):
+            if int8_ffn:
+                packed[f"w{name}_q"], packed[f"w{name}_s"] = quantize_rows(lin.weight)
+            else:
+                packed[f"w{name}"] = mat(lin.weight)
+            packed[f"b{name}"] = vec(lin.bias)
+        packed["ln2_s"] = vec(layer.norm2.weight)
+        packed["ln2_b"] = vec(layer.norm2.bias)
+        return packed
 
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
 
 
+def _rnd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round fp32 ``t`` to the activation dtype, back in fp32."""
+    return t.to(dtype).float()
+
+
+def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:  # (B, L, D) -> (B, H, L, dh)
+    b, l, d = t.shape
+    return t.reshape(b, l, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:  # (B, H, L, dh) -> (B, L, D)
+    b, h, l, dh = t.shape
+    return t.transpose(1, 2).reshape(b, l, h * dh)
+
+
+def _softmax(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 softmax of the scores: exact in fp32, max-free in bf16."""
+    if dtype == torch.bfloat16:
+        e = torch.exp(torch.clamp(s, -SCORE_CLAMP, SCORE_CLAMP))
+        return e * (1.0 / e.sum(-1, keepdim=True))
+    return torch.softmax(s, dim=-1)
+
+
+def _attention_ln1(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
+    """B1's attention, residual and LN1; the LN1 output in fp32 (unrounded)."""
+    dtype, d = x.dtype, x.shape[-1]
+    xf = x.float()
+    qkv = _rnd(xf @ layer["w_qkv"].float() + layer["b_qkv"], dtype)
+    q, k, v = (_heads(t, n_head) for t in qkv.split(d, -1))
+    p = _rnd(_softmax(q @ k.transpose(-1, -2), dtype), dtype)
+    o = _merge_heads(_rnd(p @ v, dtype))
+    return _ln(xf + (o @ layer["w_out"].float() + layer["b_out"]), layer["ln1_s"], layer["ln1_b"])
+
+
 def fused_encoder_layer_reference(
     x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, rounding at the same points."""
+    """Plain PyTorch version of the kernel B1, rounding at the same points."""
     dtype = x.dtype
-    b, l, d = x.shape
-    dh = d // n_head
-
-    def mm(a: torch.Tensor, w: str) -> torch.Tensor:  # fp32 accumulation
-        return a @ layer[w].float()
-
-    def rnd(t: torch.Tensor) -> torch.Tensor:  # round to the activation dtype
-        return t.to(dtype).float()
-
-    xf = x.float()
-    qkv = rnd(mm(xf, "w_qkv") + layer["b_qkv"])
-    q, k, v = (t.reshape(b, l, n_head, dh).transpose(1, 2) for t in qkv.split(d, -1))
-    s = q @ k.transpose(-1, -2)
-    if dtype == torch.bfloat16:
-        e = torch.exp(torch.clamp(s, -SCORE_CLAMP, SCORE_CLAMP))
-        p = e * (1.0 / e.sum(-1, keepdim=True))
-    else:
-        p = torch.softmax(s, dim=-1)
-    o = rnd(rnd(p) @ v).transpose(1, 2).reshape(b, l, d)
-    x1 = rnd(_ln(xf + (mm(o, "w_out") + layer["b_out"]), layer["ln1_s"], layer["ln1_b"]))
-    h = rnd(torch.relu(mm(x1, "w1") + layer["b1"]))
-    y = _ln(x1 + (mm(h, "w2") + layer["b2"]), layer["ln2_s"], layer["ln2_b"])
+    x1 = _rnd(_attention_ln1(x, layer, n_head), dtype)
+    h = _rnd(torch.relu(x1 @ layer["w1"].float() + layer["b1"]), dtype)
+    y = _ln(x1 + (h @ layer["w2"].float() + layer["b2"]), layer["ln2_s"], layer["ln2_b"])
     return y.to(dtype)
+
+
+#: ``quant(site, xf, dim) -> (codes, scale)``: how the plain int8 versions
+#: quantize at each site ("x", "v", "p", "o", "x1", and "h<first unit>" per
+#: FFN chunk). The default is ``quantize_along``; a caller may substitute
+#: codes (``chip_smoke.py`` puts in the kernel's, to locate every flip).
+Quantizer = Callable[[str, torch.Tensor, int], tuple[torch.Tensor, torch.Tensor]]
+
+
+def _quantize_site(site: str, xf: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return quantize_along(xf, dim)
+
+
+def _idot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer sums ``a @ w.T`` of int8 codes, as fp32: the products
+    are taken in fp64, exact for sums below 2**53 (the kernel's int32 sums
+    stay below 2**31), then rounded to fp32 as the kernel rounds its int32."""
+    return (a.double() @ w.double().transpose(-1, -2)).float()
+
+
+def _ffn_int8(x1f: torch.Tensor, layer: dict[str, torch.Tensor], quant: Quantizer) -> torch.Tensor:
+    """The W8A8 FFN over the fp32 LN1 output (JAX ``_ffn_int8``), ``f + b2``."""
+    qx, s_x = quant("x1", x1f, -1)
+    d_ff = layer["w1_q"].shape[0]
+    f = torch.zeros_like(x1f)
+    for c0 in range(0, d_ff, INT8_FFN_CHUNK):
+        c1 = min(c0 + INT8_FFN_CHUNK, d_ff)
+        h = torch.relu(
+            _idot(qx, layer["w1_q"][c0:c1]) * (layer["w1_s"][c0:c1] * s_x) + layer["b1"][c0:c1]
+        )
+        qh, s_h = quant(f"h{c0}", h, -1)
+        f = f + _idot(qh, layer["w2_q"][:, c0:c1]) * (layer["w2_s"] * s_h)
+    return f + layer["b2"]
+
+
+def fused_encoder_layer_int8_reference(
+    x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int,
+    quant: Quantizer = _quantize_site,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel B7 (JAX
+    ``_encoder_layer_kernel_int8``): B1's attention with x1 kept in fp32,
+    then the W8A8 FFN; the output rounded to the activation dtype."""
+    x1f = _attention_ln1(x, layer, n_head)
+    y = _ln(x1f + _ffn_int8(x1f, layer, quant), layer["ln2_s"], layer["ln2_b"])
+    return y.to(x.dtype)
+
+
+def _attention_ln1_int8(
+    x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int, quant: Quantizer
+) -> torch.Tensor:
+    """JAX ``_attention_ln1_int8``: int8 QKV, PV and out-projection, the S
+    product in the activation dtype; the LN1 output in fp32."""
+    dtype, d = x.dtype, x.shape[-1]
+    xf = x.float()
+    qx, s_x = quant("x", xf, -1)
+    qkv_f = _idot(qx, layer["w_qkv_q"]) * (layer["w_qkv_s"] * s_x) + layer["b_qkv"]
+    q, k, v_f = qkv_f.split(d, -1)
+    s = _heads(_rnd(q, dtype), n_head) @ _heads(_rnd(k, dtype), n_head).transpose(-1, -2)
+    qv, s_v = quant("v", v_f.contiguous(), 1)  # per (chain, column) over the keys
+    qp, s_p = quant("p", _softmax(s, dtype), -1)  # per (head, query) over the keys
+    o = _idot(qp, _heads(qv, n_head).transpose(-1, -2)) * (_heads(s_v, n_head) * s_p)
+    qo, s_o = quant("o", _merge_heads(o), -1)
+    attn = _idot(qo, layer["w_out_q"]) * (layer["w_out_s"] * s_o) + layer["b_out"]
+    return _ln(xf + attn, layer["ln1_s"], layer["ln1_b"])
+
+
+def fused_encoder_layer_int8_attn_reference(
+    x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int,
+    quant: Quantizer = _quantize_site,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel B8 (JAX
+    ``_encoder_layer_kernel_int8_attn``)."""
+    x1f = _attention_ln1_int8(x, layer, n_head, quant)
+    y = _ln(x1f + _ffn_int8(x1f, layer, quant), layer["ln2_s"], layer["ln2_b"])
+    return y.to(x.dtype)
+
+
+def _expected_shapes(layer: dict[str, torch.Tensor], d: int, dtype: torch.dtype) -> dict:
+    """(shape, dtype) of every packed tensor the layer's kind needs."""
+    f32, i8 = torch.float32, torch.int8
+    kind = layer_kind(layer)
+    d_ff = layer["w1"].shape[1] if kind == "float" else layer["w1_q"].shape[0]
+    out = {"b_qkv": ((3 * d,), f32), "b_out": ((d,), f32), "ln1_s": ((d,), f32),
+           "ln1_b": ((d,), f32), "b1": ((d_ff,), f32), "b2": ((d,), f32),
+           "ln2_s": ((d,), f32), "ln2_b": ((d,), f32)}
+    if kind == "int8_attn":
+        out.update(w_qkv_q=((3 * d, d), i8), w_qkv_s=((3 * d,), f32),
+                   w_out_q=((d, d), i8), w_out_s=((d,), f32))
+    else:
+        out.update(w_qkv=((d, 3 * d), dtype), w_out=((d, d), dtype))
+    if kind == "float":
+        out.update(w1=((d, d_ff), dtype), w2=((d_ff, d), dtype))
+    else:
+        out.update(w1_q=((d_ff, d), i8), w1_s=((d_ff,), f32),
+                   w2_q=((d, d_ff), i8), w2_s=((d,), f32))
+    keys = {"float": _LAYER_KEYS, "int8": _LAYER_KEYS_INT8,
+            "int8_attn": _LAYER_KEYS_INT8_ATTN}[kind]
+    return {k: out[k] for k in keys}
 
 
 def _check(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> None:
@@ -122,16 +322,9 @@ def _check(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> None
         raise ValueError(f"x must be (B, L, D), got shape {tuple(x.shape)}")
     if x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    _, _, d = x.shape
-    d_ff = layer["w1"].shape[1]
-    shapes = {
-        "w_qkv": (d, 3 * d), "b_qkv": (3 * d,), "w_out": (d, d), "b_out": (d,),
-        "ln1_s": (d,), "ln1_b": (d,), "w1": (d, d_ff), "b1": (d_ff,),
-        "w2": (d_ff, d), "b2": (d,), "ln2_s": (d,), "ln2_b": (d,),
-    }
-    for key, shape in shapes.items():
+    d = x.shape[-1]
+    for key, (shape, want) in _expected_shapes(layer, d, x.dtype).items():
         t = layer[key]
-        want = x.dtype if key in ("w_qkv", "w_out", "w1", "w2") else torch.float32
         if tuple(t.shape) != shape or t.dtype != want:
             raise ValueError(
                 f"{key}: expected {shape} {want}, got {tuple(t.shape)} {t.dtype}"
@@ -155,6 +348,25 @@ def _library() -> ctypes.CDLL:
     for name in ("fdiff_encoder_layer_smem_bytes", "fdiff_encoder_layer_kv_floats"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fdiff_error_string.restype = ctypes.c_char_p
+    lib.fdiff_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
+def _int8_library() -> ctypes.CDLL:
+    """Build and load ``csrc/fused_encoder_int8.cu``, with its C signatures."""
+    from fourierdiffusion_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_encoder_int8")
+    lib.fdiff_encoder_layer_int8.restype = ctypes.c_int
+    lib.fdiff_encoder_layer_int8.argtypes = (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for name in ("fdiff_encoder_layer_int8_smem_bytes", "fdiff_encoder_layer_int8_kv_floats"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.fdiff_error_string.restype = ctypes.c_char_p
     lib.fdiff_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -203,31 +415,171 @@ def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tor
     return out
 
 
+def launch_int8(
+    x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int,
+    probe: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Launch B7 or B8 (by the layer's keys) on CUDA tensors and add one to
+    its count. ``probe`` maps sites of ``PROBE_SITES`` to int8 buffers that
+    receive the kernel's codes (``int8_codes_buffers``)."""
+    global int8_launches, int8_attn_launches
+    attn8 = layer_kind(layer) == "int8_attn"
+    b, l, d = x.shape
+    d_ff = layer["w1_q"].shape[0]
+    if d % 8 or d_ff % 8:
+        raise ValueError(f"int8 kernel needs d_model and d_ff divisible by 8, got {d}, {d_ff}")
+    if b > 65535:
+        raise ValueError(f"kernel takes at most 65535 chains per launch, got {b}")
+    ptrs = [layer[k] if k in layer else None for k in _INT8_ARGS]
+    if not all(t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
+               for t in [x, *ptrs]):
+        raise ValueError("fused_encoder_layer needs contiguous, 16-byte aligned tensors")
+    lib = _int8_library()
+    smem = lib.fdiff_encoder_layer_int8_smem_bytes(int(attn8), l, d)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory per block")
+    out = torch.empty_like(x)
+    kv = kv_workspace(lib.fdiff_encoder_layer_int8_kv_floats(int(attn8), l, d), x)
+    weights = (ctypes.c_void_p * len(_INT8_ARGS))(*(data_ptr(t) for t in ptrs))
+    probes = None
+    if probe is not None:
+        probes = (ctypes.c_void_p * len(PROBE_SITES))(
+            *(data_ptr(probe.get(site)) for site in PROBE_SITES))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.fdiff_encoder_layer_int8(
+        DTYPES[x.dtype], int(attn8), x.data_ptr(), weights, out.data_ptr(), data_ptr(kv),
+        probes, b, l, d, n_head, d_ff, stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"int8 fused encoder kernel failed: {lib.fdiff_error_string(err).decode()}"
+        )
+    if attn8:
+        int8_attn_launches += 1
+    else:
+        int8_launches += 1
+    return out
+
+
+def int8_codes_buffers(x: torch.Tensor, layer: dict[str, torch.Tensor],
+                       n_head: int) -> dict[str, torch.Tensor]:
+    """Zeroed int8 buffers for the codes of every quantization site of the
+    layer's kind, shaped as the plain versions' codes: x, v, o, x1 (B, L, D),
+    p (B, H, L, L), h (B, L, F). B7 has only x1 and h."""
+    b, l, d = x.shape
+    d_ff = layer["w1_q"].shape[0]
+    shapes = {"x1": (b, l, d), "h": (b, l, d_ff)}
+    if layer_kind(layer) == "int8_attn":
+        shapes.update(x=(b, l, d), v=(b, l, d), p=(b, n_head, l, l), o=(b, l, d))
+    return {k: torch.zeros(v, dtype=torch.int8, device=x.device) for k, v in shapes.items()}
+
+
+def _site_codes(codes: dict[str, torch.Tensor], site: str, width: int) -> tuple[str, torch.Tensor]:
+    """The entry of ``codes`` for a quantizer site: "h<c0>" is the slice
+    ``[..., c0:c0 + width]`` of the hidden layer's codes."""
+    if site.startswith("h"):
+        c0 = int(site[1:])
+        return "h", codes["h"][..., c0:c0 + width]
+    return site, codes[site]
+
+
+def locate_code_flips(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int,
+                      codes: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """Run the plain B7/B8 version with ``codes`` (a kernel's, from the
+    ``probe`` of ``launch_int8``) put in at every quantization site, and
+    locate every code that differs from the one the plain version takes.
+
+    Site by site, in the layer's order, the plain version quantizes its own
+    fp32 input (computed from the given codes upstream), compares, and then
+    goes on with the given codes. So its output differs from the kernel's
+    only by fp32 (or bf16) rounding, and each flip is located at the site
+    where it arose. Returns that output and, per site, the number of codes,
+    the number flipped, the largest |code difference| and the largest
+    distance of a flipped code's input ``|x / scale|`` from the nearest
+    rounding boundary (k + 1/2), in code units.
+    """
+    stats: dict[str, dict] = {}
+
+    def quant(site: str, xf: torch.Tensor, dim: int):
+        q, s = quantize_along(xf, dim)
+        name, given = _site_codes(codes, site, xf.shape[-1])
+        given = given.to(q.device)
+        flipped = given != q
+        rec = stats.setdefault(name, {"codes": 0, "flipped": 0, "max_step": 0, "max_dist": 0.0})
+        rec["codes"] += q.numel()
+        n = int(flipped.sum())
+        if n:
+            t = (xf * torch.reciprocal(s)).abs()
+            dist = (t - (torch.floor(t) + 0.5)).abs()
+            rec["flipped"] += n
+            rec["max_step"] = max(rec["max_step"],
+                                  int((given.int() - q.int()).abs().max()))
+            rec["max_dist"] = max(rec["max_dist"], float(dist[flipped].max()))
+        return given, s
+
+    out = _REFERENCES[layer_kind(layer)](x, layer, n_head, quant)
+    return out, stats
+
+
+_REFERENCES = {
+    "float": lambda x, layer, n_head, quant=None: fused_encoder_layer_reference(
+        x, layer, n_head),
+    "int8": fused_encoder_layer_int8_reference,
+    "int8_attn": fused_encoder_layer_int8_attn_reference,
+}
+
+
 def fused_encoder_layer(
     x: torch.Tensor, layer: dict[str, torch.Tensor], *, n_head: int
 ) -> torch.Tensor:
-    """One encoder layer over ``(B, L, D)``: the kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    """One encoder layer over ``(B, L, D)``, B1, B7 or B8 by the layer's
+    keys: the kernel on a CUDA tensor, the plain version on a CPU tensor."""
     _check(x, layer, n_head)
+    kind = layer_kind(layer)
     if x.device.type == "cuda":
-        return _launch(x, layer, n_head)
+        return _launch(x, layer, n_head) if kind == "float" else launch_int8(x, layer, n_head)
     if x.device.type == "cpu":
-        return fused_encoder_layer_reference(x, layer, n_head)
+        return _REFERENCES[kind](x, layer, n_head)
     raise ValueError(f"fused_encoder_layer runs on cuda or cpu, not {x.device}")
 
 
-def fused_encoder(
-    x: torch.Tensor, layers: list[dict[str, torch.Tensor]], *, n_head: int
+def fused_encoder_layer_plain(
+    x: torch.Tensor, layer: dict[str, torch.Tensor], *, n_head: int
 ) -> torch.Tensor:
-    """The encoder stack: ``fused_encoder_layer`` once per layer."""
+    """The plain version of the layer's kernel (B1, B7 or B8), on any
+    device: to hold the kernels against it on the card."""
+    _check(x, layer, n_head)
+    return _REFERENCES[layer_kind(layer)](x, layer, n_head)
+
+
+LayerFn = Callable[..., torch.Tensor]  # (x, layer, *, n_head) -> x
+
+
+def fused_encoder(
+    x: torch.Tensor, layers: list[dict[str, torch.Tensor]], *, n_head: int,
+    layer_fn: LayerFn = fused_encoder_layer,
+) -> torch.Tensor:
+    """The encoder stack: ``layer_fn`` (``fused_encoder_layer``, or for
+    instance ``fused_encoder_layer_plain``) once per layer."""
     for layer in layers:
-        x = fused_encoder_layer(x, layer, n_head=n_head)
+        x = layer_fn(x, layer, n_head=n_head)
     return x
 
 
 __all__ = [
+    "INT8_FFN_CHUNK",
+    "PROBE_SITES",
     "fused_encoder",
     "fused_encoder_layer",
+    "fused_encoder_layer_int8_attn_reference",
+    "fused_encoder_layer_int8_reference",
+    "fused_encoder_layer_plain",
     "fused_encoder_layer_reference",
+    "int8_codes_buffers",
+    "launch_int8",
+    "layer_kind",
+    "locate_code_flips",
     "pack_encoder_layer",
+    "quantize_along",
+    "quantize_rows",
 ]

@@ -1,19 +1,23 @@
-"""Reverse-diffusion sampler (port of the ``em``/``ode`` part of
-``fourierdiffusion_tpu/sampling/sampler.py``).
+"""Reverse-diffusion sampler (port of ``fourierdiffusion_tpu/sampling/sampler.py``).
 
 ``reverse_diffusion`` is the low-level loop: it takes the prior ``x_T``
-and, for ``em``, the per-step standard-normal draws ``z`` (or a
-``torch.Generator`` to draw them from), so a test can replay the noise JAX
-drew. ``make_sample_fn`` and ``DiffusionSampler`` draw both from a
-generator. For a ``ScoreTransformer`` on CUDA the fused forward (one
-kernel launch per encoder layer and step) is selected automatically, as
-the JAX sampler selects its Pallas path on the TPU. The K steps run as a
-Python loop. The predictor-corrector method, the divergence guard and
-CUDA-graph capture of the loop are not ported yet.
+and the per-step standard-normal draws, ``z`` for the ``em``/``pc``
+predictor and ``z_corr`` for the ``pc`` corrector (or a ``torch.Generator``
+to draw them from), so a test can replay the noise JAX drew.
+``make_sample_fn`` and ``DiffusionSampler`` draw them all from a generator.
+Methods: ``em`` (Euler–Maruyama), ``ode`` (probability flow) and ``pc``
+(the EM predictor, then ``corrector_steps`` of SNR-scaled Langevin MCMC at
+each time). For a ``ScoreTransformer`` on CUDA the fused forward (one
+kernel launch per encoder layer and score evaluation; B1, or the int8
+kernels B7/B8 under ``FDIFF_FUSED_INT8``) is selected automatically, as
+the JAX sampler selects its Pallas path on the TPU. ``DiffusionSampler``
+has JAX's divergence guard (``divergence_threshold``). The K steps run as
+a Python loop; capturing them in a CUDA graph is not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional
 
 import torch
@@ -26,8 +30,9 @@ from fourierdiffusion_tpu_torch.models.fused import (
 from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
 
-METHODS = ("em", "ode")
+METHODS = ("em", "ode", "pc")
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+logger = logging.getLogger(__name__)
 
 
 def _clip_score(
@@ -41,6 +46,34 @@ def _clip_score(
     return torch.clamp(score, -bound[:, None], bound[:, None])
 
 
+def _draw(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def langevin_correct(
+    score_fn: ScoreFn, scheduler: SDE, x: torch.Tensor, t: torch.Tensor, step_size: float,
+    *, corrector_steps: int, snr: float, score_clip: Optional[float] = None,
+    z: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """SNR-scaled Langevin MCMC at the fixed time ``t`` (Song et al.'s PC
+    corrector, JAX ``langevin_correct``): ``corrector_steps`` updates
+    ``x + eps * grad + sqrt(2 eps) z`` with ``eps = 2 alpha (snr |z| /
+    |grad|)**2``, norms averaged over the batch. ``z`` ``(corrector_steps,
+    *x.shape)`` holds the draws; without it each update draws from
+    ``generator``."""
+    t_vec = t.expand(x.shape[0]).to(x.dtype)
+    alpha = scheduler.corrector_alpha(t, step_size)
+    for i in range(corrector_steps):
+        grad = _clip_score(scheduler, score_fn(x, t_vec), t, score_clip)
+        zi = _draw(x, generator) if z is None else z[i]
+        # The floor keeps a degenerate (all-zero) score from giving 0/0.
+        grad_norm = torch.clamp_min(grad.flatten(1).norm(dim=-1).mean(), 1e-12)
+        noise_norm = zi.flatten(1).norm(dim=-1).mean()
+        eps = 2.0 * alpha * (snr * noise_norm / grad_norm) ** 2
+        x = x + eps * grad + torch.sqrt(2.0 * eps) * zi
+    return x
+
+
 @torch.no_grad()
 def reverse_diffusion(
     score_fn: ScoreFn,
@@ -50,18 +83,29 @@ def reverse_diffusion(
     num_diffusion_steps: int,
     method: str = "em",
     score_clip: Optional[float] = None,
+    corrector_steps: int = 1,
+    snr: float = 0.16,
     z: Optional[torch.Tensor] = None,
+    z_corr: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Run the K reverse steps from ``x_T`` ``(B, L, C)``.
 
-    ``z`` ``(K, B, L, C)`` holds the ``em`` noise of every step; without it
-    each step draws from ``generator``. ``ode`` draws nothing.
+    ``z`` ``(K, B, L, C)`` holds the predictor noise of every ``em``/``pc``
+    step and ``z_corr`` ``(K, corrector_steps, B, L, C)`` the ``pc``
+    corrector's; what is not given is drawn from ``generator`` (each step's
+    predictor draw, then its corrector draws). ``ode`` draws nothing.
     """
     if method not in METHODS:
         raise ValueError(f"Unknown sampling method: {method!r}")
     if z is not None and tuple(z.shape) != (num_diffusion_steps, *x_T.shape):
         raise ValueError(f"z must be (K, *x_T.shape), got {tuple(z.shape)}")
+    if z_corr is not None and tuple(z_corr.shape) != (
+        num_diffusion_steps, corrector_steps, *x_T.shape
+    ):
+        raise ValueError(
+            f"z_corr must be (K, corrector_steps, *x_T.shape), got {tuple(z_corr.shape)}"
+        )
     timesteps = scheduler.timesteps(num_diffusion_steps, device=x_T.device)
     step_size = scheduler.step_size(num_diffusion_steps)
     x = x_T
@@ -71,9 +115,15 @@ def reverse_diffusion(
         score = _clip_score(scheduler, score_fn(x, t_vec), t, score_clip)
         if method == "ode":
             x = scheduler.ode_step(score, t, x, step_size).prev_sample
-        else:
-            zi = None if z is None else z[i]
-            x = scheduler.step(score, t, x, step_size, z=zi, generator=generator).prev_sample
+            continue
+        zi = None if z is None else z[i]
+        x = scheduler.step(score, t, x, step_size, z=zi, generator=generator).prev_sample
+        if method == "pc":
+            x = langevin_correct(
+                score_fn, scheduler, x, t, step_size, corrector_steps=corrector_steps,
+                snr=snr, score_clip=score_clip, z=None if z_corr is None else z_corr[i],
+                generator=generator,
+            )
     return x
 
 
@@ -94,6 +144,8 @@ def make_sample_fn(
     n_channels: int,
     fused: Optional[bool] = None,
     method: str = "em",
+    corrector_steps: int = 1,
+    snr: float = 0.16,
     score_clip: Optional[float] = None,
     device: str | torch.device = "cuda",
 ) -> Callable[[torch.Generator], torch.Tensor]:
@@ -102,7 +154,7 @@ def make_sample_fn(
     The model must already live on ``device``. ``fused=None`` takes the
     fused forward for a ``ScoreTransformer`` on CUDA and the module's own
     forward elsewhere. The weights are packed at each call, so a changed
-    model is picked up.
+    model is picked up, and so is ``FDIFF_FUSED_INT8`` (the int8 kernels).
     """
     dev = resolve_device(device)
     if method not in METHODS:
@@ -119,7 +171,8 @@ def make_sample_fn(
             return reverse_diffusion(
                 _score_fn(model, fused), scheduler, x_T,
                 num_diffusion_steps=num_diffusion_steps, method=method,
-                score_clip=score_clip, generator=generator,
+                score_clip=score_clip, corrector_steps=corrector_steps, snr=snr,
+                generator=generator,
             )
 
     return sample
@@ -130,6 +183,15 @@ class DiffusionSampler:
     trimmed to exactly ``num_samples``.
 
     Moves ``model`` to ``device`` and puts it in eval mode.
+
+    ``divergence_threshold`` (off by default) is JAX's divergence guard:
+    chains whose largest |x| passes it are redrawn. Each retry draws the
+    whole batch again, from the caller's generator, and splices in only the
+    flagged rows, at most ``max_resample_retries`` times; chains still past
+    the threshold are kept, with a warning. ``last_resample_stats`` counts,
+    per ``sample()`` call, the redraw slots used (``resampled_chains``; a
+    chain retried twice counts twice), the chains kept past the threshold
+    (``unresolved_chains``) and the whole-batch redraws (``redraws``).
     """
 
     def __init__(
@@ -141,8 +203,12 @@ class DiffusionSampler:
         n_channels: int,
         sample_batch_size: int = 200,
         method: str = "em",
+        corrector_steps: int = 1,
+        snr: float = 0.16,
         score_clip: Optional[float] = None,
         fused: Optional[bool] = None,
+        divergence_threshold: Optional[float] = None,
+        max_resample_retries: int = 2,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -152,8 +218,13 @@ class DiffusionSampler:
         self.n_channels = n_channels
         self.sample_batch_size = sample_batch_size
         self.method = method
+        self.corrector_steps = corrector_steps
+        self.snr = snr
         self.score_clip = score_clip
         self.fused = fused
+        self.divergence_threshold = divergence_threshold
+        self.max_resample_retries = max_resample_retries
+        self.last_resample_stats = {"resampled_chains": 0, "unresolved_chains": 0, "redraws": 0}
 
     def sample(
         self,
@@ -169,10 +240,43 @@ class DiffusionSampler:
             self.model, self.scheduler,
             num_diffusion_steps=num_diffusion_steps, batch_size=batch,
             max_len=self.max_len, n_channels=self.n_channels, fused=self.fused,
-            method=self.method, score_clip=self.score_clip, device=self.device,
+            method=self.method, corrector_steps=self.corrector_steps, snr=self.snr,
+            score_clip=self.score_clip, device=self.device,
         )
-        outs = [fn(generator) for _ in range(-(-num_samples // batch))]
+        self.last_resample_stats = {"resampled_chains": 0, "unresolved_chains": 0, "redraws": 0}
+        outs = []
+        for _ in range(-(-num_samples // batch)):
+            out = fn(generator)
+            if self.divergence_threshold is not None:
+                out = self._resample_divergent(lambda: fn(generator), out)
+            outs.append(out)
         return torch.cat(outs, dim=0)[:num_samples]
 
+    def _flagged(self, x: torch.Tensor) -> torch.Tensor:
+        return x.abs().flatten(1).amax(dim=1) > float(self.divergence_threshold)
 
-__all__ = ["DiffusionSampler", "make_sample_fn", "reverse_diffusion"]
+    def _resample_divergent(self, draw: Callable[[], torch.Tensor],
+                            out: torch.Tensor) -> torch.Tensor:
+        """Redraw the chains of ``out`` past the threshold (JAX
+        ``_resample_divergent``): chains are i.i.d. across the batch, so the
+        result is a draw conditioned on not diverging."""
+        x = out.clone()
+        flagged = self._flagged(x)
+        retries = 0
+        while bool(flagged.any()) and retries < self.max_resample_retries:
+            retries += 1
+            redraw = draw()
+            x[flagged] = redraw[flagged]
+            self.last_resample_stats["resampled_chains"] += int(flagged.sum())
+            self.last_resample_stats["redraws"] += 1
+            flagged = self._flagged(x)
+        if bool(flagged.any()):
+            logger.warning(
+                "divergence guard: %d chains still past |x|>%g after %d retries",
+                int(flagged.sum()), float(self.divergence_threshold), retries,
+            )
+            self.last_resample_stats["unresolved_chains"] += int(flagged.sum())
+        return x
+
+
+__all__ = ["DiffusionSampler", "langevin_correct", "make_sample_fn", "reverse_diffusion"]

@@ -129,6 +129,11 @@ class SDE:
         drift = self.reverse_drift_ode(model_output, timestep, sample)
         return SamplingOutput(prev_sample=sample - drift * step_size)
 
+    def corrector_alpha(self, timestep: torch.Tensor, step_size: float) -> torch.Tensor:
+        """Step scale of the Langevin corrector: 1 here and for VE; VP's
+        discretised ``1 - beta(t) dt`` (Song et al.'s PC sampler)."""
+        return torch.ones((), dtype=torch.float32, device=timestep.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class VEScheduler(SDE):
@@ -186,6 +191,9 @@ class VPScheduler(SDE):
     def _diffusion_vec(self, timestep, like):
         beta = self.beta(_as_tensor(timestep, like))
         return torch.sqrt(beta) * self.g(like.shape[-2], like)
+
+    def corrector_alpha(self, timestep, step_size):
+        return 1.0 - self.beta(timestep) * step_size
 
     def reverse_drift_sde(self, model_output, timestep, sample):
         beta = self.beta(_as_tensor(timestep, sample))

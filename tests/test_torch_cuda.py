@@ -15,6 +15,16 @@ the backward kernels' gradients 1e-3 of each tensor's largest gradient
 (sums over up to 64 x 365 positions, in other orders); the dropout masks
 bit for bit.
 
+The int8 kernels B7 and B8 are held to their plain versions run with the
+kernel's own int8 codes put in (``fused_encoder.locate_code_flips``), with
+B1's tolerances. Every code where the two versions part is located: in fp32
+each lies within 1e-3 of a rounding boundary (k + 1/2) in code units (the
+two versions' fp32 inputs to a quantization differ by sums in other orders,
+~1e-6 relative, so ~1e-4 codes) and moves by one; in bf16 at most 1 % of a
+site's codes flip (an upstream bf16 rounding that flipped, as B1 has, moves
+a quantizer's input by up to about a code). The sites whose inputs the two
+versions compute alike (x, and V from exact integer sums) flip nowhere.
+
 The long sequences of the real datasets (NASA L=251, NASDAQ 252,
 USDroughts 365 at d_model 72) and the d_model 128 shapes at ECG's L=187
 (``configs/score_model/fast.yaml`` F 2048, ``fast512.yaml`` F 512) take the
@@ -55,10 +65,12 @@ def cuda() -> torch.device:
     return torch.device("cuda")
 
 
-def _layer(d: int, n_head: int, d_ff: int, dtype: torch.dtype, device) -> dict:
+def _layer(d: int, n_head: int, d_ff: int, dtype: torch.dtype, device, level: int = 0) -> dict:
     torch.manual_seed(0)
     layer = TransformerEncoderLayer(d, n_head, d_ff)
-    return {k: v.to(device) for k, v in fe.pack_encoder_layer(layer, n_head, dtype).items()}
+    packed = fe.pack_encoder_layer(layer, n_head, dtype, int8_ffn=level >= 1,
+                                   int8_attn=level >= 2)
+    return {k: v.to(device) for k, v in packed.items()}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -314,3 +326,71 @@ def test_sampler_and_fused_trainer_run_at_L365(cuda) -> None:
     history = trainer.fit(dm)
     assert (fet.fwd_launches, fet.bwd_launches) == (dm.steps_per_epoch,) * 2
     assert math.isfinite(history[0]["train/loss"]) and math.isfinite(history[0]["val/loss"])
+
+
+INT8_SHAPES = [(3, 19, 24, 4, 1040), (4, 100, 72, 12, 2048), (2, 187, 72, 12, 2048),
+               (2, 365, 72, 12, 2048), (2, 187, 128, 8, 2048), (2, 187, 128, 8, 512)]
+INT8_IDS = ["L19-F1040", "L100", "L187", "L365", "D128-F2048", "D128-F512"]
+FLIP_BAND = 1e-3  # fp32: distance of a flipped code's input from k + 1/2
+BF16_FLIP_SHARE = 1e-2
+EXACT_SITES = ("x", "v")
+
+
+def check_int8_flips(flips: dict, dtype: torch.dtype) -> None:
+    """The flips that ``fe.locate_code_flips`` located, against the bounds
+    in this file's docstring."""
+    for site, f in flips.items():
+        if site in EXACT_SITES:
+            assert f["flipped"] == 0, (site, f)
+        elif dtype == torch.float32:
+            assert f["max_step"] <= 1 and f["max_dist"] <= FLIP_BAND, (site, f)
+        else:
+            assert f["flipped"] <= BF16_FLIP_SHARE * f["codes"], (site, f)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", INT8_SHAPES, ids=INT8_IDS)
+def test_int8_kernel_matches_plain(cuda, level, dtype, b, l, d, n_head, d_ff) -> None:
+    packed = _layer(d, n_head, d_ff, dtype, cuda, level)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, l, d, generator=g).to(cuda, dtype)
+    counts = (fe.launches, fe.int8_launches, fe.int8_attn_launches)
+    out = fe.fused_encoder_layer(x, packed, n_head=n_head)
+    codes = fe.int8_codes_buffers(x, packed, n_head)
+    probed = fe.launch_int8(x, packed, n_head, probe=codes)
+    torch.cuda.synchronize()
+    after = (counts[0], counts[1] + 2 * (level == 1), counts[2] + 2 * (level == 2))
+    assert (fe.launches, fe.int8_launches, fe.int8_attn_launches) == after
+    assert out.dtype == dtype and out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert torch.equal(out, probed)  # the probe does not change the result
+    ref, flips = fe.locate_code_flips(x, packed, n_head, codes)
+    assert set(flips) == set(codes)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    check_int8_flips(flips, dtype)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_int8_sampler_runs_every_layer_through_the_kernel(cuda, level, monkeypatch) -> None:
+    from fourierdiffusion_tpu_torch.sampling import DiffusionSampler
+    from fourierdiffusion_tpu_torch.schedulers import VEScheduler
+
+    monkeypatch.setenv("FDIFF_FUSED_INT8", str(level))
+    torch.manual_seed(4)
+    model = ScoreModelConfig(d_model=24, n_head=4, num_layers=2, dim_feedforward=64,
+                             dtype="bfloat16").build(1, 19)
+    sampler = DiffusionSampler(model, VEScheduler(fourier_noise_scaling=True), max_len=19,
+                               n_channels=1, sample_batch_size=4, method="pc", device=cuda)
+    fe.launches = fe.int8_launches = fe.int8_attn_launches = 0
+    out = sampler.sample(4, num_diffusion_steps=3,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    launches = 3 * 2 * 2  # steps x (predictor + corrector) x layers
+    assert (fe.launches, fe.int8_launches, fe.int8_attn_launches) == (
+        0, launches * (level == 1), launches * (level == 2))
+    assert out.shape == (4, 19, 1) and torch.isfinite(out).all()
+
+
+def test_int8_kernel_rejects_misaligned_widths(cuda) -> None:
+    packed = _layer(20, 4, 64, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        fe.fused_encoder_layer(torch.zeros(2, 19, 20, device=cuda), packed, n_head=4)

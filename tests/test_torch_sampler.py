@@ -97,7 +97,7 @@ def test_reverse_diffusion_checks_arguments() -> None:
     scheduler = VPScheduler()
     x_T = torch.zeros(SHAPE)
     with pytest.raises(ValueError, match="method"):
-        reverse_diffusion(lambda x, t: x, scheduler, x_T, num_diffusion_steps=2, method="pc")
+        reverse_diffusion(lambda x, t: x, scheduler, x_T, num_diffusion_steps=2, method="heun")
     with pytest.raises(ValueError, match="z must be"):
         reverse_diffusion(lambda x, t: x, scheduler, x_T, num_diffusion_steps=2,
                           z=torch.zeros(3, *SHAPE))
