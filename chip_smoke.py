@@ -13,12 +13,17 @@ Phases, each printed with its seconds as it ends:
    B5, B6), ``csrc/fused_encoder_train.cu`` (B3, B4) and
    ``csrc/fused_encoder_int8.cu`` (B7, B8), one ``nvcc`` each, all started
    together (a library already built is reused), with ptxas's registers,
-   stack and spills for every kernel instance.
+   stack and spills for every kernel instance, and, from ``cuobjdump
+   -sass``, the instructions and tensor-core instructions (HMMA) of each
+   kernel of B1 and B4; every kernel that runs a tile product must have
+   HMMA.
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
-   plain PyTorch version on the card, and the times of the kernel, the
-   plain version and one eval-mode ``nn.TransformerEncoderLayer`` call on
-   the same weights (a yardstick the port never calls).
+   plain PyTorch version on the card, and the times of the kernel (beside
+   its time before the tensor-core redesign, PRIOR_MS), the plain version
+   and one eval-mode ``nn.TransformerEncoderLayer`` call on the same
+   weights (a yardstick the port never calls), its bounds (and, in fp32,
+   three times its products over the TF32 peak) and launches per call.
 4. main path: ``DiffusionSampler`` (Euler-Maruyama, VP SDE with Fourier
    noise scaling, K=1000) on the trained ``ref-freq42-e200`` weights,
    32 chains, in fp32 and then in bf16 compute. Every layer of every step
@@ -30,14 +35,20 @@ Phases, each printed with its seconds as it ends:
 6. training kernels: at the flagship's training shape (B=64, L=100; B3 and
    B4 also at L=187) the attention forward B2 (fp32 and bf16), the training
    forward B3 and backward B4 (fp32, dropout 0.1) against their plain
-   versions on the card, the dropout masks bit for bit, and the times of
+   versions on the card, the dropout masks bit for bit, B4's stages (dF2,
+   dx1, da, dqkv) against the staged plain backward, and the times of
    each kernel, its plain version, its bound and a PyTorch yardstick
    (``F.scaled_dot_product_attention``; a train-mode
-   ``nn.TransformerEncoderLayer(72, 12, 2048, 0.1)`` forward and backward).
+   ``nn.TransformerEncoderLayer(72, 12, 2048, 0.1)`` forward and backward);
+   at L=100 also B4 called twice on the same inputs (bit-identical) and
+   its time per stage (CUDA events) with its launches per call, and the
+   device time of each kernel of one B1 call (B=32, fp32 and bf16) and one
+   B4 call (B=64), from ``torch.profiler``.
 7. training check: the first 3 steps of the flagship's training through
    the kernels and through the plain versions, from the same weights, with
    the same batches, ``t``, ``z`` and layer seeds: losses and the first
-   step's gradients must agree.
+   step's gradients must agree (FFN ReLU gates that flipped between the two
+   paths located and matched, as in phase 11).
 8. training main path: ``Trainer.fit`` with the flagship's training
    configuration (``runs/4ffeaa7e/train_config.yaml``: synthetic sine data,
    1000 series of L=100, DFT and standardisation; d_model 72, 10 layers,
@@ -117,6 +128,7 @@ import torch.nn.functional as F
 from fourierdiffusion_tpu_torch.data import SyntheticDatamodule
 from fourierdiffusion_tpu_torch.losses import draw_loss_noise
 from fourierdiffusion_tpu_torch.models import ScoreModelConfig, ScoreTransformer
+from fourierdiffusion_tpu_torch.models import fused as fused_models
 from fourierdiffusion_tpu_torch.models.fused import (
     fused_score_forward,
     pack_score_transformer,
@@ -152,10 +164,27 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-4}
 # per-step differences of ~1e-6 grow through the score near t = eps.
 TRAJ_TOL = 1e-3
 
-# H100 SXM data sheet, dense, at 700 W: fp32 on the CUDA cores (the kernel
-# does not use the tensor cores yet) and bf16 on the tensor cores, HBM3.
+# H100 SXM data sheet, dense, at 700 W: fp32 on the CUDA cores and bf16 on
+# the tensor cores, HBM3; and TF32 on the tensor cores, for the second bound
+# of the fp32 products that B1 and B4 run as 3xTF32 (three TF32 products
+# per fp32 product).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
+# B1 and B4 before their tensor-core redesign, as this script measured them
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6). Printed beside
+# this run's times, never compared with them in a gate.
+PRIOR_MS = {
+    "B1": {"float32 B=32 L=100": 0.4242, "bfloat16 B=32 L=100": 0.3704,
+           "float32 L=365 D=72 H=12 F=2048": 1.3330, "bfloat16 L=365 D=72 H=12 F=2048": 0.8087,
+           "float32 L=187 D=128 H=8 F=2048": 1.4954, "bfloat16 L=187 D=128 H=8 F=2048": 1.1081,
+           "float32 L=187 D=128 H=8 F=512": 1.0256, "bfloat16 L=187 D=128 H=8 F=512": 0.7411},
+    "B4": {"L=100 D=72 H=12 F=2048": 7.5089, "L=365 D=72 H=12 F=2048": 34.2,
+           "L=187 D=128 H=8 F=2048": 26.4, "L=187 D=128 H=8 F=512": 11.4},
+}
+# The kernels of the redesigned B1 and B4 that run tile products: each must
+# show tensor-core instructions (HMMA) in its SASS.
+PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel")
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
 SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
@@ -295,10 +324,17 @@ def layer_bound_ms(b: int, l: int, d: int, d_ff: int, dtype: torch.dtype) -> tup
     return bound(train_layer_flops(b, l, d, d_ff), bytes_, dtype)
 
 
+def tf32x3_bound_ms(flops: float) -> float:
+    """Least time of fp32 products run as 3xTF32: three times the products
+    over the TF32 tensor-core peak."""
+    return 3 * flops / PEAK_TF32 * 1e3
+
+
 def layer_vs_plain(layer, n_head: int, dtype: torch.dtype, batch: int, l: int,
-                   library=None) -> dict:
+                   library=None, prior: str | None = None) -> dict:
     """B1 on one encoder layer at (batch, l) against its plain version, and
-    the times of the kernel, the plain version and ``library`` (if given)."""
+    the times of the kernel, the plain version and ``library`` (if given),
+    beside B1's time before its redesign (``PRIOR_MS["B1"][prior]``)."""
     d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
     packed = fe.pack_encoder_layer(layer, n_head, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -319,14 +355,68 @@ def layer_vs_plain(layer, n_head: int, dtype: torch.dtype, batch: int, l: int,
         plain_ms = time_ms(lambda: fe.fused_encoder_layer_reference(x, packed, n_head))
         library_ms = time_ms(lambda: library(x)) if library is not None else None
     bound_ms, bound_by = layer_bound_ms(batch, l, d, d_ff, dtype)
-    print(f"  B1 {shape}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    prior_ms = PRIOR_MS["B1"].get(prior) if prior else None
+    tf32x3 = tf32x3_bound_ms(train_layer_flops(batch, l, d, d_ff)) \
+        if dtype == torch.float32 else None
+    print(f"  B1 {shape}: kernel {kernel_ms:.4f} ms (before the redesign: {prior_ms} ms), "
+          f"plain {plain_ms:.4f} ms, library "
           f"{library_ms if library_ms is None else round(library_ms, 4)} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"{bound_ms:.4f} ms ({bound_by}), 3xTF32 bound {tf32x3} ms, "
+          f"{fe.sample_plan(batch, l, d, n_head, d_ff, dtype)['launches']} launches per call",
+          flush=True)
     return {
         "max_abs_err": err, "tol": TOL[dtype], "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+
+
+def device_us_by_kernel(fn, calls: int = 10) -> dict[str, float]:
+    """Device microseconds per call of ``fn`` by CUDA kernel (summed over a
+    kernel's launches in one call), from ``torch.profiler`` over ``calls``
+    calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        device_us = getattr(event, "device_time_total", 0.0)
+        if device_us > 0:
+            name = re.sub(r"^void |\(.*", "", event.key).replace("(anonymous namespace)::", "")
+            out[name] = out.get(name, 0.0) + device_us / calls
+    if not out:
+        raise AssertionError("torch.profiler recorded no device time")
+    return out
+
+
+def kernel_breakdown(layer, n_head: int) -> dict:
+    """Device time per CUDA kernel of one B1 call (fp32 and bf16) at the
+    sampling batch and of one B4 call at the training batch, L=100."""
+    d = layer.norm1.weight.shape[0]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = fe.pack_encoder_layer(layer, n_head, dtype)
+        x = torch.randn((SAMPLE_CHAINS, MAX_LEN, d), device="cuda").to(dtype)
+        with torch.no_grad():
+            out[f"B1 {str(dtype).removeprefix('torch.')}"] = device_us_by_kernel(
+                lambda: fe.fused_encoder_layer(x, packed, n_head=n_head))
+    lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head).items()}
+    x = torch.randn((TRAIN_BATCH, MAX_LEN, d), device="cuda")
+    dy = torch.randn_like(x)
+    out["B4"] = device_us_by_kernel(
+        lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5)
+    for name, kernels in out.items():
+        batch = TRAIN_BATCH if name == "B4" else SAMPLE_CHAINS
+        print(f"  {name} B={batch} L={MAX_LEN}: device us per call by kernel (torch.profiler): "
+              f"{json.dumps({k: round(v, 1) for k, v in kernels.items()})}; total "
+              f"{sum(kernels.values()):.1f}", flush=True)
+    return out
 
 
 def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
@@ -337,7 +427,8 @@ def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dic
         72, N_HEAD, 2048, batch_first=True
     ).to("cuda").eval()
     library.load_state_dict(layer0.state_dict())
-    return layer_vs_plain(layer0, N_HEAD, dtype, batch, MAX_LEN, library.to(dtype))
+    prior = f"{str(dtype).removeprefix('torch.')} B={batch} L={MAX_LEN}"
+    return layer_vs_plain(layer0, N_HEAD, dtype, batch, MAX_LEN, library.to(dtype), prior)
 
 
 def run_main_path(dtype: torch.dtype) -> dict:
@@ -418,8 +509,10 @@ def train_layer_flops(b: int, l: int, d: int, d_ff: int) -> float:
     return 2 * b * l * (3 * d * d + d * d + 2 * d * d_ff) + 2 * 2 * b * l * l * d
 
 
-def build_all() -> None:
-    """One nvcc per source, all started together."""
+def build_all() -> dict:
+    """One nvcc per source, all started together; returns the SASS counts
+    (instructions, HMMA) of the B1 and B4 kernels and fails if a product
+    kernel has no tensor-core instruction."""
     def one(name: str) -> tuple[str, float, bool]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
@@ -428,12 +521,24 @@ def build_all() -> None:
 
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         results = list(pool.map(one, SOURCES))
+    sass = {}
     for name, seconds, cached in results:
         lib = _build.library_path(name)
         log = lib.with_suffix(".log")
         for kernel, usage in ptxas_usage(log.read_text() if log.exists() else ""):
             print(f"  ptxas {name}: {kernel}: {usage}")
         print(f"  {lib.name} ({'reused' if cached else 'built'} in {seconds:.2f} s)", flush=True)
+        if name in ("fused_encoder", "fused_encoder_train"):
+            for kernel, counts in sass_counts(lib).items():
+                if any(k in kernel for k in PRODUCT_KERNELS + ("attention",)):
+                    sass[f"{name}: {kernel}"] = counts
+                    print(f"  sass {name}: {kernel}: {counts['instructions']} instructions, "
+                          f"{counts['hmma']} HMMA", flush=True)
+    no_hmma = [k for k, c in sass.items()
+               if any(p in k for p in PRODUCT_KERNELS) and c["hmma"] == 0]
+    if no_hmma or not any(any(p in k for p in PRODUCT_KERNELS) for k in sass):
+        raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}")
+    return sass
 
 
 def ptxas_usage(log: str) -> list[tuple[str, str]]:
@@ -457,6 +562,41 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
     except (OSError, subprocess.CalledProcessError):
         pass
     return out
+
+
+def cuobjdump_path() -> str | None:
+    """``cuobjdump`` beside the ``nvcc`` that builds the kernels, if any."""
+    path = Path(_build.nvcc_path()).with_name("cuobjdump")
+    return str(path) if path.is_file() else None
+
+
+def sass_counts(library: Path) -> dict[str, dict[str, int]]:
+    """Per kernel of a built library, from ``cuobjdump -sass``: its SASS
+    instructions and its tensor-core instructions (HMMA), the kernel's
+    name demangled where ``c++filt`` is present."""
+    tool = cuobjdump_path()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"instructions": 0, "hmma": 0}
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[name]["instructions"] += 1
+            counts[name]["hmma"] += "HMMA" in line
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
+                               text=True, check=True).stdout.split("\n")
+        counts = {re.sub(r"^void |\(.*", "", d.replace("(anonymous namespace)::", "")) or n: c
+                  for d, (n, c) in zip(names, counts.items())}
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return counts
 
 
 def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
@@ -532,12 +672,23 @@ def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
           f"max |grad - plain| / max |grad| {worst:.3e}; ReLU gates within rounding of "
           f"0: {n_near}, flips located: {json.dumps(flips)}; per tensor {json.dumps(rel)}",
           flush=True)
+    xd, lay = x.detach(), {k: t.detach() for k, t in packed.items()}
+    stage_check = check_bwd_stages(xd, dy, lay, seed, n_head, masks, shape)
     r = {"fwd": {"max_abs_err": err}, "bwd": {"max_abs_err": abs_err, "max_rel_err": worst,
-                                             "gate_flips": flips}}
+                                             "gate_flips": flips, "stages": stage_check}}
     if not timed:
         return r
 
-    xd, lay = x.detach(), {k: t.detach() for k, t in packed.items()}
+    first = fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT)
+    second = fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip([first[0], *first[1]],
+                                                      [second[0], *second[1]]))
+    print(f"  B4 {shape}: two calls on the same inputs bit-identical: {identical}", flush=True)
+    if not identical:
+        raise AssertionError(f"B4 {shape}: a repeated call gave other results")
+    del first, second
+    r["bwd"]["stage_ms"] = bwd_stage_ms(xd, dy, lay, seed, n_head)
     r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(xd, lay, seed, n_head, DROPOUT), iters=20)
     r["bwd"]["ms"] = time_ms(
         lambda: fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT), iters=10)
@@ -563,8 +714,61 @@ def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
     bwd_bound = bound(3 * flops, 3 * act + 2 * weights, torch.float32)
     r["fwd"].update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
     r["bwd"].update(bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    launches = fet.train_bwd_plan(batch, l, d, n_head, d_ff)["launches"]
+    print(f"  B4 {shape}: {r['bwd']['ms']:.4f} ms (before the redesign: "
+          f"{PRIOR_MS['B4'].get(f'L={l} D={d} H={n_head} F={d_ff}')} ms), 3xTF32 bound "
+          f"{tf32x3_bound_ms(3 * flops):.4f} ms, in {launches} CUDA launches per call; per stage "
+          f"{json.dumps(r['bwd']['stage_ms'])}", flush=True)
     print(f"  B3/B4 {shape} times: {json.dumps(r)}", flush=True)
     return r
+
+
+def check_bwd_stages(x, dy, layer, seed: int, n_head: int, masks, shape: str) -> dict:
+    """B4's workspace after each stage (dF2, dx1, da, dqkv), dx and the
+    gradients against the staged plain backward (``train_backward_staged``),
+    each to GRAD_TOL of its largest, so that a failing gate names its stage.
+    ReLU gates that flipped between the two (as in ``gate_matched_grads``)
+    are located, must lie within GATE_BAND x sum |terms| of 0, and the
+    staged version then takes the kernel's gates."""
+    dx, grads, stages = fet._launch_bwd(x, dy, layer, seed, n_head, DROPOUT, stages=True)
+    torch.cuda.synchronize()
+    _, _, plain = fet.train_backward_staged(x, dy, layer, seed, n_head=n_head, rate=DROPOUT)
+    kept = masks["ff"] > 0
+    flips = (stages["gates"] != plain["gates"]) & kept
+    n_flips = int(flips.sum())
+    if n_flips:
+        lay64 = {k: t.double() for k, t in layer.items()}
+        x1 = fet.attention_sublayer(x.double(), lay64, masks, n_head)
+        pre = x1 @ lay64["w1"] + lay64["b1"]
+        terms = x1.abs() @ lay64["w1"].abs() + lay64["b1"].abs()
+        far = int((pre.abs() > GATE_BAND * terms)[flips].sum())
+        if far:
+            raise AssertionError(f"B4 {shape}: {far} ReLU gates flipped away from 0")
+    gates = stages["gates"] | (~kept & plain["gates"])
+    ref_dx, ref_grads, ref = fet.train_backward_staged(x, dy, layer, seed, n_head=n_head,
+                                                        rate=DROPOUT, gates=gates)
+    rel = {name: rel_err(stages[name], ref[name]) for name in ("df2", "dx1", "da", "dqkv")}
+    rel.update({name: rel_err(g, r) for name, g, r in
+                zip(["dx", *fet.LAYER_KEYS], [dx, *grads], [ref_dx, *ref_grads])})
+    print(f"  B4 {shape} stages against the staged plain version (max |diff| / max, tol "
+          f"{GRAD_TOL:.0e}; ReLU gates matched: {n_flips}): {json.dumps(rel)}", flush=True)
+    bad = {k: v for k, v in rel.items() if not v <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"B4 {shape}: stages disagree with the staged plain version: {bad}")
+    return {"max_rel_err": max(rel.values()), "gates_matched": n_flips}
+
+
+def bwd_stage_ms(x, dy, layer, seed: int, n_head: int, calls: int = 5) -> dict:
+    """B4's milliseconds per stage (CUDA events between its launches),
+    averaged over ``calls`` calls."""
+    total = dict.fromkeys(fet.BWD_STAGES, 0.0)
+    for _ in range(calls):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fet.BWD_STAGES) + 1)]
+        fet._launch_bwd(x, dy, layer, seed, n_head, DROPOUT, events=events)
+        torch.cuda.synchronize()
+        for i, name in enumerate(fet.BWD_STAGES):
+            total[name] += events[i].elapsed_time(events[i + 1]) / calls
+    return total
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -675,16 +879,87 @@ def draw_steps(dm: SyntheticDatamodule, n: int) -> list[tuple]:
     return steps
 
 
+@contextlib.contextmanager
+def kernel_gates(store: dict):
+    """Inside the block, each B4 call also stores the FFN ReLU gates it took
+    (``h > 0`` where dropout kept the unit), by the layer's seed."""
+    launch = fet._launch_bwd
+
+    def recording(x, dy, layer, seed, n_head, rate, events=None, stages=False):
+        dx, grads, ws = launch(x, dy, layer, seed, n_head, rate, events=events, stages=True)
+        store[seed] = ws["gates"].clone()
+        return (dx, grads, ws) if stages else (dx, grads)
+
+    fet._launch_bwd = recording
+    try:
+        yield
+    finally:
+        fet._launch_bwd = launch
+
+
+@contextlib.contextmanager
+def plain_gates(record: dict, force: dict | None = None):
+    """Inside the block, the plain training layer of the fused path records,
+    by the layer's seed, its FFN pre-activations, their sums of |terms|,
+    its gates and the kept units; with ``force`` ({seed: gates}) it takes
+    those gates (the value keeps its size, the gradient passes an open gate
+    and not a shut one). Without ``force`` it computes what
+    ``fused_encoder_layer_train_reference`` computes, in the same order."""
+    reference = fused_models.fused_encoder_layer_train_reference
+
+    def layer_fn(x, layer, seed, *, n_head, rate):
+        b, l, d = x.shape
+        masks = fet.dropout_masks(b, l, d, layer["w1"].shape[1], n_head, seed, rate, x.device)
+        x1 = fet.attention_sublayer(x, layer, masks, n_head)
+        pre = x1 @ layer["w1"] + layer["b1"]
+        with torch.no_grad():
+            terms = x1.abs() @ layer["w1"].abs() + layer["b1"].abs()
+        record[seed] = (pre.detach(), terms, pre.detach() > 0, masks["ff"] > 0)
+        hidden = torch.relu(pre) if force is None else pre * force[seed]
+        return fet.ffn_sublayer(x1, hidden, layer, masks)
+
+    fused_models.fused_encoder_layer_train_reference = layer_fn
+    try:
+        yield
+    finally:
+        fused_models.fused_encoder_layer_train_reference = reference
+
+
 def check_training(dm: SyntheticDatamodule) -> dict:
-    """The first steps through the kernels and through the plain versions."""
+    """The first steps through the kernels and through the plain versions.
+    The step-0 gradients are held to GRAD_TOL per tensor against the plain
+    path's or, where FFN ReLU gates flipped between the two paths, against
+    the plain path with exactly the kernels' gates (as phase 11 does for the
+    unfused path); every flip is located, printed and must lie within
+    GATE_BAND x sum |terms| of 0."""
     steps = draw_steps(dm, CHECK_STEPS)
     kernel, plain = flagship_trainer(), flagship_trainer(plain=True)
     n_steps = dm.steps_per_epoch * TRAIN_EPOCHS
-    losses, grads = {}, {}
+    losses, grads, k_gates, p_record = {}, {}, {}, {}
     for name, trainer in (("kernel", kernel), ("plain", plain)):
         trainer.start(n_steps)
-        grads[name] = trainer.loss_and_grads(*steps[0])[1]
+        with kernel_gates(k_gates), plain_gates(p_record):
+            grads[name] = trainer.loss_and_grads(*steps[0])[1]
         losses[name] = [trainer.train_step(*step).item() for step in steps]
+    located, force = [], {}
+    for seed, (pre, terms, gates, kept) in p_record.items():
+        flips = (k_gates[seed] != gates) & kept
+        force[seed] = k_gates[seed] | (gates & ~kept)
+        for b, l, u in flips.nonzero().tolist():
+            located.append({"layer_seed": seed, "chain": b, "row": l, "unit": u,
+                            "pre_plain": pre[b, l, u].item(), "terms": terms[b, l, u].item(),
+                            "kernel_open": bool(k_gates[seed][b, l, u])})
+    del k_gates, p_record
+    far = [f for f in located if abs(f["pre_plain"]) > GATE_BAND * f["terms"]]
+    if far:
+        raise AssertionError(f"training check: ReLU gates flipped away from 0: {far}")
+    grads["gate_matched"] = grads["plain"]
+    if located:
+        matched = flagship_trainer(plain=True)
+        matched.start(n_steps)
+        with plain_gates({}, force):
+            grads["gate_matched"] = matched.loss_and_grads(*steps[0])[1]
+    del force
     exact = Trainer(flagship_model("float64"), VPScheduler(fourier_noise_scaling=True),
                     device="cuda", plain=True)
     x0, t0, z0, seeds0 = steps[0]
@@ -697,15 +972,21 @@ def check_training(dm: SyntheticDatamodule) -> dict:
     if not rel_loss <= LOSS_TOL:
         raise AssertionError(f"training check: losses disagree: {rel_loss}")
     rel = {}
-    for name, k, p, e in zip(kernel.names, grads["kernel"], grads["plain"], grads["fp64"]):
-        rel[name] = {"vs_plain": rel_err(k, p), "kernel_vs_fp64": rel_err(k, e),
-                     "plain_vs_fp64": rel_err(p, e)}
-        if not rel[name]["vs_plain"] <= GRAD_TOL:
-            raise AssertionError(f"training check: gradient {name} disagrees: {rel[name]}")
+    for name, k, p, m, e in zip(kernel.names, grads["kernel"], grads["plain"],
+                                grads["gate_matched"], grads["fp64"]):
+        rel[name] = {"vs_plain": rel_err(k, p), "vs_gate_matched": rel_err(k, m),
+                     "kernel_vs_fp64": rel_err(k, e), "plain_vs_fp64": rel_err(p, e)}
+        r = rel[name]
+        if not (r["vs_plain"] <= GRAD_TOL or (located and r["vs_gate_matched"] <= GRAD_TOL)):
+            raise AssertionError(f"training check: gradient {name} disagrees: {r}")
     worst = max(rel.items(), key=lambda kv: kv[1]["vs_plain"])
-    print(f"  step-0 gradients: worst against plain {worst[0]} {json.dumps(worst[1])}; "
-          f"per tensor {json.dumps(rel)}", flush=True)
-    return {"loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_plain"]}
+    worst_m = max(r["vs_gate_matched"] for r in rel.values())
+    print(f"  step-0 gradients: worst against plain {worst[0]} {json.dumps(worst[1])}, worst "
+          f"against gate-matched plain {worst_m:.3e} (tol {GRAD_TOL:.0e}); ReLU gates flipped "
+          f"between the paths: {len(located)}: {json.dumps(located)}; per tensor "
+          f"{json.dumps(rel)}", flush=True)
+    return {"loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_plain"],
+            "grad_rel_err_gate_matched": worst_m, "gate_flips": located}
 
 
 def run_training(dm: SyntheticDatamodule) -> dict:
@@ -757,13 +1038,18 @@ def check_coverage(phase3: dict) -> dict:
         key = f"L={l} D={d} H={n_head} F={d_ff}"
         out[key] = {
             "B1": {str(dtype).removeprefix("torch."): layer_vs_plain(
-                layer, n_head, dtype, COVERAGE_BATCH, l) for dtype in TOL},
+                layer, n_head, dtype, COVERAGE_BATCH, l,
+                prior=f"{str(dtype).removeprefix('torch.')} {key}") for dtype in TOL},
             **check_train_layer(layer, n_head, COVERAGE_BATCH, l, timed=True),
         }
-        sizes = {"B1/B3 smem bytes": fe._library().fdiff_encoder_layer_smem_bytes(l, d),
-                 "B1/B3 K|V workspace floats per chain":
-                     fe._library().fdiff_encoder_layer_kv_floats(l, d),
-                 "B4 smem bytes": fet._library().fdiff_train_bwd_smem_bytes(l, d)}
+        plan = fet.train_bwd_plan(COVERAGE_BATCH, l, d, n_head, d_ff)
+        sizes = {"B1 tail smem bytes (fp32, bf16)": [
+                     fe.tail_plan(d, t)["bytes"] for t in TOL],
+                 "B3 smem bytes": fet._library().fdiff_train_fwd_smem_bytes(l, d),
+                 "B3 K|V workspace floats per chain":
+                     fet._library().fdiff_train_fwd_kv_floats(l, d),
+                 "B4 tail smem bytes": plan["tail"]["bytes"],
+                 "B4 workspace floats": plan["workspace_floats"]}
         out[key]["sizes"] = sizes
         print(f"  {key}: {json.dumps(sizes)}", flush=True)
     for dtype, by_batch in phase3.items():
@@ -1359,7 +1645,7 @@ def main() -> int:
     phase("1 device", t0)
 
     t0 = time.perf_counter()
-    build_all()
+    sass = build_all()
     phase("2 build", t0)
 
     t0 = time.perf_counter()
@@ -1395,6 +1681,7 @@ def main() -> int:
     layer0 = flagship.backbone.layers[0]
     train_layer = {l: check_train_layer(layer0, N_HEAD, TRAIN_BATCH, l, timed=l == MAX_LEN,
                                         library=True) for l in TRAIN_LENGTHS}
+    breakdown = kernel_breakdown(layer0, N_HEAD)
     phase("6 training kernels vs plain", t0)
 
     with tempfile.TemporaryDirectory() as root:
@@ -1467,6 +1754,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder: ")},
+            "device_us_by_kernel": breakdown[f"B1 {name}"],
             "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048",
             "samples_per_s": main[dtype]["samples_per_s"],
             "by_batch": {str(b): c for b, c in by_batch.items()},
@@ -1497,6 +1786,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"stage_ms": r["stage_ms"],
+                "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
+                "device_us_by_kernel": breakdown["B4"]}
+               if key == "bwd" else {}),
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 fp32 dropout {DROPOUT}",
             "steps_per_s": training["steps_per_s"],
             "checked_lengths": checked,

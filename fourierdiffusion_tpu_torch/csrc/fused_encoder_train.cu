@@ -3,163 +3,58 @@
 //
 // Replaces the TPU kernels of fourierdiffusion_tpu/ops/fused_encoder_train.py:
 //   _train_fwd_kernel (B3): encoder_layer_kernel<float, true> of
-//     encoder_layer.cuh, the body the sampling kernel (fused_encoder.cu)
-//     runs without dropout, here with the dropout masks at its four sites
+//     encoder_layer.cuh, with the dropout masks at its four sites
 //     (attention probabilities, attention output, FFN hidden layer, FFN
 //     output). Its numerics, mask hash, layout and bound are described there.
 //   _train_bwd_kernel (B4): recomputes that forward from x alone, regenerates
 //     the four dropout masks with the same hash, and computes dx and the
-//     gradients of the 12 packed weights; the TPU kernel sums the weight
-//     gradients over its sequential grid (ref += contrib), which here is a
-//     second launch that sums one partial per chain in chain order
-//     (reduce_partials_kernel).
+//     gradients of the 12 packed weights. The TPU kernel sums the weight
+//     gradients over its sequential grid (ref += contrib); here each sum
+//     over rows is split into row slices whose partials one last launch
+//     adds in slice order.
 //
-// Numerics: fp32 throughout, exact max-subtracted softmax, LayerNorm
-// statistics in fp32 with eps 1e-5.
+// Numerics: fp32 throughout (products as 3xTF32 on the tensor cores,
+// mma_tile.cuh), exact max-subtracted softmax, LayerNorm statistics in fp32
+// with eps 1e-5.
 //
 // Layout: activations (B, L, D) row-major with exactly L rows; weights as
 // packed by ops/fused_encoder_train.py (in, out) row-major; the weight
 // gradients in the same layout.
 //
 // Bound: at the flagship's training shape (B 64, L 100, D 72, F 2048, H 12)
-// the forward does about 65 MFLOP per chain and the backward about three
-// times that (recompute, then two products per forward product); weights
-// are 1.3 MB and each chain's x 29 KB, so both are bound by operations on
-// the fp32 CUDA cores (no tensor cores in fp32 without TF32).
-//
-// Design of the backward: one CTA per chain, because dK and dV (and the
-// LayerNorm and weight gradients) sum over every row of the chain. LN2's
-// input needs the whole f2 = W2 drop(relu(W1 x1)) before any backward step,
-// so the FFN runs two chunked passes over d_ff: the first builds f2, the
-// second recomputes the hidden chunk and takes its gradients. x1, f2 (then
-// dF2) and the two hidden chunks live in shared memory; the other per-chain
-// intermediates (qkv, O, the normalised LN inputs, one head's P and dP,
-// dqkv, ...) live in a per-chain workspace in device memory that the wrapper
-// allocates, small enough to stay in L2. Each CTA writes its chain's weight
-// gradients to its own partial; the reduction sums the partials of all
-// chains. Where x1 and f2 do not fit beside the hidden chunks in the 227 KB
-// a CTA can have (from L=214 at D=72, L=152 at D=128), they move to the
-// per-chain workspace too (train_bwd_kernel<false>), and shared memory holds
-// only the two hidden chunks.
+// the backward does about 12.7 GFLOP (the recompute, then two products per
+// forward product); weights are 1.3 MB and x 1.8 MB, so it is bound by
+// operations. The first B4 ran one CTA per chain (64 CTAs on 132 SMs), each
+// product a loop of 4 x 4 fp32 outputs per thread over operands read from
+// L2. This one spreads the work over all B*L rows in 17 launches (20 where
+// the tail runs wide, encoder_layer_tc.cuh), in order:
+//   forward   qkv (tile product), attention_fwd_kernel, layer_tail_kernel<kTrain>
+//             and tail_finish_kernel<kTrain> (encoder_layer_tc.cuh): x1, the
+//             LN statistics, LN2's backward g2 and dF2 = g2 * keep_ff2;
+//   hidden    x1 W1 + b1 and dF2 W2^T in one pass -> h = relu * keep and dh;
+//   products  dW1 = x1^T dh and dW2 = h^T dF2 per row slice; dh W1^T per
+//             d_ff slice;
+//   ln1/out   dx1 = g2 + those slices in order; LN1's backward da,
+//             dao = da * keep_out; dattn = dao W_out^T;
+//             dW_out = O^T dao per row slice;
+//   attention two launches per (128 rows, head, chain), no atomics: a thread
+//             per query row for dq (and the softmax statistics), then a
+//             thread per key for dk and dv;
+//   qkv       dW_qkv = x^T dqkv per row slice; dx = da + dqkv W_qkv^T;
+//   reduce    column sums (bias and LayerNorm gradients) per row slice, then
+//             every partial added in slice order.
+// Every sum has one fixed order, so two calls on the same inputs give
+// bit-identical results. The plan (row slices, workspace offsets) comes
+// from the wrapper (ops/fused_encoder_train.py: train_bwd_plan), which also
+// holds a plain PyTorch version that follows these stages.
 
-#include "encoder_layer.cuh"
+#include "encoder_layer_tc.cuh"
 
 namespace {
 
 using namespace fdiff;
 
-constexpr int kBwdThreads = 256;
-constexpr int kBFC = 64;          // backward: d_ff chunk width
-
-// Products with any operand layout: C[r, n] = epi(r, n, sum_k
-// a(r, k) * b(k, n)), 4 x 4 outputs per thread. Out-of-range rows and
-// columns are clamped for the loads and skipped at the store.
-template <typename FA, typename FB, typename Epi>
-__device__ __forceinline__ void gemm(int M, int N, int K, FA a, FB b, Epi epi) {
-  const int mt = (M + 3) / 4, nt = (N + 3) / 4;
-  for (int item = threadIdx.x; item < mt * nt; item += blockDim.x) {
-    const int r0 = (item / nt) * 4, n0 = (item % nt) * 4;
-    int rr[4], nn[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      rr[i] = min(r0 + i, M - 1);
-      nn[i] = min(n0 + i, N - 1);
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a(rr[i], k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b(k, nn[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (r0 + i < M && n0 + j < N) epi(r0 + i, n0 + j, acc[i][j]);
-  }
-}
-
-// LayerNorm of one row held by one warp: returns inv and writes xhat.
-__device__ __forceinline__ float ln_row(const float* in, float* xhat, int D, int lane) {
-  float s = 0.0f;
-  for (int c = lane; c < D; c += 32) s += in[c];
-  const float mean = warp_sum(s) / D;
-  float v = 0.0f;
-  for (int c = lane; c < D; c += 32) {
-    const float d = in[c] - mean;
-    v += d * d;
-  }
-  const float inv = rsqrtf(warp_sum(v) / D + kLnEps);
-  for (int c = lane; c < D; c += 32) xhat[c] = (in[c] - mean) * inv;
-  return inv;
-}
-
-// LayerNorm input gradient of one row: dx = inv (g s - mean(g s) - xhat
-// mean(g s xhat)), in place over g.
-__device__ __forceinline__ void ln_row_bwd(float* g, const float* xhat, float inv,
-                                           const float* __restrict__ scale, int D,
-                                           int lane) {
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int c = lane; c < D; c += 32) {
-    const float dxh = g[c] * scale[c];
-    s1 += dxh;
-    s2 += dxh * xhat[c];
-  }
-  const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-  __syncwarp();
-  for (int c = lane; c < D; c += 32) g[c] = inv * (g[c] * scale[c] - m1 - xhat[c] * m2);
-}
-
-// ---- B4: training backward -------------------------------------------------------
-
-__host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
-
-// Whether x1 and f2 fit in shared memory beside the two hidden chunks.
-__host__ __device__ inline bool bwd_x1_in_smem(int L, int D) {
-  return (2 * L * D + 2 * L * kBFC) * (int)sizeof(float) <= kMaxSmem;
-}
-
-// Per-chain workspace in device memory, in floats; x1 and f2 only where
-// they are not in shared memory.
-struct BwdWs {
-  int qkv, attn, xhat1, inv1, xhat2, inv2, dx1, da, dao, dattn, dqkv, p, dp, dcol,
-      x1, f2, total;
-  __host__ __device__ BwdWs(int L, int D) {
-    int o = 0;
-    qkv = o;   o += up4(L * 3 * D);
-    attn = o;  o += up4(L * D);
-    xhat1 = o; o += up4(L * D);
-    inv1 = o;  o += up4(L);
-    xhat2 = o; o += up4(L * D);
-    inv2 = o;  o += up4(L);
-    dx1 = o;   o += up4(L * D);
-    da = o;    o += up4(L * D);
-    dao = o;   o += up4(L * D);
-    dattn = o; o += up4(L * D);
-    dqkv = o;  o += up4(L * 3 * D);
-    p = o;     o += up4(L * L);
-    dp = o;    o += up4(L * L);
-    dcol = o;  o += up4(L);
-    x1 = f2 = 0;
-    if (!bwd_x1_in_smem(L, D)) {
-      x1 = o;  o += up4(L * D);
-      f2 = o;  o += up4(L * D);
-    }
-    total = o;
-  }
-};
-
-// Offsets of the 12 gradients in one chain's partial (the packed layout).
+// Offsets of the 12 gradients in the packed gradient vector.
 struct GradOffsets {
   int w_qkv, b_qkv, w_out, b_out, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, total;
   __host__ __device__ GradOffsets(int D, int F) {
@@ -180,259 +75,326 @@ struct GradOffsets {
   }
 };
 
-__host__ __device__ inline int bwd_smem_floats(int L, int D) {
-  return (bwd_x1_in_smem(L, D) ? 2 * L * D : 0) + 2 * L * kBFC;
+constexpr int kGrads = 12;
+enum GradIdx { kWQkv, kBQkv, kWOut, kBOut, kLn1S, kLn1B, kW1, kB1, kW2, kB2, kLn2S, kLn2B };
+
+// The backward's plan, as ops/fused_encoder_train.py's BwdPlan passes it:
+// the tail's plan and CTAs, workspace offsets in floats, the row slices of the four
+// weight products (rows per slice ks_, slices sp_), the column sums' rows
+// per slice and slices, and per gradient the offset of its partials and
+// their number.
+struct BwdPlan {
+  TailPlan tail;
+  long long tail_ctas;
+  long long qkv, attn, x1, xhat1, inv1, xhat2, inv2, g2, df2, h, dh, dx1, da, dao, dattn,
+      dqkv, stats, dx1p, tail_part, part;
+  long long ks_w1, ks_w2, ks_w_out, ks_w_qkv, sp_w1, sp_w2, sp_w_out, sp_w_qkv;
+  long long ks_dx1, sp_dx1;  // d_ff slices of dh W1^T
+  long long cs_rows, cs_slices;
+  long long p_off[kGrads], p_n[kGrads];
+};
+
+constexpr int kBwdStages = 7;  // events: before, then after each stage
+
+__device__ __forceinline__ void chain_of(int m, int L, int& b, int& l) {
+  b = m / L;
+  l = m - b * L;
 }
 
-// Column sums over the chain's L rows: out[c] = sum_l f(l, c).
-template <typename Fn>
-__device__ __forceinline__ void col_sums(int L, int N, float* out, Fn f) {
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    float s = 0.0f;
-    for (int l = 0; l < L; ++l) s += f(l, c);
-    out[c] = s;
+// ---- epilogues of the tile products ----------------------------------------------------
+
+struct StoreF {  // out[m, n] = v
+  float* out; int ld;
+  __device__ void operator()(int m, int n, float v) const { out[(long)m * ld + n] = v; }
+};
+
+struct AddStore {  // out[m, n] = add[m, n] + v
+  float* out; const float* add; int ld;
+  __device__ void operator()(int m, int n, float v) const {
+    out[(long)m * ld + n] = add[(long)m * ld + n] + v;
+  }
+};
+
+struct StorePartial {  // slice blockIdx.z of the partials
+  float* part; int ld; long slice;
+  __device__ void operator()(int m, int n, float v) const {
+    part[blockIdx.z * slice + (long)m * ld + n] = v;
+  }
+};
+
+// From x1 W1 (v) and dF2 W2^T (dv): pre = v + b1, h = relu(pre) * keep_ff,
+// dh = (pre > 0 ? keep_ff : 0) * dv.
+struct HiddenEpi {
+  float* h; float* dh; const float* b1; int F, L; Dropout dp;
+  __device__ void operator()(int m, int n, float v, float dv) const {
+    int b, l;
+    chain_of(m, L, b, l);
+    const float pre = v + b1[n];
+    const float kf = keep2<true>(dp, mask_key(dp, b, kSiteFf, 0), n, l);
+    h[(long)m * F + n] = fmaxf(pre, 0.0f) * kf;
+    dh[(long)m * F + n] = (pre > 0.0f ? kf : 0.0f) * dv;
+  }
+};
+
+// ---- row and column kernels --------------------------------------------------------------
+
+// dx1 = g2 + the d_ff slices' partials of dh W1^T in slice order, then
+// LN1's input gradient, a warp per row: da = inv (g s - mean(g s) - xhat
+// mean(g s xhat)); dao = da * keep_out.
+__global__ void ln1_bwd_kernel(const float* __restrict__ g2, const float* __restrict__ dx1p,
+                               int slices, float* __restrict__ dx1,
+                               const float* __restrict__ xhat1,
+                               const float* __restrict__ inv1, const float* __restrict__ ln1_s,
+                               float* __restrict__ da, float* __restrict__ dao, int N, int L,
+                               int D, Dropout dp) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (r >= N) return;
+  const size_t g = (size_t)r * D, slice = (size_t)N * D;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int c = lane; c < D; c += 32) {
+    float acc = dx1p[g + c];
+    for (int z = 1; z < slices; ++z) acc += dx1p[z * slice + g + c];
+    dx1[g + c] = g2[g + c] + acc;
+    const float dxh = dx1[g + c] * ln1_s[c];
+    s1 += dxh;
+    s2 += dxh * xhat1[g + c];
+  }
+  const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+  int b, l;
+  chain_of(r, L, b, l);
+  const uint32_t key = mask_key(dp, b, kSiteOut, 0);
+  for (int c = lane; c < D; c += 32) {
+    const float v = inv1[r] * (dx1[g + c] * ln1_s[c] - m1 - xhat1[g + c] * m2);
+    da[g + c] = v;
+    dao[g + c] = v * keep2<true>(dp, key, c, l);
   }
 }
 
-// One head's softmax probabilities (no dropout) into P (L x L).
-__device__ void head_probs(const float* qkv, float* P, int L, int D, int dh, int h) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
-  const int c0 = h * dh;
-  gemm(L, L, dh, [&](int i, int k) { return qkv[i * 3 * D + c0 + k]; },
-       [&](int k, int j) { return qkv[j * 3 * D + D + c0 + k]; },
-       [&](int i, int j, float acc) { P[i * L + j] = acc; });
-  __syncthreads();
-  for (int i = warp; i < L; i += n_warps) {
-    float* row = P + i * L;
-    float m = -FLT_MAX;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) row[j] = row[j] / sum;
+// One column sum: out[z][c] = sum over rows of slice z of a[r, c] (* b[r, c]).
+struct ColSum {
+  const float* a; const float* b; float* out; int cols;
+};
+constexpr int kColSums = 8;
+struct ColSums { ColSum job[kColSums]; };
+
+// grid (ceil(max cols / 128), slices, jobs).
+__global__ void col_sums_kernel(ColSums jobs, int N, int rows_per_slice) {
+  const ColSum& j = jobs.job[blockIdx.z];
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= j.cols) return;
+  const int r0 = blockIdx.y * rows_per_slice, r1 = min(N, r0 + rows_per_slice);
+  float s = 0.0f;
+  for (int r = r0; r < r1; ++r) {
+    const float v = j.a[(size_t)r * j.cols + c];
+    s += j.b ? v * j.b[(size_t)r * j.cols + c] : v;
   }
-  __syncthreads();
+  j.out[(size_t)blockIdx.y * j.cols + c] = s;
 }
 
-// kX1Smem: x1 and f2 in shared memory (bwd_x1_in_smem), else in the workspace.
-template <bool kX1Smem>
-__global__ void __launch_bounds__(kBwdThreads)
-train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                 Weights<float> W, float* __restrict__ dx, float* partials, float* workspace, int L, int D,
-                 int H, int F, Dropout dp) {
-  extern __shared__ __align__(16) float smem[];
-  const BwdWs wl(L, D);
-  float* ws = workspace + (size_t)blockIdx.x * wl.total;
-  float* x1s = kX1Smem ? smem : ws + wl.x1;         // x1 = LN1 output (L x D)
-  float* f2s = kX1Smem ? x1s + L * D : ws + wl.f2;  // f2, then dF2 (L x D)
-  float* hs = kX1Smem ? f2s + L * D : smem;  // hidden chunk: h_pre, then drop(relu(h_pre))
-  float* dhs = hs + L * kBFC;      // hidden chunk gradient
+struct PartialSets { long long off[kGrads], n[kGrads]; };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
-  const int b = blockIdx.x;
-  const int dh = D / H;
-  const int D3 = 3 * D;
+// grads[p] = sum over the slices z = 0, 1, ... of gradient k's partials.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ grads,
+                                       PartialSets ps, int D, int F) {
   const GradOffsets go(D, F);
-  float* qkv = ws + wl.qkv;
-  float* attn = ws + wl.attn;
-  float* xhat1 = ws + wl.xhat1;
-  float* inv1 = ws + wl.inv1;
-  float* xhat2 = ws + wl.xhat2;
-  float* inv2 = ws + wl.inv2;
-  float* dx1 = ws + wl.dx1;
-  float* da = ws + wl.da;
-  float* dao = ws + wl.dao;
-  float* dattn = ws + wl.dattn;
-  float* dqkv = ws + wl.dqkv;
-  float* P = ws + wl.p;
-  float* dP = ws + wl.dp;
-  float* dcol = ws + wl.dcol;
-  float* grad = partials + (size_t)b * go.total;
-  const float* xb = x + (size_t)b * L * D;
-  const float* dyb = dy + (size_t)b * L * D;
-  float* dxb = dx + (size_t)b * L * D;
-  const uint32_t key_out = mask_key(dp, b, kSiteOut, 0);
-  const uint32_t key_ff = mask_key(dp, b, kSiteFf, 0);
-  const uint32_t key_ff2 = mask_key(dp, b, kSiteFf2, 0);
-
-  // ---- recompute the forward ----
-  gemm(L, D3, D, [&](int r, int k) { return xb[r * D + k]; },
-       [&](int k, int n) { return __ldg(W.w_qkv + k * D3 + n); },
-       [&](int r, int n, float acc) { qkv[r * D3 + n] = acc + W.b_qkv[n]; });
-  __syncthreads();
-  for (int h = 0; h < H; ++h) {
-    const int c0 = h * dh, g = h % dp.group;
-    const uint32_t key_attn = attn_key(dp, b, h);
-    head_probs(qkv, P, L, D, dh, h);
-    for (int e = tid; e < L * L; e += blockDim.x)
-      P[e] *= keep3(dp, key_attn, g, e / L, e % L);
-    __syncthreads();
-    gemm(L, dh, L, [&](int i, int j) { return P[i * L + j]; },
-         [&](int j, int d) { return qkv[j * D3 + 2 * D + c0 + d]; },
-         [&](int i, int d, float acc) { attn[i * D + c0 + d] = acc; });
-    __syncthreads();
+  const int starts[kGrads + 1] = {go.w_qkv, go.b_qkv, go.w_out, go.b_out, go.ln1_s, go.ln1_b,
+                                  go.w1,    go.b1,    go.w2,    go.b2,    go.ln2_s, go.ln2_b,
+                                  go.total};
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < go.total;
+       p += gridDim.x * blockDim.x) {
+    int k = 0;
+    while (p >= starts[k + 1]) ++k;
+    const int size = starts[k + 1] - starts[k], i = p - starts[k];
+    const float* src = part + ps.off[k] + i;
+    float s = 0.0f;
+    for (long long z = 0; z < ps.n[k]; ++z) s += src[z * size];
+    grads[p] = s;
   }
-  gemm(L, D, D, [&](int r, int k) { return attn[r * D + k]; },
-       [&](int k, int n) { return __ldg(W.w_out + k * D + n); },
-       [&](int r, int n, float acc) {
-         xhat1[r * D + n] = xb[r * D + n] + (acc + W.b_out[n]) * keep2(dp, key_out, n, r);
-       });
-  __syncthreads();
-  for (int r = warp; r < L; r += n_warps) {
-    const float inv = ln_row(xhat1 + r * D, xhat1 + r * D, D, lane);
-    if (lane == 0) inv1[r] = inv;
-    __syncwarp();
-    for (int c = lane; c < D; c += 32)
-      x1s[r * D + c] = xhat1[r * D + c] * W.ln1_s[c] + W.ln1_b[c];
-  }
-  for (int i = tid; i < L * D; i += blockDim.x) f2s[i] = 0.0f;
-  __syncthreads();
-  // FFN pass 1: f2 = drop(relu(x1 W1 + b1)) W2, chunk by chunk.
-  for (int c = 0; c < F; c += kBFC) {
-    const int fc = min(kBFC, F - c);
-    gemm(L, fc, D, [&](int r, int k) { return x1s[r * D + k]; },
-         [&](int k, int n) { return __ldg(W.w1 + (size_t)k * F + c + n); },
-         [&](int r, int n, float acc) {
-           hs[r * kBFC + n] = fmaxf(acc + W.b1[c + n], 0.0f) * keep2(dp, key_ff, c + n, r);
-         });
-    __syncthreads();
-    gemm(L, D, fc, [&](int r, int k) { return hs[r * kBFC + k]; },
-         [&](int k, int n) { return __ldg(W.w2 + (size_t)(c + k) * D + n); },
-         [&](int r, int n, float acc) { f2s[r * D + n] += acc; });
-    __syncthreads();
-  }
-  for (int i = tid; i < L * D; i += blockDim.x) {
-    const int r = i / D, n = i % D;
-    xhat2[i] = x1s[i] + (f2s[i] + W.b2[n]) * keep2(dp, key_ff2, n, r);
-  }
-  __syncthreads();
-
-  // ---- LN2 backward, dF2 ----
-  for (int r = warp; r < L; r += n_warps) {
-    const float inv = ln_row(xhat2 + r * D, xhat2 + r * D, D, lane);
-    if (lane == 0) inv2[r] = inv;
-    __syncwarp();
-    for (int c = lane; c < D; c += 32) dx1[r * D + c] = dyb[r * D + c];
-    __syncwarp();
-    ln_row_bwd(dx1 + r * D, xhat2 + r * D, inv, W.ln2_s, D, lane);
-    __syncwarp();
-    for (int c = lane; c < D; c += 32)
-      f2s[r * D + c] = dx1[r * D + c] * keep2(dp, key_ff2, c, r);
-  }
-  __syncthreads();
-  col_sums(L, D, grad + go.ln2_s, [&](int l, int c) { return dyb[l * D + c] * xhat2[l * D + c]; });
-  col_sums(L, D, grad + go.ln2_b, [&](int l, int c) { return dyb[l * D + c]; });
-  col_sums(L, D, grad + go.b2, [&](int l, int c) { return f2s[l * D + c]; });
-
-  // ---- FFN pass 2: the hidden chunk's gradients ----
-  for (int c = 0; c < F; c += kBFC) {
-    const int fc = min(kBFC, F - c);
-    gemm(L, fc, D, [&](int r, int k) { return x1s[r * D + k]; },
-         [&](int k, int n) { return __ldg(W.w1 + (size_t)k * F + c + n); },
-         [&](int r, int n, float acc) { hs[r * kBFC + n] = acc + W.b1[c + n]; });
-    gemm(L, fc, D, [&](int r, int k) { return f2s[r * D + k]; },
-         [&](int k, int n) { return __ldg(W.w2 + (size_t)(c + n) * D + k); },
-         [&](int r, int n, float acc) { dhs[r * kBFC + n] = acc; });
-    __syncthreads();
-    for (int e = tid; e < L * fc; e += blockDim.x) {
-      const int r = e / fc, n = e % fc;
-      const float kf = keep2(dp, key_ff, c + n, r);
-      const float hp = hs[r * kBFC + n];
-      dhs[r * kBFC + n] = hp > 0.0f ? dhs[r * kBFC + n] * kf : 0.0f;
-      hs[r * kBFC + n] = fmaxf(hp, 0.0f) * kf;
-    }
-    __syncthreads();
-    gemm(L, D, fc, [&](int r, int k) { return dhs[r * kBFC + k]; },
-         [&](int k, int n) { return __ldg(W.w1 + (size_t)n * F + c + k); },
-         [&](int r, int n, float acc) { dx1[r * D + n] += acc; });
-    gemm(D, fc, L, [&](int d, int l) { return x1s[l * D + d]; },
-         [&](int l, int n) { return dhs[l * kBFC + n]; },
-         [&](int d, int n, float acc) { grad[go.w1 + (size_t)d * F + c + n] = acc; });
-    gemm(fc, D, L, [&](int f, int l) { return hs[l * kBFC + f]; },
-         [&](int l, int n) { return f2s[l * D + n]; },
-         [&](int f, int n, float acc) { grad[go.w2 + (size_t)(c + f) * D + n] = acc; });
-    col_sums(L, fc, grad + go.b1 + c, [&](int l, int n) { return dhs[l * kBFC + n]; });
-    __syncthreads();
-  }
-
-  // ---- LN1 backward, out projection ----
-  col_sums(L, D, grad + go.ln1_s, [&](int l, int c) { return dx1[l * D + c] * xhat1[l * D + c]; });
-  col_sums(L, D, grad + go.ln1_b, [&](int l, int c) { return dx1[l * D + c]; });
-  __syncthreads();
-  for (int r = warp; r < L; r += n_warps) {
-    for (int c = lane; c < D; c += 32) da[r * D + c] = dx1[r * D + c];
-    __syncwarp();
-    ln_row_bwd(da + r * D, xhat1 + r * D, inv1[r], W.ln1_s, D, lane);
-    __syncwarp();
-    for (int c = lane; c < D; c += 32) dao[r * D + c] = da[r * D + c] * keep2(dp, key_out, c, r);
-  }
-  __syncthreads();
-  col_sums(L, D, grad + go.b_out, [&](int l, int c) { return dao[l * D + c]; });
-  gemm(D, D, L, [&](int i, int l) { return attn[l * D + i]; },
-       [&](int l, int n) { return dao[l * D + n]; },
-       [&](int i, int n, float acc) { grad[go.w_out + i * D + n] = acc; });
-  gemm(L, D, D, [&](int l, int n) { return dao[l * D + n]; },
-       [&](int n, int i) { return __ldg(W.w_out + i * D + n); },
-       [&](int l, int i, float acc) { dattn[l * D + i] = acc; });
-  __syncthreads();
-
-  // ---- attention backward, one head at a time ----
-  for (int h = 0; h < H; ++h) {
-    const int c0 = h * dh, g = h % dp.group;
-    const uint32_t key_attn = attn_key(dp, b, h);
-    head_probs(qkv, P, L, D, dh, h);
-    for (int i = tid; i < L; i += blockDim.x) {
-      float s = 0.0f;
-      for (int d = 0; d < dh; ++d) s += dattn[i * D + c0 + d] * attn[i * D + c0 + d];
-      dcol[i] = s;
-    }
-    __syncthreads();
-    // dS = P (dP_used * keep - rowsum(dO O)); P becomes P * keep.
-    gemm(L, L, dh, [&](int i, int d) { return dattn[i * D + c0 + d]; },
-         [&](int d, int j) { return qkv[j * D3 + 2 * D + c0 + d]; },
-         [&](int i, int j, float acc) {
-           const float kp = keep3(dp, key_attn, g, i, j);
-           const float p = P[i * L + j];
-           dP[i * L + j] = p * (acc * kp - dcol[i]);
-           P[i * L + j] = p * kp;
-         });
-    __syncthreads();
-    gemm(L, dh, L, [&](int i, int j) { return dP[i * L + j]; },
-         [&](int j, int d) { return qkv[j * D3 + D + c0 + d]; },
-         [&](int i, int d, float acc) { dqkv[i * D3 + c0 + d] = acc; });
-    gemm(L, dh, L, [&](int j, int i) { return dP[i * L + j]; },
-         [&](int i, int d) { return qkv[i * D3 + c0 + d]; },
-         [&](int j, int d, float acc) { dqkv[j * D3 + D + c0 + d] = acc; });
-    gemm(L, dh, L, [&](int j, int i) { return P[i * L + j]; },
-         [&](int i, int d) { return dattn[i * D + c0 + d]; },
-         [&](int j, int d, float acc) { dqkv[j * D3 + 2 * D + c0 + d] = acc; });
-    __syncthreads();
-  }
-
-  // ---- QKV projection ----
-  col_sums(L, D3, grad + go.b_qkv, [&](int l, int n) { return dqkv[l * D3 + n]; });
-  gemm(D, D3, L, [&](int d, int l) { return xb[l * D + d]; },
-       [&](int l, int n) { return dqkv[l * D3 + n]; },
-       [&](int d, int n, float acc) { grad[go.w_qkv + d * D3 + n] = acc; });
-  gemm(L, D, D3, [&](int l, int n) { return dqkv[l * D3 + n]; },
-       [&](int n, int d) { return __ldg(W.w_qkv + d * D3 + n); },
-       [&](int l, int d, float acc) { dxb[l * D + d] = da[l * D + d] + acc; });
 }
 
-// out[p] = sum over chains b = 0 .. B-1 of partials[b, p], in chain order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ out, int B, int P) {
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P; p += gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += partials[(size_t)b * P + p];
-    out[p] = s;
+// ---- attention backward ---------------------------------------------------------------------
+
+// Query rows (or keys) per block of operands staged in shared memory (fp32):
+// 16 KB of rows of `floats` each.
+__host__ __device__ constexpr int rows_per_block(int floats) { return 16 * 1024 / (4 * floats); }
+
+// dq: grid (ceil(L / 128), H, B), a thread per query row i with K and V of
+// its chain and head staged a block of keys at a time: the softmax
+// statistics (max, sum), dcol_i = dO_i . O_i and dq_i = sum_j dS_ij k_j with
+// dS = P (dP keep - dcol), dP = dO V^T. stats (N x H x 3) keeps max, sum and
+// dcol for the dk/dv kernel.
+template <int kDh>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ attn,
+                        const float* __restrict__ dattn, float* __restrict__ dqkv,
+                        float* __restrict__ stats, int L, int D, int H, Dropout dp) {
+  constexpr int KB = rows_per_block(2 * kDh);
+  __shared__ float sK[KB * kDh], sV[KB * kDh];
+  const int i = blockIdx.x * kAttnThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bool active = i < L;
+  const int dh = D / H, c0 = h * dh, D3 = 3 * D;
+  const size_t row0 = (size_t)b * L;
+  const float* base = qkv + row0 * D3;
+  const uint32_t key = attn_key(dp, b, h);
+  const int g = h % dp.group;
+  float q[kDh], dO[kDh], acc[kDh];
+  float dcol = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kDh; ++d) {
+    q[d] = (active && d < dh) ? base[(size_t)i * D3 + c0 + d] : 0.0f;
+    dO[d] = (active && d < dh) ? dattn[(row0 + i) * D + c0 + d] : 0.0f;
+    if (active && d < dh) dcol = fmaf(dO[d], attn[(row0 + i) * D + c0 + d], dcol);
+    acc[d] = 0.0f;
   }
+  auto for_keys = [&](auto f) {
+    for (int j0 = 0; j0 < L; j0 += KB) {
+      const int nb = min(KB, L - j0);
+      __syncthreads();
+      for (int e = threadIdx.x; e < nb * kDh; e += kAttnThreads) {
+        const int j = e / kDh, d = e % kDh;
+        const float* row = base + (size_t)(j0 + j) * D3 + c0 + d;
+        sK[e] = d < dh ? row[D] : 0.0f;
+        sV[e] = d < dh ? row[2 * D] : 0.0f;
+      }
+      __syncthreads();
+      if (active)
+        for (int j = 0; j < nb; ++j) {
+          float sc = 0.0f;
+#pragma unroll
+          for (int d = 0; d < kDh; ++d)
+            if (d < dh) sc = fmaf(q[d], sK[j * kDh + d], sc);
+          f(j0 + j, j, sc);
+        }
+    }
+  };
+  float m = -FLT_MAX;
+  for_keys([&](int, int, float sc) { m = fmaxf(m, sc); });
+  float sum = 0.0f;
+  for_keys([&](int, int, float sc) { sum += expf(sc - m); });
+  for_keys([&](int j, int jl, float sc) {
+    const float p = expf(sc - m) / sum;
+    float dpv = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kDh; ++d)
+      if (d < dh) dpv = fmaf(dO[d], sV[jl * kDh + d], dpv);
+    const float ds = p * (dpv * keep3<true>(dp, key, g, i, j) - dcol);
+#pragma unroll
+    for (int d = 0; d < kDh; ++d)
+      if (d < dh) acc[d] = fmaf(ds, sK[jl * kDh + d], acc[d]);
+  });
+  if (!active) return;
+  float* out = dqkv + (row0 + i) * D3 + c0;
+#pragma unroll
+  for (int d = 0; d < kDh; ++d)
+    if (d < dh) out[d] = acc[d];
+  float* st = stats + ((row0 + i) * H + h) * 3;
+  st[0] = m;
+  st[1] = sum;
+  st[2] = dcol;
+}
+
+// dk and dv: grid (ceil(L / 128), H, B), a thread per key j with Q, dO and
+// the statistics of its chain and head staged a block of query rows at a
+// time: dk_j = sum_i dS_ij q_i, dv_j = sum_i P_ij keep_ij dO_i.
+template <int kDh>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                         float* __restrict__ dqkv, const float* __restrict__ stats, int L,
+                         int D, int H, Dropout dp) {
+  constexpr int kRow = 2 * kDh + 3;
+  constexpr int QB = rows_per_block(kRow);
+  __shared__ float sQ[QB * kRow];
+  const int j = blockIdx.x * kAttnThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bool active = j < L;
+  const int dh = D / H, c0 = h * dh, D3 = 3 * D;
+  const size_t row0 = (size_t)b * L;
+  const float* base = qkv + row0 * D3;
+  const uint32_t key = attn_key(dp, b, h);
+  const int g = h % dp.group;
+  float k[kDh], v[kDh], dk[kDh], dv[kDh];
+#pragma unroll
+  for (int d = 0; d < kDh; ++d) {
+    k[d] = (active && d < dh) ? base[(size_t)j * D3 + D + c0 + d] : 0.0f;
+    v[d] = (active && d < dh) ? base[(size_t)j * D3 + 2 * D + c0 + d] : 0.0f;
+    dk[d] = dv[d] = 0.0f;
+  }
+  for (int i0 = 0; i0 < L; i0 += QB) {
+    const int nb = min(QB, L - i0);
+    __syncthreads();
+    for (int e = threadIdx.x; e < nb * kRow; e += kAttnThreads) {
+      const int i = e / kRow, c = e % kRow;
+      const size_t r = row0 + i0 + i;
+      float val = 0.0f;
+      if (c < kDh)
+        val = c < dh ? base[(size_t)(i0 + i) * D3 + c0 + c] : 0.0f;
+      else if (c < 2 * kDh)
+        val = c - kDh < dh ? dattn[r * D + c0 + c - kDh] : 0.0f;
+      else
+        val = stats[(r * H + h) * 3 + c - 2 * kDh];
+      sQ[e] = val;
+    }
+    __syncthreads();
+    if (active)
+      for (int i = 0; i < nb; ++i) {
+        const float* qi = sQ + i * kRow;
+        const float* dOi = qi + kDh;
+        const float* st = dOi + kDh;
+        float sc = 0.0f, dpv = 0.0f;
+#pragma unroll
+        for (int d = 0; d < kDh; ++d)
+          if (d < dh) {
+            sc = fmaf(qi[d], k[d], sc);
+            dpv = fmaf(dOi[d], v[d], dpv);
+          }
+        const float p = expf(sc - st[0]) / st[1];
+        const float kp = keep3<true>(dp, key, g, i0 + i, j);
+        const float ds = p * (dpv * kp - st[2]);
+        const float pk = p * kp;
+#pragma unroll
+        for (int d = 0; d < kDh; ++d)
+          if (d < dh) {
+            dk[d] = fmaf(ds, qi[d], dk[d]);
+            dv[d] = fmaf(pk, dOi[d], dv[d]);
+          }
+      }
+  }
+  if (!active) return;
+  float* out = dqkv + (row0 + j) * D3 + c0;
+#pragma unroll
+  for (int d = 0; d < kDh; ++d)
+    if (d < dh) {
+      out[D + d] = dk[d];
+      out[2 * D + d] = dv[d];
+    }
+}
+
+template <int kDh>
+cudaError_t attention_bwd(const float* qkv, const float* attn, const float* dattn, float* dqkv,
+                          float* stats, int B, int L, int D, int H, const Dropout& dp,
+                          cudaStream_t s) {
+  const dim3 grid((L + kAttnThreads - 1) / kAttnThreads, H, B);
+  attention_bwd_dq_kernel<kDh><<<grid, kAttnThreads, 0, s>>>(qkv, attn, dattn, dqkv, stats, L,
+                                                             D, H, dp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkv_kernel<kDh><<<grid, kAttnThreads, 0, s>>>(qkv, dattn, dqkv, stats, L, D,
+                                                              H, dp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention_bwd(const float* qkv, const float* attn, const float* dattn,
+                                 float* dqkv, float* stats, int B, int L, int D, int H,
+                                 const Dropout& dp, cudaStream_t s) {
+  const int dh = D / H;
+  if (dh <= 8) return attention_bwd<8>(qkv, attn, dattn, dqkv, stats, B, L, D, H, dp, s);
+  if (dh <= 16) return attention_bwd<16>(qkv, attn, dattn, dqkv, stats, B, L, D, H, dp, s);
+  if (dh <= 32) return attention_bwd<32>(qkv, attn, dattn, dqkv, stats, B, L, D, H, dp, s);
+  if (dh <= 64) return attention_bwd<64>(qkv, attn, dattn, dqkv, stats, B, L, D, H, dp, s);
+  if (dh <= 384) return attention_bwd<384>(qkv, attn, dattn, dqkv, stats, B, L, D, H, dp, s);
+  return cudaErrorInvalidValue;
 }
 
 // The four masks, as the kernels above apply them, for checking.
@@ -459,6 +421,104 @@ __global__ void dropout_masks_kernel(float* attn, float* out_m, float* ff, float
   }
 }
 
+#define FDIFF_TRY(expr)                              \
+  do {                                               \
+    const cudaError_t e_ = (expr);                   \
+    if (e_ != cudaSuccess) return (int)e_;           \
+  } while (0)
+
+// The backward's launches; events (null, or kBwdStages + 1 events) are
+// recorded before the first stage and after each.
+int train_bwd(const float* x, const float* dy, const Weights<float>& W, float* dx, float* grads,
+              float* ws, const BwdPlan& p, int B, int L, int D, int H, int F, const Dropout& dp,
+              void* const* events, cudaStream_t s) {
+  const int N = B * L, D3 = 3 * D;
+  auto at = [&](long long off) { return ws + off; };
+  int stage = 0;
+  auto mark = [&]() -> cudaError_t {
+    if (events == nullptr) return cudaSuccess;
+    return cudaEventRecord(static_cast<cudaEvent_t>(events[stage++]), s);
+  };
+  float* part = at(p.part);
+  const GradOffsets go(D, F);
+  const int full = tc::round_up(D3 > F ? D3 : F, tc::kGemmBK);  // k_slice of a whole K
+
+  FDIFF_TRY(mark());
+  // forward recompute, LN2 backward
+  FDIFF_TRY((tc::gemm<float, true, false>(x, D, W.w_qkv, D3, N, D3, D, full, 1,
+                                          StoreBiasRounded<float>{at(p.qkv), W.b_qkv, D3}, s)));
+  FDIFF_TRY((launch_attention_fwd<float, true>(at(p.qkv), at(p.attn), B, L, D, H, dp, s)));
+  const TailTrain tr{at(p.xhat1), at(p.inv1), at(p.xhat2), at(p.inv2), at(p.g2), at(p.df2), dy};
+  // (the wide tail's pre and h in dx1 and h, free until later stages)
+  const TailWs<float> tail_ws{at(p.x1), at(p.tail_part), at(p.dx1), at(p.x1), at(p.h)};
+  FDIFF_TRY((launch_layer_tail<float, true>(x, at(p.attn), W, nullptr, N, L, D, F, dp, p.tail,
+                                            (int)p.tail_ctas, tr, tail_ws, s)));
+  FDIFF_TRY(mark());
+  // the hidden layer and its gradient, in one pass of two products
+  FDIFF_TRY((tc::gemm_pair<float, true, false, true>(
+      at(p.x1), W.w1, at(p.df2), W.w2, D, F, D, N, F, D,
+      HiddenEpi{at(p.h), at(p.dh), W.b1, F, L, dp}, s)));
+  FDIFF_TRY(mark());
+  // FFN weight products per row slice; dx1 = g2 + dh W1^T
+  FDIFF_TRY((tc::gemm<float, false, false>(at(p.x1), D, at(p.dh), F, D, F, N, (int)p.ks_w1,
+                                           (int)p.sp_w1,
+                                           StorePartial{part + p.p_off[kW1], F, (long)D * F}, s)));
+  FDIFF_TRY((tc::gemm<float, false, false>(at(p.h), F, at(p.df2), D, F, D, N, (int)p.ks_w2,
+                                           (int)p.sp_w2,
+                                           StorePartial{part + p.p_off[kW2], D, (long)F * D}, s)));
+  FDIFF_TRY((tc::gemm<float, true, true>(at(p.dh), F, W.w1, F, N, D, F, (int)p.ks_dx1,
+                                         (int)p.sp_dx1,
+                                         StorePartial{at(p.dx1p), D, (long)N * D}, s)));
+  FDIFF_TRY(mark());
+  // LN1 backward, out projection
+  ln1_bwd_kernel<<<(N + 7) / 8, 256, 0, s>>>(at(p.g2), at(p.dx1p), (int)p.sp_dx1, at(p.dx1),
+                                             at(p.xhat1), at(p.inv1), W.ln1_s, at(p.da),
+                                             at(p.dao), N, L, D, dp);
+  FDIFF_TRY(cudaGetLastError());
+  FDIFF_TRY((tc::gemm<float, true, true>(at(p.dao), D, W.w_out, D, N, D, D, full, 1,
+                                         StoreF{at(p.dattn), D}, s)));
+  FDIFF_TRY((tc::gemm<float, false, false>(at(p.attn), D, at(p.dao), D, D, D, N, (int)p.ks_w_out,
+                                           (int)p.sp_w_out,
+                                           StorePartial{part + p.p_off[kWOut], D, (long)D * D},
+                                           s)));
+  FDIFF_TRY(mark());
+  // attention backward
+  FDIFF_TRY(launch_attention_bwd(at(p.qkv), at(p.attn), at(p.dattn), at(p.dqkv), at(p.stats),
+                                 B, L, D, H, dp, s));
+  FDIFF_TRY(mark());
+  // QKV projection
+  FDIFF_TRY((tc::gemm<float, false, false>(x, D, at(p.dqkv), D3, D, D3, N, (int)p.ks_w_qkv,
+                                           (int)p.sp_w_qkv,
+                                           StorePartial{part + p.p_off[kWQkv], D3, (long)D * D3},
+                                           s)));
+  FDIFF_TRY((tc::gemm<float, true, true>(at(p.dqkv), D3, W.w_qkv, D3, N, D, D3, full, 1,
+                                         AddStore{dx, at(p.da), D}, s)));
+  FDIFF_TRY(mark());
+  // column sums per row slice, then every partial in slice order
+  ColSums jobs{{
+      {dy, at(p.xhat2), part + p.p_off[kLn2S], D},
+      {dy, nullptr, part + p.p_off[kLn2B], D},
+      {at(p.df2), nullptr, part + p.p_off[kB2], D},
+      {at(p.dh), nullptr, part + p.p_off[kB1], F},
+      {at(p.dx1), at(p.xhat1), part + p.p_off[kLn1S], D},
+      {at(p.dx1), nullptr, part + p.p_off[kLn1B], D},
+      {at(p.dao), nullptr, part + p.p_off[kBOut], D},
+      {at(p.dqkv), nullptr, part + p.p_off[kBQkv], D3},
+  }};
+  const int max_cols = F > D3 ? F : D3;
+  col_sums_kernel<<<dim3((max_cols + 127) / 128, (int)p.cs_slices, kColSums), 128, 0, s>>>(
+      jobs, N, (int)p.cs_rows);
+  FDIFF_TRY(cudaGetLastError());
+  PartialSets ps;
+  for (int k = 0; k < kGrads; ++k) {
+    ps.off[k] = p.p_off[k];
+    ps.n[k] = p.p_n[k];
+  }
+  reduce_partials_kernel<<<(go.total + 255) / 256, 256, 0, s>>>(part, grads, ps, D, F);
+  FDIFF_TRY(cudaGetLastError());
+  return (int)mark();
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,13 +528,10 @@ int fdiff_train_fwd_smem_bytes(int L, int D) { return encoder_layer_smem_bytes(L
 // Floats per chain of the forward's K|V workspace (0: none; encoder_layer.cuh).
 int fdiff_train_fwd_kv_floats(int L, int D) { return encoder_layer_kv_floats(L, D); }
 
-int fdiff_train_bwd_smem_bytes(int L, int D) {
-  return bwd_smem_floats(L, D) * (int)sizeof(float);
-}
-
-// Floats of one chain's backward workspace and of one chain's gradient partial.
-int fdiff_train_bwd_workspace_floats(int L, int D) { return BwdWs(L, D).total; }
 int fdiff_train_grad_floats(int D, int F) { return GradOffsets(D, F).total; }
+
+// B4's stages (events: stages + 1).
+int fdiff_train_bwd_stages() { return kBwdStages; }
 
 // weights: the 12 packed tensors in the order w_qkv, b_qkv, w_out, b_out,
 // ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b. kv_ws: B x
@@ -489,30 +546,19 @@ int fdiff_train_fwd(const void* x, const void* const* weights, void* out, void* 
                                            D, H, F, dp, static_cast<cudaStream_t>(stream));
 }
 
-// Backward body (one CTA per chain, partials (B, grad_floats)), then the
-// reduction of the partials into grads (grad_floats).
+// The backward: dx (B, L, D), grads (fdiff_train_grad_floats), workspace
+// and plan from the wrapper (BwdPlan); events null or
+// fdiff_train_bwd_stages() + 1 CUDA events recorded around the stages.
 int fdiff_train_bwd(const void* x, const void* dy, const void* const* weights, void* dx,
-                    void* partials, void* workspace, void* grads, int B, int L, int D,
-                    int H, int F, int group, unsigned int seed, unsigned int thr,
-                    float scale, void* stream) {
-  const int bytes = fdiff_train_bwd_smem_bytes(L, D);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = bwd_x1_in_smem(L, D) ? train_bwd_kernel<true> : train_bwd_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  auto s = static_cast<cudaStream_t>(stream);
+                    void* grads, void* workspace, const void* plan, int B, int L, int D,
+                    int H, int F, int group, unsigned int seed, unsigned int thr, float scale,
+                    void* const* events, void* stream) {
   const Dropout dp{seed, thr, scale, group};
-  kernel<<<B, kBwdThreads, bytes, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy),
-      weights_of<float>(weights), static_cast<float*>(dx), static_cast<float*>(partials),
-      static_cast<float*>(workspace), L, D, H, F, dp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int P = GradOffsets(D, F).total;
-  reduce_partials_kernel<<<(P + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(grads), B, P);
-  return (int)cudaGetLastError();
+  return train_bwd(static_cast<const float*>(x), static_cast<const float*>(dy),
+                   weights_of<float>(weights), static_cast<float*>(dx),
+                   static_cast<float*>(grads), static_cast<float*>(workspace),
+                   *static_cast<const BwdPlan*>(plan), B, L, D, H, F, dp, events,
+                   static_cast<cudaStream_t>(stream));
 }
 
 int fdiff_dropout_masks(void* attn, void* out, void* ff, void* ff2, int B, int L, int D,

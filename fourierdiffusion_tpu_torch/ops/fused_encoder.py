@@ -46,6 +46,26 @@ from fourierdiffusion_tpu_torch.models.transformer import LN_EPS, TransformerEnc
 SCORE_CLAMP = 60.0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a block can opt into on sm_90
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SM_SMEM = 233472  # bytes of shared memory per SM on sm_90
+
+# The tensor-core kernels' tiles (csrc/mma_tile.cuh, csrc/encoder_layer_tc.cuh).
+TAIL_MAX_KT, TAIL_MAX_FC = 128, 128  # k-rows of a streamed weight tile; d_ff chunk
+GEMM_BM, GEMM_BN, GEMM_BK, GEMM_STAGES = 64, 64, 32, 4
+MAX_TAIL_D = 256  # the tail's register tiles hold up to 256 columns; wider runs wide
+
+
+class TailPlan(ctypes.Structure):
+    """The tail's plan as the kernel takes it (``fdiff::TailPlan``): the
+    wide route, or rows per tile, k-rows of a weight tile, d_ff chunk, weight
+    tiles in the ring, D rounded to the k step and to 8, element strides of
+    the activation, hidden and weight tiles, elements of a ring slot, byte
+    offsets of the shared-memory regions and their total."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "wide", "tm", "kt", "fc", "slots", "kd", "dn", "sa", "sh", "swo", "sw1", "slot",
+        "off_a", "off_h", "off_ring", "off_pre", "bytes")]
+
 
 #: Kernel launches so far in this process, of B1, B7 and B8; only the CUDA
 #: branch of ``fused_encoder_layer`` adds to them. Callers reset them to 0
@@ -343,11 +363,9 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_encoder")
     lib.fdiff_encoder_layer.restype = ctypes.c_int
     lib.fdiff_encoder_layer.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 21 + [ctypes.POINTER(TailPlan)]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
-    for name in ("fdiff_encoder_layer_smem_bytes", "fdiff_encoder_layer_kv_floats"):
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fdiff_error_string.restype = ctypes.c_char_p
     lib.fdiff_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -385,6 +403,141 @@ def data_ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+# ---- launch plans of the tensor-core layer (B1, and B4's forward) ---------------------
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tile_stride(elem_bytes: int, n: int, kmaj: bool) -> int:
+    """Row stride (elements) of a shared tile whose rows hold ``n``
+    elements (``tc::tile_stride``): fp32 rows of k ``S % 8 == 4``, else
+    ``S % 16 == 8``, so a warp's fragment loads hit distinct banks."""
+    if elem_bytes == 4 and kmaj:
+        return (n + 3) // 8 * 8 + 4
+    return (n + 7) // 16 * 16 + 8
+
+
+def gemm_smem_bytes(elem_bytes: int) -> int:
+    """Shared memory of the tile product: GEMM_STAGES stages of a 64 x 32 A
+    and B tile in the larger of their layouts."""
+    tile = max(tile_stride(elem_bytes, GEMM_BK, True) * GEMM_BM,
+               tile_stride(elem_bytes, GEMM_BM, False) * GEMM_BK)
+    return GEMM_STAGES * 2 * tile * elem_bytes
+
+
+@functools.lru_cache(maxsize=64)
+def tail_plan(d_model: int, dtype: torch.dtype) -> dict[str, int]:
+    """The tail's plan (``TailPlan``'s fields). Up to D = ``MAX_TAIL_D``:
+    row tiles of 32 rows up to D = 128, else 16; d_ff chunks of 64; weight
+    tiles of all of D's k-rows up to 96, else of 64; three weight tiles in
+    the ring where they fit, else two; the shared-memory regions
+    (activation tile, hidden chunk, the weight ring, which also holds the
+    W2 partial sums at the end of a segment, and an fp32 row buffer), each
+    16-byte aligned. Wider layers take the wide route (``wide`` 1, the
+    other fields 0): five launches through device memory."""
+    p = dict.fromkeys(f for f, _ in TailPlan._fields_)
+    if d_model > MAX_TAIL_D:
+        return {**dict.fromkeys(p, 0), "wide": 1}
+    size = torch.finfo(dtype).bits // 8
+    kstep = 8 if size == 4 else 16
+    tm = 32 if d_model <= 128 else 16
+    kd, dn = _round_up(d_model, kstep), _round_up(d_model, 8)
+    kt, fc = (kd if kd <= 96 else 64), 64
+    p.update(wide=0, tm=tm, kt=kt, fc=fc, kd=kd, dn=dn, sa=tile_stride(size, kd, True),
+             sh=tile_stride(size, fc, True), swo=tile_stride(size, dn, False),
+             sw1=tile_stride(size, fc, False))
+    p["slot"] = max(kt * p["swo"], kt * p["sw1"], fc * p["swo"])  # W_out, W1, W2 tiles
+    for slots in (3, 2):
+        p["slots"] = slots
+        regions = (("off_a", tm * p["sa"] * size), ("off_h", tm * p["sh"] * size),
+                   ("off_ring", max(slots * p["slot"] * size, 2 * tm * dn * 4)),
+                   ("off_pre", tm * d_model * 4))
+        offset = 0
+        for name, nbytes in regions:
+            p[name] = offset
+            offset += _round_up(nbytes, 16)
+        p["bytes"] = offset
+        if offset <= SMEM_LIMIT:
+            return p
+    raise AssertionError(f"no tail plan fits D={d_model}")  # D <= 256 always fits
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_plan_struct(d_model: int, dtype: torch.dtype) -> TailPlan:
+    return TailPlan(**tail_plan(d_model, dtype))
+
+
+def tail_ctas_per_sm(plan: dict[str, int]) -> int:
+    """Tail CTAs that fit on one SM at once: two where two plans' shared
+    memory (and the 1 KB the card reserves per block) fit in an SM's
+    233,472 bytes; the kernel's registers are bounded for two."""
+    return 2 if 2 * (plan["bytes"] + 1024) <= SM_SMEM else 1
+
+
+def tail_schedule(n_rows: int, d_model: int, d_ff: int, dtype: torch.dtype,
+                  sms: int = SMS) -> dict[str, int]:
+    """The fused tail's persistent schedule (``fdiff::TailSchedule``): its
+    units are (row tile, d_ff chunk), tile-major; ``ctas`` = min(SMs x
+    ``tail_ctas_per_sm``, units) CTAs each take a contiguous range of them,
+    and ``parts`` f2 partials of a row tile each (row tiles + CTAs - 1)
+    hold their segments' sums."""
+    p = tail_plan(d_model, dtype)
+    tiles, chunks = -(-n_rows // p["tm"]), -(-d_ff // p["fc"])
+    ctas = min(sms * tail_ctas_per_sm(p), tiles * chunks)
+    return {"tiles": tiles, "chunks": chunks, "units": tiles * chunks, "ctas": ctas,
+            "parts": tiles + ctas - 1}
+
+
+def tail_segments(schedule: dict[str, int]) -> list[tuple[int, int, int, int, int]]:
+    """(CTA, row tile, first chunk, end chunk, partial slot) of every
+    segment of the schedule, in the kernel's order: CTA k takes the units
+    [k U / G, (k + 1) U / G), a row tile at a time, its partial to slot
+    tile + k."""
+    units, ctas, chunks = schedule["units"], schedule["ctas"], schedule["chunks"]
+    out = []
+    for k in range(ctas):
+        u, end = k * units // ctas, (k + 1) * units // ctas
+        while u < end:
+            tile = u // chunks
+            c_lo, c_hi = u - tile * chunks, min(chunks, end - tile * chunks)
+            out.append((k, tile, c_lo, c_hi, tile + k))
+            u = tile * chunks + c_hi
+    return out
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def row_tiles(n_rows: int, tile: int) -> list[tuple[int, int]]:
+    """The rows ``[start, stop)`` of each CTA of a grid of ``ceil(n_rows /
+    tile)`` row tiles, as the kernels clip the last one."""
+    return [(r, min(n_rows, r + tile)) for r in range(0, n_rows, tile)]
+
+
+def sample_plan(batch: int, max_len: int, d_model: int, n_head: int, d_ff: int,
+                dtype: torch.dtype, sms: int = SMS) -> dict:
+    """B1's launches: the QKV tile product (GEMM tiles over the B*L rows),
+    attention (a CTA per 128 query rows, head and chain) and the tail (its
+    persistent schedule and the finish, or five launches on the wide
+    route)."""
+    n = batch * max_len
+    size = torch.finfo(dtype).bits // 8
+    tail = tail_plan(d_model, dtype)
+    return {
+        "qkv_grid": (-(-n // GEMM_BM), -(-3 * d_model // GEMM_BN)),
+        "qkv_smem_bytes": gemm_smem_bytes(size),
+        "attention_grid": (-(-max_len // 128), n_head, batch),
+        "tail": tail,
+        "tail_schedule": None if tail["wide"] else tail_schedule(n, d_model, d_ff, dtype, sms),
+        "launches": 7 if tail["wide"] else 4,
+    }
+
+
 def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
     global launches
     b, l, d = x.shape
@@ -397,15 +550,27 @@ def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tor
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_encoder_layer needs contiguous tensors")
     lib = _library()
-    smem = lib.fdiff_encoder_layer_smem_bytes(l, d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory per block")
     out = torch.empty_like(x)
-    kv = kv_workspace(lib.fdiff_encoder_layer_kv_floats(l, d), x)
+    qkv = torch.empty(b * l, 3 * d, dtype=x.dtype, device=x.device)
+    o = torch.empty(b * l, d, dtype=x.dtype, device=x.device)
+    plan = _tail_plan_struct(d, x.dtype)
+    n = b * l
+    tail_ws = [None] * 5  # fused: x1, partials (fp32); wide: pre (fp32), x1, h
+    ctas = 0
+    if plan.wide:
+        tail_ws[2:] = [torch.empty(n, d, device=x.device),
+                       torch.empty(n, d, dtype=x.dtype, device=x.device),
+                       torch.empty(n, d_ff, dtype=x.dtype, device=x.device)]
+    else:
+        sched = tail_schedule(n, d, d_ff, x.dtype, sm_count(x.device))
+        ctas = sched["ctas"]
+        tail_ws[:2] = [torch.empty(n, d, device=x.device),
+                       torch.empty(sched["parts"] * plan.tm * d, device=x.device)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fdiff_encoder_layer(
-        DTYPES[x.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(), data_ptr(kv),
-        b, l, d, n_head, d_ff, stream,
+        DTYPES[x.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(), qkv.data_ptr(),
+        o.data_ptr(), *(data_ptr(t) for t in tail_ws), ctypes.byref(plan), ctas, b, l, d,
+        n_head, d_ff, stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -25,6 +25,13 @@ site's codes flip (an upstream bf16 rounding that flipped, as B1 has, moves
 a quantizer's input by up to about a code). The sites whose inputs the two
 versions compute alike (x, and V from exact integer sums) flip nowhere.
 
+B1 and B4 run on the tensor cores (``csrc/mma_tile.cuh``): B1 is checked
+where a row tile holds one row, one chain or straddles chains, B4's stages
+against the staged plain backward (``train_backward_staged``, flipped ReLU
+gates located within 1e-5 of the sum of |terms| of 0 and matched), a
+repeated B4 call bit for bit, and both at layers wider than the tail's
+register tiles (d_model 264 to 384, head widths up to 384).
+
 The long sequences of the real datasets (NASA L=251, NASDAQ 252,
 USDroughts 365 at d_model 72) and the d_model 128 shapes at ECG's L=187
 (``configs/score_model/fast.yaml`` F 2048, ``fast512.yaml`` F 512) take the
@@ -177,6 +184,91 @@ def test_kernel_masks_are_bit_identical(cuda, b, l, d, n_head, d_ff) -> None:
     ref = fet.dropout_masks(*args, device=cuda)
     for key in ref:
         assert torch.equal(ours[key], ref[key]), key
+
+
+# ---- the tensor-core redesigns of B1 and B4 --------------------------------------------
+
+SMALL = [(b, l) for b in (1, 3) for l in (1, 17)] + [(32, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l", SMALL, ids=[f"B{b}-L{l}" for b, l in SMALL])
+def test_tensor_core_layer_matches_plain_at_small_shapes(cuda, dtype, b, l) -> None:
+    """B1 where a row tile holds one chain, straddles chains, or is one row."""
+    test_kernel_matches_plain(cuda, dtype, b, l, 72, 12, 2048)
+
+
+@pytest.mark.parametrize("b,l", SMALL, ids=[f"B{b}-L{l}" for b, l in SMALL])
+def test_tensor_core_backward_matches_plain_at_small_shapes(cuda, b, l) -> None:
+    test_training_kernels_match_plain(cuda, 0.1, b, l, 72, 12, 2048)
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", [(3, 17, 24, 4, 300), (64, 100, 72, 12, 2048),
+                                               (2, 17, 384, 6, 512)],
+                         ids=["L17-F300", "flagship", "wide"])
+def test_backward_stages_match_the_staged_plain_version(cuda, b, l, d, n_head, d_ff) -> None:
+    """B4's workspace after each stage (dF2, dx1, da, dqkv), dx and the
+    gradients against ``train_backward_staged``, each to 1e-3 of its largest.
+    A ReLU gate of the FFN whose input lies within rounding of 0 may open in
+    one and stay shut in the other (see ``chip_smoke.py``, GATE_BAND): each
+    such flip is located, must lie within 1e-5 of the sum of |terms| of 0,
+    and the staged version then takes the kernel's gates."""
+    lay = {k: t.detach() for k, t in _train_layer(d, n_head, d_ff, cuda).items()}
+    g = torch.Generator().manual_seed(8)
+    x, dy = (torch.randn(b, l, d, generator=g).to(cuda) for _ in range(2))
+    dx, grads, stages = fet._launch_bwd(x, dy, lay, 99, n_head, 0.1, stages=True)
+    torch.cuda.synchronize()
+    _, _, plain = fet.train_backward_staged(x, dy, lay, 99, n_head=n_head, rate=0.1)
+    kept = fet.dropout_masks(b, l, d, d_ff, n_head, 99, 0.1, cuda)["ff"] > 0
+    flips = (stages["gates"] != plain["gates"]) & kept
+    if flips.any():
+        x1 = fet.attention_sublayer(x.double(), {k: t.double() for k, t in lay.items()},
+                                    fet.dropout_masks(b, l, d, d_ff, n_head, 99, 0.1, cuda),
+                                    n_head)
+        pre = x1 @ lay["w1"].double() + lay["b1"].double()
+        terms = x1.abs() @ lay["w1"].double().abs() + lay["b1"].double().abs()
+        assert (pre.abs() <= 1e-5 * terms)[flips].all()
+        assert int(flips.sum()) <= 16
+    ref_dx, ref_grads, ref_stages = fet.train_backward_staged(
+        x, dy, lay, 99, n_head=n_head, rate=0.1, gates=stages["gates"] | (~kept & plain["gates"]))
+    for name in ("df2", "dx1", "da", "dqkv"):
+        assert _rel(stages[name], ref_stages[name]) <= 1e-3, name
+    for name, got, want in zip(["x", *fet.LAYER_KEYS], [dx, *grads], [ref_dx, *ref_grads]):
+        assert _rel(got, want) <= 1e-3, name
+
+
+def test_backward_is_bit_identical_across_calls(cuda) -> None:
+    lay = {k: t.detach() for k, t in _train_layer(72, 12, 2048, cuda).items()}
+    g = torch.Generator().manual_seed(9)
+    x, dy = (torch.randn(64, 100, 72, generator=g).to(cuda) for _ in range(2))
+    first = fet._launch_bwd(x, dy, lay, 5, 12, 0.1)
+    second = fet._launch_bwd(x, dy, lay, 5, 12, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for a, b_ in zip(first[1], second[1]):
+        assert torch.equal(a, b_)
+
+
+def test_backward_events_match_the_kernels_stages(cuda) -> None:
+    assert fet._library().fdiff_train_bwd_stages() == len(fet.BWD_STAGES)
+
+
+# Layers wider than the tail's 256 register columns (the wide tail, five
+# launches through device memory), with head widths of 22, 95 and 384.
+WIDE_SHAPES = [(3, 17, 264, 12, 1024), (2, 17, 380, 4, 512), (2, 9, 384, 1, 512)]
+WIDE_IDS = ["D264", "D380", "D384-H1"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_SHAPES, ids=WIDE_IDS)
+def test_wide_layer_matches_plain(cuda, dtype, b, l, d, n_head, d_ff) -> None:
+    test_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff)
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_SHAPES[:2], ids=WIDE_IDS[:2])
+def test_wide_training_layer_matches_plain(cuda, b, l, d, n_head, d_ff) -> None:
+    """B3 (unchanged) takes these widths at short L, and B4 runs its wide tail."""
+    test_training_kernels_match_plain(cuda, 0.1, b, l, d, n_head, d_ff)
 
 
 def _attention_grads(fn, q, k, v, do):
