@@ -15,8 +15,8 @@ Phases, each printed with its seconds as it ends:
    together (a library already built is reused), with ptxas's registers,
    stack and spills for every kernel instance, and, from ``cuobjdump
    -sass``, the instructions and tensor-core instructions (HMMA) of each
-   kernel of B1 and B4; every kernel that runs a tile product must have
-   HMMA.
+   kernel of B1, B2, B3 and B4; every kernel that runs a tile product must
+   have HMMA, and B2's kernel and the training tail must be among them.
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel (beside
@@ -37,13 +37,16 @@ Phases, each printed with its seconds as it ends:
    forward B3 and backward B4 (fp32, dropout 0.1) against their plain
    versions on the card, the dropout masks bit for bit, B4's stages (dF2,
    dx1, da, dqkv) against the staged plain backward, and the times of
-   each kernel, its plain version, its bound and a PyTorch yardstick
+   each kernel (beside its time before its redesign, PRIOR_MS), its plain
+   version, its bound and a PyTorch yardstick
    (``F.scaled_dot_product_attention``; a train-mode
-   ``nn.TransformerEncoderLayer(72, 12, 2048, 0.1)`` forward and backward);
-   at L=100 also B4 called twice on the same inputs (bit-identical) and
-   its time per stage (CUDA events) with its launches per call, and the
-   device time of each kernel of one B1 call (B=32, fp32 and bf16) and one
-   B4 call (B=64), from ``torch.profiler``.
+   ``nn.TransformerEncoderLayer(72, 12, 2048, 0.1)`` forward and backward),
+   with the CUDA launches of one B3 and one B4 call as their plans count
+   them; at L=100 also B3 and B4 each called twice on the same inputs
+   (bit-identical) and B4's time per stage (CUDA events), and the device
+   time and the launches of each kernel of one B1 call (B=32, fp32 and
+   bf16), one B3 and one B4 call (B=64), from ``torch.profiler``: the
+   launches of one B3 and one B4 call must be those of their plans.
 7. training check: the first 3 steps of the flagship's training through
    the kernels and through the plain versions, from the same weights, with
    the same batches, ``t``, ``z`` and layer seeds: losses and the first
@@ -57,20 +60,26 @@ Phases, each printed with its seconds as it ends:
    cut to 2 epochs (32 steps), the data generated into a temporary
    directory. B3 and B4 must run steps x 10 times and B2 epochs x 16
    validation batches x 4 draws x 10 times; all losses must be finite.
-   Then the steps/s of ``Trainer.train_step`` through the kernels and
+   Its fused steps/s and seconds per validation pass (with B2's share of
+   it), then the steps/s of ``Trainer.train_step`` through the kernels and
    through the plain versions, on the same 8 batches.
 9. long sequences and wide layers: B1 (fp32, bf16), B3 and B4 against their
    plain versions (today's gates, masks bit for bit) at B=8 where their
    shared-memory plan does not fit: L=365 at d_model 72 (USDroughts), and
    L=187 at d_model 128 with 8 heads and FFN 2048 and 512
    (``configs/score_model/fast.yaml``, ``fast512.yaml``), with their times
-   beside phase 3's L=100 ones.
+   beside phase 3's L=100 ones; B2 (fp32, bf16) at B=8 at each dataset
+   length and shipped head width (B2_SHAPES), at dh 64, and at L 3616 and
+   438 (dh 6 and 64: longer than a kernel that stages the whole head takes),
+   against its plain version (bf16: to B2_BF16_ULPS ulps of the largest
+   output), with its time, its plain version's and SDPA's.
 10. unfused attention kernels: B5 (backward), B6-fwd and B6-bwd (dropout
    0.1) against their plain versions at (64, 12, 100, 6) and (8, 12, 365, 6),
    fp32, with the masks bit for bit, and the times of each kernel, its plain
    version, its bound and a yardstick the port never calls: the autograd
    backward of ``F.scaled_dot_product_attention`` for B5, SDPA with
-   ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend printed).
+   ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend printed);
+   B2's fp32 time on the same heads beside SDPA's without dropout.
 11. unfused training check (``FDIFF_FUSED_TRAIN=0``): the first 3 steps of
    the flagship's training configuration through the kernels and through
    ``Trainer(plain=True)``, from the same weights, batches, ``t``, ``z`` and
@@ -181,10 +190,18 @@ PRIOR_MS = {
            "float32 L=187 D=128 H=8 F=512": 1.0256, "bfloat16 L=187 D=128 H=8 F=512": 0.7411},
     "B4": {"L=100 D=72 H=12 F=2048": 7.5089, "L=365 D=72 H=12 F=2048": 34.2,
            "L=187 D=128 H=8 F=2048": 26.4, "L=187 D=128 H=8 F=512": 11.4},
+    # B2 and B3 before their redesign on the tensor cores (PERF.md, section
+    # 6; the same card and power limit).
+    "B2": {"float32 B=64 H=12 L=100 dh=6": 0.1287, "bfloat16 B=64 H=12 L=100 dh=6": 0.1294},
+    "B3": {"L=100 D=72 H=12 F=2048": 0.9166},
 }
-# The kernels of the redesigned B1 and B4 that run tile products: each must
-# show tensor-core instructions (HMMA) in its SASS.
-PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel")
+# The kernels that run tile products (B1, B2, B3, B4): each must show
+# tensor-core instructions (HMMA) in its SASS.
+PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
+                   "attention_fwd_mma_kernel")
+# ... and these must be among them: B2's kernel, and the tail that B3 runs.
+REQUIRED_PRODUCT_KERNELS = {"flash_attention": "attention_fwd_mma_kernel",
+                            "fused_encoder_train": "layer_tail_kernel"}
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
 SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
@@ -244,6 +261,22 @@ ATTN_SHAPES = ((TRAIN_BATCH, MAX_LEN), (8, 365))
 # Attention outputs against the plain version: fp32 sums of 100-365 terms in
 # other orders, |o| < 4: 1e-4 as for B1. Gradients: GRAD_TOL, as for B4.
 ATTN_TOL = 1e-4
+# B2 beyond the flagship's heads, (B, H, L, dh) at B=8: the dataset lengths
+# (MIMIC 24, ECG 187, USDroughts 365) at the shipped head widths (6 in
+# default.yaml, 12 in heads6.yaml, 16 in fast.yaml) and the widest head the
+# kernel takes (64); each in fp32 and bf16 (dh < 16: the fast form).
+B2_SHAPES = ((8, 12, 24, 6), (8, 6, 24, 12), (8, 12, 187, 6), (8, 8, 187, 16),
+             (8, 12, 365, 6), (8, 6, 365, 12), (8, 2, 100, 64), (1, 4, 3616, 6),
+             (1, 4, 438, 64))
+# B2 in bf16 against its plain version: both round P and O at the same
+# points, and a rounding that flips between their fp32 sum orders moves an
+# output by about one bf16 ulp of |o| (the largest this script read on an
+# NVIDIA H100 80GB HBM3 before this tolerance: 2**-9 = 1.95e-3, at B=8 H=12
+# L=187 dh=6; 4.9e-4 to 9.8e-4 at the other B2_SHAPES). Attention outputs on random heads are far below
+# LayerNorm's |y| < 8, where TOL's 2**-4 could hide a lost key block, so
+# the tolerance is B2_BF16_ULPS ulps of the plain version's largest |o|;
+# fp32 keeps TOL.
+B2_BF16_ULPS = 4
 UNFUSED_EPOCHS = 1
 
 # The int8 layers B7 (level 1) and B8 (level 2).
@@ -371,10 +404,22 @@ def layer_vs_plain(layer, n_head: int, dtype: torch.dtype, batch: int, l: int,
     }
 
 
-def device_us_by_kernel(fn, calls: int = 10) -> dict[str, float]:
+def kernel_name(demangled: str) -> str:
+    """A demangled kernel name without ``void``, anonymous namespaces and its
+    parameter list (template arguments such as ``(fdiff::TailMode)1`` kept)."""
+    name = demangled.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
+
+
+def device_us_by_kernel(fn, calls: int = 10) -> tuple[dict[str, float], float]:
     """Device microseconds per call of ``fn`` by CUDA kernel (summed over a
-    kernel's launches in one call), from ``torch.profiler`` over ``calls``
-    calls after a warm-up."""
+    kernel's launches in one call), and the kernel launches per call, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -384,21 +429,24 @@ def device_us_by_kernel(fn, calls: int = 10) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, launches = {}, 0
     for event in prof.key_averages():
         device_us = getattr(event, "device_time_total", 0.0)
         if device_us > 0:
-            name = re.sub(r"^void |\(.*", "", event.key).replace("(anonymous namespace)::", "")
+            name = kernel_name(event.key)
             out[name] = out.get(name, 0.0) + device_us / calls
+            launches += event.count
     if not out:
         raise AssertionError("torch.profiler recorded no device time")
-    return out
+    return out, launches / calls
 
 
 def kernel_breakdown(layer, n_head: int) -> dict:
-    """Device time per CUDA kernel of one B1 call (fp32 and bf16) at the
-    sampling batch and of one B4 call at the training batch, L=100."""
-    d = layer.norm1.weight.shape[0]
+    """Device time per CUDA kernel and kernel launches of one B1 call (fp32
+    and bf16) at the sampling batch and of one B3 and one B4 call at the
+    training batch, L=100, from ``torch.profiler``; B3's and B4's launches
+    must be those their plans count."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         packed = fe.pack_encoder_layer(layer, n_head, dtype)
@@ -409,14 +457,22 @@ def kernel_breakdown(layer, n_head: int) -> dict:
     lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head).items()}
     x = torch.randn((TRAIN_BATCH, MAX_LEN, d), device="cuda")
     dy = torch.randn_like(x)
+    out["B3"] = device_us_by_kernel(lambda: fet._launch_fwd(x, lay, 5, n_head, DROPOUT))
     out["B4"] = device_us_by_kernel(
         lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5)
-    for name, kernels in out.items():
-        batch = TRAIN_BATCH if name == "B4" else SAMPLE_CHAINS
+    plans = {"B3": fet.train_fwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"],
+             "B4": fet.train_bwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"]}
+    for name, (kernels, launches) in out.items():
+        batch = TRAIN_BATCH if name in ("B3", "B4") else SAMPLE_CHAINS
         print(f"  {name} B={batch} L={MAX_LEN}: device us per call by kernel (torch.profiler): "
               f"{json.dumps({k: round(v, 1) for k, v in kernels.items()})}; total "
-              f"{sum(kernels.values()):.1f}", flush=True)
-    return out
+              f"{sum(kernels.values()):.1f}; {launches} kernel launches per call "
+              f"(plan: {plans.get(name, '-')})", flush=True)
+        if name in plans and launches != plans[name]:
+            raise AssertionError(f"{name}: {launches} kernel launches per call, the plan "
+                                 f"counts {plans[name]}")
+    return {name: {"device_us_by_kernel": kernels, "launches_per_call": launches}
+            for name, (kernels, launches) in out.items()}
 
 
 def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
@@ -511,8 +567,9 @@ def train_layer_flops(b: int, l: int, d: int, d_ff: int) -> float:
 
 def build_all() -> dict:
     """One nvcc per source, all started together; returns the SASS counts
-    (instructions, HMMA) of the B1 and B4 kernels and fails if a product
-    kernel has no tensor-core instruction."""
+    (instructions, HMMA) of the kernels of B1, B2, B3 and B4 and fails if a
+    product kernel has no tensor-core instruction, or if B2's kernel or the
+    training tail is missing from them."""
     def one(name: str) -> tuple[str, float, bool]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
@@ -528,7 +585,7 @@ def build_all() -> dict:
         for kernel, usage in ptxas_usage(log.read_text() if log.exists() else ""):
             print(f"  ptxas {name}: {kernel}: {usage}")
         print(f"  {lib.name} ({'reused' if cached else 'built'} in {seconds:.2f} s)", flush=True)
-        if name in ("fused_encoder", "fused_encoder_train"):
+        if name in ("fused_encoder", "flash_attention", "fused_encoder_train"):
             for kernel, counts in sass_counts(lib).items():
                 if any(k in kernel for k in PRODUCT_KERNELS + ("attention",)):
                     sass[f"{name}: {kernel}"] = counts
@@ -536,8 +593,11 @@ def build_all() -> dict:
                           f"{counts['hmma']} HMMA", flush=True)
     no_hmma = [k for k, c in sass.items()
                if any(p in k for p in PRODUCT_KERNELS) and c["hmma"] == 0]
-    if no_hmma or not any(any(p in k for p in PRODUCT_KERNELS) for k in sass):
-        raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}")
+    missing = [f"{lib}: {kernel}" for lib, kernel in REQUIRED_PRODUCT_KERNELS.items()
+               if not any(k.startswith(f"{lib}: ") and kernel in k for k in sass)]
+    if no_hmma or missing:
+        raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}; "
+                             f"missing: {missing}")
     return sass
 
 
@@ -557,8 +617,7 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
     try:
         names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
                                capture_output=True, text=True, check=True).stdout.split("\n")
-        out = [(re.sub(r"^void |\(.*", "", d.replace("(anonymous namespace)::", "")) or n, u)
-               for d, (n, u) in zip(names, out)]
+        out = [(kernel_name(d) or n, u) for d, (n, u) in zip(names, out)]
     except (OSError, subprocess.CalledProcessError):
         pass
     return out
@@ -592,15 +651,16 @@ def sass_counts(library: Path) -> dict[str, dict[str, int]]:
     try:
         names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
                                text=True, check=True).stdout.split("\n")
-        counts = {re.sub(r"^void |\(.*", "", d.replace("(anonymous namespace)::", "")) or n: c
-                  for d, (n, c) in zip(names, counts.items())}
+        counts = {kernel_name(d) or n: c for d, (n, c) in zip(names, counts.items())}
     except (OSError, subprocess.CalledProcessError):
         pass
     return counts
 
 
 def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
-    """B2 on the flagship layer 0's q, k, v at the training shape."""
+    """B2 on the flagship layer 0's q, k, v at the training shape, its time
+    beside its time before its redesign (PRIOR_MS), and its device time from
+    ``torch.profiler`` (the call's time less that is the host's)."""
     layer0 = model.backbone.layers[0].self_attn
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((TRAIN_BATCH, MAX_LEN, 72), generator=g, device="cuda")
@@ -612,20 +672,72 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
         out = fa.flash_attention(q, k, v)
         ref = fa.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if not (torch.isfinite(out.float()).all() and err <= TOL[dtype]):
+        err, tol = (out.float() - ref.float()).abs().max().item(), b2_tol(dtype, ref)
+        if not (torch.isfinite(out.float()).all() and err <= tol):
             raise AssertionError(f"B2 {dtype}: kernel disagrees with plain version: {err}")
+        ulps = err / bf16_ulp(ref.float().abs().max().item())
         kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        device_us, _ = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
     size = torch.finfo(dtype).bits // 8
     bound_ms, bound_by = bound(
         4 * TRAIN_BATCH * N_HEAD * MAX_LEN * MAX_LEN * dh, 4 * q.numel() * size, dtype
     )
-    r = {"max_abs_err": err, "tol": TOL[dtype], "ms": kernel_ms, "plain_ms": plain_ms,
-         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"  B2 {dtype} B={TRAIN_BATCH}: {json.dumps(r)}", flush=True)
+    r = {"max_abs_err": err, "tol": tol, "err_bf16_ulps_of_max": ulps, "ms": kernel_ms,
+         "plain_ms": plain_ms,
+         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "device_us_by_kernel": device_us}
+    prior = PRIOR_MS["B2"][f"{str(dtype).removeprefix('torch.')} B={TRAIN_BATCH} H={N_HEAD} "
+                           f"L={MAX_LEN} dh={dh}"]
+    print(f"  B2 {dtype} B={TRAIN_BATCH}: {json.dumps(r)}; before the redesign {prior} ms, "
+          f"1 launch per call", flush=True)
     return r
+
+
+def b2_tol(dtype: torch.dtype, ref: torch.Tensor) -> float:
+    """B2's tolerance against its plain version output ``ref``."""
+    if dtype == torch.float32:
+        return TOL[dtype]
+    return B2_BF16_ULPS * bf16_ulp(ref.float().abs().max().item())
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def attention_vs_plain(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> dict:
+    """B2 on random (b, h, l, dh) heads against its plain version, with the
+    times of the kernel, its plain version and SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn((b, h, l, dh), generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    shape = f"{str(dtype).removeprefix('torch.')} B={b} H={h} L={l} dh={dh}"
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+        ref = fa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err, tol = (out.float() - ref.float()).abs().max().item(), b2_tol(dtype, ref)
+        if not (torch.isfinite(out.float()).all() and err <= tol):
+            raise AssertionError(f"B2 {shape}: kernel disagrees with plain version: {err}")
+        r = {"max_abs_err": err, "tol": tol,
+             "err_bf16_ulps_of_max": err / bf16_ulp(ref.float().abs().max().item()),
+             "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+             "device_us_by_kernel": device_us_by_kernel(lambda: fa.flash_attention(q, k, v))[0]}
+    size = torch.finfo(dtype).bits // 8
+    r["bound_ms"], r["bound_by"] = bound(4 * b * h * l * l * dh, 4 * q.numel() * size, dtype)
+    print(f"  B2 {shape}: {json.dumps(r)}", flush=True)
+    return r
+
+
+def check_attention_shapes() -> dict:
+    """Phase 9's B2: B2_SHAPES in fp32 and bf16."""
+    return {f"{str(dtype).removeprefix('torch.')} B={b} H={h} L={l} dh={dh}":
+            attention_vs_plain(b, h, l, dh, dtype)
+            for b, h, l, dh in B2_SHAPES for dtype in TOL}
 
 
 def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
@@ -674,20 +786,25 @@ def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
           flush=True)
     xd, lay = x.detach(), {k: t.detach() for k, t in packed.items()}
     stage_check = check_bwd_stages(xd, dy, lay, seed, n_head, masks, shape)
-    r = {"fwd": {"max_abs_err": err}, "bwd": {"max_abs_err": abs_err, "max_rel_err": worst,
-                                             "gate_flips": flips, "stages": stage_check}}
+    r = {"fwd": {"max_abs_err": err},
+         "bwd": {"max_abs_err": abs_err, "max_rel_err": worst, "gate_flips": flips,
+                 "stages": stage_check}}
     if not timed:
         return r
 
     first = fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT)
     second = fet._launch_bwd(xd, dy, lay, seed, n_head, DROPOUT)
+    fwd_first = fet._launch_fwd(xd, lay, seed, n_head, DROPOUT)
+    fwd_second = fet._launch_fwd(xd, lay, seed, n_head, DROPOUT)
     torch.cuda.synchronize()
-    identical = all(torch.equal(a, b) for a, b in zip([first[0], *first[1]],
-                                                      [second[0], *second[1]]))
-    print(f"  B4 {shape}: two calls on the same inputs bit-identical: {identical}", flush=True)
-    if not identical:
-        raise AssertionError(f"B4 {shape}: a repeated call gave other results")
-    del first, second
+    identical = {"B3": torch.equal(fwd_first, fwd_second),
+                 "B4": all(torch.equal(a, b) for a, b in zip([first[0], *first[1]],
+                                                             [second[0], *second[1]]))}
+    print(f"  B3/B4 {shape}: two calls on the same inputs bit-identical: {identical}",
+          flush=True)
+    if not all(identical.values()):
+        raise AssertionError(f"B3/B4 {shape}: a repeated call gave other results: {identical}")
+    del first, second, fwd_first, fwd_second
     r["bwd"]["stage_ms"] = bwd_stage_ms(xd, dy, lay, seed, n_head)
     r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(xd, lay, seed, n_head, DROPOUT), iters=20)
     r["bwd"]["ms"] = time_ms(
@@ -714,11 +831,16 @@ def check_train_layer(layer, n_head: int, batch: int, l: int, timed: bool,
     bwd_bound = bound(3 * flops, 3 * act + 2 * weights, torch.float32)
     r["fwd"].update(bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
     r["bwd"].update(bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
-    launches = fet.train_bwd_plan(batch, l, d, n_head, d_ff)["launches"]
+    key = f"L={l} D={d} H={n_head} F={d_ff}"
+    launches = {"B3": fet.train_fwd_plan(batch, l, d, n_head, d_ff)["launches"],
+                "B4": fet.train_bwd_plan(batch, l, d, n_head, d_ff)["launches"]}
+    print(f"  B3 {shape}: {r['fwd']['ms']:.4f} ms (before the redesign: "
+          f"{PRIOR_MS['B3'].get(key)} ms), 3xTF32 bound {tf32x3_bound_ms(flops):.4f} ms, in "
+          f"{launches['B3']} CUDA launches per call (its plan)", flush=True)
     print(f"  B4 {shape}: {r['bwd']['ms']:.4f} ms (before the redesign: "
-          f"{PRIOR_MS['B4'].get(f'L={l} D={d} H={n_head} F={d_ff}')} ms), 3xTF32 bound "
-          f"{tf32x3_bound_ms(3 * flops):.4f} ms, in {launches} CUDA launches per call; per stage "
-          f"{json.dumps(r['bwd']['stage_ms'])}", flush=True)
+          f"{PRIOR_MS['B4'].get(key)} ms), 3xTF32 bound "
+          f"{tf32x3_bound_ms(3 * flops):.4f} ms, in {launches['B4']} CUDA launches per call "
+          f"(its plan); per stage {json.dumps(r['bwd']['stage_ms'])}", flush=True)
     print(f"  B3/B4 {shape} times: {json.dumps(r)}", flush=True)
     return r
 
@@ -1029,8 +1151,8 @@ def run_training(dm: SyntheticDatamodule) -> dict:
 
 
 def check_coverage(phase3: dict) -> dict:
-    """B1 (fp32, bf16), B3 and B4 where their shared-memory plan does not
-    fit (COVERAGE), at B=8, random weights; B1's times beside phase 3's."""
+    """B1 (fp32, bf16), B3 and B4 at the long and wide shapes (COVERAGE),
+    at B=8, random weights; B1's times beside phase 3's."""
     out = {}
     for l, d, n_head, d_ff in COVERAGE:
         torch.manual_seed(0)
@@ -1043,11 +1165,11 @@ def check_coverage(phase3: dict) -> dict:
             **check_train_layer(layer, n_head, COVERAGE_BATCH, l, timed=True),
         }
         plan = fet.train_bwd_plan(COVERAGE_BATCH, l, d, n_head, d_ff)
+        fwd_plan = fet.train_fwd_plan(COVERAGE_BATCH, l, d, n_head, d_ff)
         sizes = {"B1 tail smem bytes (fp32, bf16)": [
                      fe.tail_plan(d, t)["bytes"] for t in TOL],
-                 "B3 smem bytes": fet._library().fdiff_train_fwd_smem_bytes(l, d),
-                 "B3 K|V workspace floats per chain":
-                     fet._library().fdiff_train_fwd_kv_floats(l, d),
+                 "B3 tail smem bytes": fwd_plan["tail"]["bytes"],
+                 "B3 workspace floats": fwd_plan["workspace_floats"],
                  "B4 tail smem bytes": plan["tail"]["bytes"],
                  "B4 workspace floats": plan["workspace_floats"]}
         out[key]["sizes"] = sizes
@@ -1074,7 +1196,8 @@ def sdpa_backend(q, k, v, dropout_p: float) -> str:
 def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
     """B5, B6-fwd and B6-bwd on random fp32 (b, 12, l, 6) heads against their
     plain versions (and B5 also against autograd of the plain forward), the
-    masks bit for bit; with ``timed``, their times, bounds and yardsticks."""
+    masks bit for bit; with ``timed``, their times, bounds and yardsticks,
+    and B2's time on the same heads beside SDPA's."""
     dh = 72 // N_HEAD
     g = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, do = (torch.randn((b, N_HEAD, l, dh), generator=g, device="cuda")
@@ -1120,6 +1243,12 @@ def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
     numel = q.numel()
     fwd_flops, bwd_flops = 4 * b * N_HEAD * l * l * dh, 12 * b * N_HEAD * l * l * dh
     with torch.no_grad():
+        b2 = fa._launch_fwd(q, k, v)
+        r["B2"] = {"max_abs_err": (b2 - fa.flash_attention_reference(q, k, v)).abs().max().item(),
+                   "ms": time_ms(lambda: fa._launch_fwd(q, k, v)),
+                   "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v))}
+        if not r["B2"]["max_abs_err"] <= ATTN_TOL:
+            raise AssertionError(f"B2 {shape}: kernel disagrees with plain version: {r['B2']}")
         r["B6-fwd"].update(
             ms=time_ms(lambda: fa._launch_fwd(q, k, v, seed, DROPOUT)),
             plain_ms=time_ms(lambda: fa.flash_attention_dropout_reference(q, k, v, seed,
@@ -1694,14 +1823,20 @@ def main() -> int:
         training = run_training(dm)
         timed = train_layer[MAX_LEN]
         kernel_ms = N_LAYERS * (timed["fwd"]["ms"] + timed["bwd"]["ms"])
-        print(f"  the kernels' share of a step, from their B={TRAIN_BATCH} times: "
-              f"{kernel_ms:.3f} ms of {training['step_ms']:.3f} ms "
-              f"({100 * kernel_ms / training['step_ms']:.1f} %)", flush=True)
+        val_b2_s = training["launches"]["B2"] / TRAIN_EPOCHS * attention[torch.float32]["ms"] / 1e3
+        print(f"  fused training: {training['steps_per_s']:.3f} steps/s; the kernels' share of a "
+              f"step, from their B={TRAIN_BATCH} times: B3 {N_LAYERS * timed['fwd']['ms']:.3f} "
+              f"+ B4 {N_LAYERS * timed['bwd']['ms']:.3f} = {kernel_ms:.3f} ms of "
+              f"{training['step_ms']:.3f} ms ({100 * kernel_ms / training['step_ms']:.1f} %); "
+              f"validation {training['val_pass_s']:.3f} s per pass, B2's "
+              f"{training['launches']['B2'] // TRAIN_EPOCHS} launches {val_b2_s:.3f} s of it",
+              flush=True)
         training.update(step_rates(dm))
         phase("8 training main path", t0)
 
         t0 = time.perf_counter()
         coverage = check_coverage(checks)
+        attn_shapes = check_attention_shapes()
         phase("9 long sequences and wide layers", t0)
 
         t0 = time.perf_counter()
@@ -1755,7 +1890,7 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder: ")},
-            "device_us_by_kernel": breakdown[f"B1 {name}"],
+            "device_us_by_kernel": breakdown[f"B1 {name}"]["device_us_by_kernel"],
             "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048",
             "samples_per_s": main[dtype]["samples_per_s"],
             "by_batch": {str(b): c for b, c in by_batch.items()},
@@ -1767,11 +1902,17 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": training["launches"]["B2"],
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "max_abs_err": max([f32["max_abs_err"]] + [c["max_abs_err"] for k, c in
+                                                   attn_shapes.items() if k.startswith("float32")]),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "shape": f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD} float32",
         "bfloat16": {**attention[torch.bfloat16], "replaces": FLASH_FAST_REPLACES},
+        "sass": {k: v for k, v in sass.items() if k.startswith("flash_attention: ")},
+        "checked_shapes": {**attn_shapes,
+                           **{f"float32 {k} H={N_HEAD} dh={72 // N_HEAD}": a["B2"]
+                              for k, a in attn_kernels.items()}},
     })
     for key, name, replaces, count in (
         ("fwd", "fused_encoder_layer_train_fwd", TRAIN_FWD_REPLACES, "B3"),
@@ -1786,10 +1927,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"stage_ms": r["stage_ms"],
-                "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
-                "device_us_by_kernel": breakdown["B4"]}
-               if key == "bwd" else {}),
+            "launches_per_call": breakdown[count]["launches_per_call"],
+            "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
+            "device_us_by_kernel": breakdown[count]["device_us_by_kernel"],
+            **({"stage_ms": r["stage_ms"]} if key == "bwd" else {}),
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 fp32 dropout {DROPOUT}",
             "steps_per_s": training["steps_per_s"],
             "checked_lengths": checked,

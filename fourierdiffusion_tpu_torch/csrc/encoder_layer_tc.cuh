@@ -18,16 +18,19 @@
 //   instead as five launches through device memory (launch_layer_tail_wide).
 //
 // Used by the sampling layer B1 (fused_encoder.cu: T = float or bf16, no
-// dropout) and by the training backward B4 (fused_encoder_train.cu: T =
-// float, dropout, kTrain: the tail also writes x1, the normalised LN
-// inputs and their inverse deviations, and takes LN2's backward).
+// dropout), by the training forward B3 and by the training backward B4's
+// recompute of that forward (fused_encoder_train.cu: T = float, dropout).
+// The tail's TailMode says which: kTailSample (B1), kTailTrainFwd (B3:
+// dropout at the out, FF and FF2 sites, LN2's output) or kTailTrainBwd
+// (B4: dropout, and in place of LN2's output the normalised LN inputs, their
+// inverse deviations and LN2's backward).
 //
-// Numerics are those of encoder_layer.cuh (B1's first body): products take
-// operands in T and accumulate in fp32 (bf16 on the tensor cores, fp32 as
-// 3xTF32); results are rounded to T after qkv, P, O, LN1, the ReLU and LN2;
-// LayerNorm statistics in fp32 with eps 1e-5; fp32 takes the exact
-// max-subtracted softmax, bf16 the max-free one with scores clamped to
-// +-60. Dropout masks come from the same hash at the same positions.
+// Numerics are the TPU kernels': products take operands in T and
+// accumulate in fp32 (bf16 on the tensor cores, fp32 as 3xTF32); results
+// are rounded to T after qkv, P, O, LN1, the ReLU and LN2; LayerNorm
+// statistics in fp32 with eps 1e-5; fp32 takes the exact max-subtracted
+// softmax, bf16 the max-free one with scores clamped to +-60. Dropout masks
+// come from encoder_layer.cuh's hash at the TPU kernels' positions.
 //
 // What bounds it, and the design: at the flagship's shape (D 72, F 2048,
 // L 100) the layer is 90 % FFN products and is bound by operations; the
@@ -60,6 +63,10 @@ constexpr int kTailMaxFC = 128;   // d_ff chunk, at most
 constexpr int kTailMaxD = 256;    // columns of the register tiles (16-row tiles; 32: 128)
 constexpr int kAttnThreads = 128;
 
+// What the tail does besides the layer's arithmetic, fixed at compile time.
+enum TailMode { kTailSample, kTailTrainFwd, kTailTrainBwd };
+__host__ __device__ constexpr bool tail_drops(TailMode m) { return m != kTailSample; }
+
 // The tail's plan, as ops/fused_encoder.py's TailPlan passes it: with
 // wide, the tail runs as launch_layer_tail_wide (the other fields unused);
 // else layer_tail_kernel's tiles and shared-memory plan. Element strides of
@@ -80,7 +87,7 @@ struct TailPlan {
   int off_a, off_h, off_ring, off_pre, bytes;
 };
 
-// What the training tail writes besides x1 (all fp32, N x D unless
+// What the tail writes in kTailTrainBwd besides x1 (all fp32, N x D unless
 // noted): xhat1 / inv1 (N), xhat2 / inv2 (N), g2 = LN2's input gradient,
 // df2 = g2 * keep_ff2; dy is read.
 struct TailTrain {
@@ -262,10 +269,10 @@ __device__ __forceinline__ void ln1_row(const float* row, int gr, int D,
   if (tr != nullptr && lane == 0) tr->inv1[gr] = st.y;
 }
 
-// LN2 of row gr (fp32, held by one warp) into out; with kTrain, instead,
+// LN2 of row gr (fp32, held by one warp) into out; with kBwd, instead,
 // LN2's backward from tr.dy: g2 = inv (dy s - mean(dy s) - xhat mean(dy s
 // xhat)), df2 = g2 * keep_ff2, with xhat2 and inv2.
-template <typename T, bool kTrain>
+template <typename T, bool kBwd>
 __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
                                         const float* __restrict__ ln2_s,
                                         const float* __restrict__ ln2_b, T* __restrict__ out,
@@ -273,7 +280,7 @@ __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
   const int lane = threadIdx.x & 31;
   const float2 st = ln_stats(row, D, lane);
   const size_t g = (size_t)gr * D;
-  if constexpr (!kTrain) {
+  if constexpr (!kBwd) {
     for (int c = lane; c < D; c += 32)
       out[g + c] = from_f<T>((row[c] - st.x) * st.y * ln2_s[c] + ln2_b[c]);
   } else {
@@ -301,12 +308,12 @@ __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
 // a segment at a time. For a segment of row tile t (rows [t tm, t tm + tm)
 // of the N = B*L rows) and chunks [c_lo, c_hi): the out projection of O
 // (N x D, T, from attention_fwd_kernel), dropout, residual and LN1 (x1 to
-// ws.x1, and with kTrain xhat1 and inv1, by the segment that holds chunk
-// 0), then the FFN over its chunks, and its f2 partial to ws.part.
+// ws.x1, and in kTailTrainBwd xhat1 and inv1, by the segment that holds
+// chunk 0), then the FFN over its chunks, and its f2 partial to ws.part.
 // kMT = tm / 16 m-tiles per warp. Warps: the out projection and W1 split
 // the output columns eight ways; W2 splits them four ways and its k-range
 // (the chunk) in two halves, added at the end of the segment.
-template <typename T, bool kTrain, int kMT>
+template <typename T, TailMode kMode, int kMT>
 __global__ void __launch_bounds__(kTailThreads, 2)
 layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
                   const T* __restrict__ w_out, const float* __restrict__ b_out,
@@ -316,6 +323,7 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
                   TailPlan p, TailTrain tr, float* __restrict__ x1g,
                   float* __restrict__ part) {
   constexpr int kWarps = kTailThreads / 32;
+  constexpr bool kDrop = tail_drops(kMode);
   constexpr int NTO = kMT == 1 ? 4 : 2;  // out projection: D <= 256 (kMT 1), 128 (kMT 2)
   constexpr int NT2 = kMT == 1 ? 8 : 4;  // W2
   extern __shared__ __align__(16) unsigned char tail_smem[];
@@ -395,14 +403,14 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
             if (r < rows && n < D) {
               int b, l;
               chain_pos(r, b, l);
-              const float keep = keep2<kTrain>(dp, mask_key(dp, b, kSiteOut, 0), n, l);
+              const float keep = keep2<kDrop>(dp, mask_key(dp, b, kSiteOut, 0), n, l);
               sPre[r * D + n] = to_f(x[(size_t)(row0 + r) * D + n]) + (v + b_out[n]) * keep;
             }
           });
           __syncthreads();
           // LN1: x1 rounded to T, into sA (the FFN's A operand) and, once
           // per row, to device memory
-          const TailTrain* trp = kTrain && c_lo == 0 ? &tr : nullptr;
+          const TailTrain* trp = kMode == kTailTrainBwd && c_lo == 0 ? &tr : nullptr;
           for (int r = warp; r < rows; r += kWarps)
             ln1_row<T>(sPre + r * D, row0 + r, D, ln1_s, ln1_b, trp, [&](int c, float x1) {
               sA[r * p.sa + c] = from_f<T>(x1);
@@ -424,7 +432,7 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
                 int b, l;
                 chain_pos(r, b, l);
                 h = round_to<T>(fmaxf(val + b1[f], 0.0f)) *
-                    keep2<kTrain>(dp, mask_key(dp, b, kSiteFf, 0), f, l);
+                    keep2<kDrop>(dp, mask_key(dp, b, kSiteFf, 0), f, l);
               }
               sH[r * p.sh + n] = from_f<T>(h);
             });
@@ -453,9 +461,9 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
 }
 
 // f2 of each row = its tile's partials in CTA order (G CTAs in the tail),
-// + b2; dropout; residual x1 (N x D, fp32); LN2 into out, or with kTrain
-// its backward into tr. A warp per row.
-template <typename T, bool kTrain>
+// + b2; dropout; residual x1 (N x D, fp32); LN2 into out, or in
+// kTailTrainBwd its backward into tr. A warp per row.
+template <typename T, TailMode kMode>
 __global__ void __launch_bounds__(256)
 tail_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
                    const float* __restrict__ b2, const float* __restrict__ ln2_s,
@@ -475,10 +483,10 @@ tail_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
   for (int c = lane; c < D; c += 32) {
     float f2 = part[((size_t)(tile + k0) * p.tm + r) * D + c];
     for (int k = k0 + 1; k <= k1; ++k) f2 += part[((size_t)(tile + k) * p.tm + r) * D + c];
-    row[c] = x1[(size_t)gr * D + c] + (f2 + b2[c]) * keep2<kTrain>(dp, key, c, l);
+    row[c] = x1[(size_t)gr * D + c] + (f2 + b2[c]) * keep2<tail_drops(kMode)>(dp, key, c, l);
   }
   __syncwarp();
-  ln2_row<T, kTrain>(row, gr, L, D, ln2_s, ln2_b, out, dp, tr);
+  ln2_row<T, kMode == kTailTrainBwd>(row, gr, L, D, ln2_s, ln2_b, out, dp, tr);
 }
 
 // ---- the tail of wide layers ------------------------------------------------------------
@@ -513,49 +521,50 @@ struct HiddenRoundEpi {
 
 constexpr int kRowThreads = 256;  // a warp per row
 
-template <typename T, bool kTrain>
+template <typename T, bool kBwd>
 __global__ void __launch_bounds__(kRowThreads)
 tail_ln1_kernel(const float* __restrict__ pre, T* __restrict__ x1,
                 const float* __restrict__ ln1_s, const float* __restrict__ ln1_b, int N, int D,
                 TailTrain tr) {
   const int r = blockIdx.x * (kRowThreads / 32) + threadIdx.x / 32;
   if (r >= N) return;
-  ln1_row<T>(pre + (size_t)r * D, r, D, ln1_s, ln1_b, kTrain ? &tr : nullptr,
+  ln1_row<T>(pre + (size_t)r * D, r, D, ln1_s, ln1_b, kBwd ? &tr : nullptr,
              [&](int c, float v) { x1[(size_t)r * D + c] = from_f<T>(v); });
 }
 
-template <typename T, bool kTrain>
+template <typename T, bool kBwd>
 __global__ void __launch_bounds__(kRowThreads)
 tail_ln2_kernel(const float* __restrict__ pre, T* __restrict__ out,
                 const float* __restrict__ ln2_s, const float* __restrict__ ln2_b, int N, int L,
                 int D, Dropout dp, TailTrain tr) {
   const int r = blockIdx.x * (kRowThreads / 32) + threadIdx.x / 32;
   if (r >= N) return;
-  ln2_row<T, kTrain>(pre + (size_t)r * D, r, L, D, ln2_s, ln2_b, out, dp, tr);
+  ln2_row<T, kBwd>(pre + (size_t)r * D, r, L, D, ln2_s, ln2_b, out, dp, tr);
 }
 
-template <typename T, bool kTrain>
+template <typename T, TailMode kMode>
 cudaError_t launch_layer_tail_wide(const T* x, const T* o, const Weights<T>& w, T* out, int N,
                                    int L, int D, int F, const Dropout& dp,
                                    const TailWs<T>& ws, const TailTrain& tr,
                                    cudaStream_t s) {
+  constexpr bool kDrop = tail_drops(kMode), kBwd = kMode == kTailTrainBwd;
   if (ws.pre == nullptr || ws.x1t == nullptr || ws.h == nullptr) return cudaErrorInvalidValue;
   const int row_blocks = (N + kRowThreads / 32 - 1) / (kRowThreads / 32);
   cudaError_t err = tc::gemm<T, true, false>(
       o, D, w.w_out, D, N, D, D, tc::round_up(D, tc::kGemmBK), 1,
-      ResidualEpi<T, kTrain>{ws.pre, x, w.b_out, D, L, kSiteOut, dp}, s);
+      ResidualEpi<T, kDrop>{ws.pre, x, w.b_out, D, L, kSiteOut, dp}, s);
   if (err != cudaSuccess) return err;
-  tail_ln1_kernel<T, kTrain><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, ws.x1t, w.ln1_s,
+  tail_ln1_kernel<T, kBwd><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, ws.x1t, w.ln1_s,
                                                                 w.ln1_b, N, D, tr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = tc::gemm<T, true, false>(ws.x1t, D, w.w1, F, N, F, D, tc::round_up(D, tc::kGemmBK), 1,
-                                 HiddenRoundEpi<T, kTrain>{ws.h, w.b1, F, L, dp}, s);
+                                 HiddenRoundEpi<T, kDrop>{ws.h, w.b1, F, L, dp}, s);
   if (err != cudaSuccess) return err;
   err = tc::gemm<T, true, false>(ws.h, F, w.w2, D, N, D, F, tc::round_up(F, tc::kGemmBK), 1,
-                                 ResidualEpi<T, kTrain>{ws.pre, ws.x1t, w.b2, D, L, kSiteFf2, dp},
+                                 ResidualEpi<T, kDrop>{ws.pre, ws.x1t, w.b2, D, L, kSiteFf2, dp},
                                  s);
   if (err != cudaSuccess) return err;
-  tail_ln2_kernel<T, kTrain><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, out, w.ln2_s, w.ln2_b,
+  tail_ln2_kernel<T, kBwd><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, out, w.ln2_s, w.ln2_b,
                                                                 N, L, D, dp, tr);
   return cudaGetLastError();
 }
@@ -563,25 +572,25 @@ cudaError_t launch_layer_tail_wide(const T* x, const T* o, const Weights<T>& w, 
 // Launches the tail over N rows with plan p: on the fused route, ctas CTAs
 // (TailSchedule's G, at most its units) and the finish; on the wide route,
 // launch_layer_tail_wide. Returns cudaGetLastError().
-template <typename T, bool kTrain>
+template <typename T, TailMode kMode>
 cudaError_t launch_layer_tail(const T* x, const T* o, const Weights<T>& w, T* out, int N,
                               int L, int D, int F, const Dropout& dp, const TailPlan& p,
                               int ctas, const TailTrain& tr, const TailWs<T>& ws,
                               cudaStream_t s) {
-  if (p.wide) return launch_layer_tail_wide<T, kTrain>(x, o, w, out, N, L, D, F, dp, ws, tr, s);
+  if (p.wide) return launch_layer_tail_wide<T, kMode>(x, o, w, out, N, L, D, F, dp, ws, tr, s);
   if (p.bytes > kMaxSmem || (p.tm != 16 && p.tm != 32) ||
       D > (p.tm == 16 ? kTailMaxD : kTailMaxD / 2) || p.kt > kTailMaxKT || p.fc > kTailMaxFC ||
       p.fc % 64 || p.kt % tc::KStep<T>::value || (p.slots != 2 && p.slots != 3) || ctas < 1 ||
       ctas > TailSchedule(N, F, p).units || ws.x1 == nullptr || ws.part == nullptr)
     return cudaErrorInvalidValue;
-  auto kernel = p.tm == 16 ? layer_tail_kernel<T, kTrain, 1> : layer_tail_kernel<T, kTrain, 2>;
+  auto kernel = p.tm == 16 ? layer_tail_kernel<T, kMode, 1> : layer_tail_kernel<T, kMode, 2>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
   if (err != cudaSuccess) return err;
   kernel<<<ctas, kTailThreads, p.bytes, s>>>(x, o, w.w_out, w.b_out, w.ln1_s, w.ln1_b, w.w1,
                                              w.b1, w.w2, N, L, D, F, dp, p, tr, ws.x1, ws.part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  tail_finish_kernel<T, kTrain><<<(N + 7) / 8, 256, 0, s>>>(
+  tail_finish_kernel<T, kMode><<<(N + 7) / 8, 256, 0, s>>>(
       ws.part, ws.x1, w.b2, w.ln2_s, w.ln2_b, out, N, L, D, F, ctas, dp, p, tr);
   return cudaGetLastError();
 }
@@ -600,7 +609,7 @@ int launch_encoder_layer_tc(const T* x, const Weights<T>& w, T* out, T* qkv_ws, 
   if (err != cudaSuccess) return (int)err;
   err = launch_attention_fwd<T, false>(qkv_ws, o_ws, B, L, D, H, none, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_layer_tail<T, false>(x, o_ws, w, out, N, L, D, F, none, p, tail_ctas,
+  return (int)launch_layer_tail<T, kTailSample>(x, o_ws, w, out, N, L, D, F, none, p, tail_ctas,
                                           TailTrain{}, tail_ws, s);
 }
 

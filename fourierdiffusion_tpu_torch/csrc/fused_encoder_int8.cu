@@ -3,8 +3,8 @@
 //
 // Replaces two TPU kernels of fourierdiffusion_tpu/ops/fused_encoder.py:
 //   _encoder_layer_kernel_int8 (B7, FDIFF_FUSED_INT8=1):
-//     encoder_layer_int8_kernel<T, false, *>: attention and LN1 as in the
-//     sampling layer (encoder_layer.cuh, B1), but x1 stays fp32; then the
+//     encoder_layer_int8_kernel<T, false, *>: attention and LN1 with the
+//     sampling layer's (B1's) rounding points, but x1 stays fp32; then the
 //     W8A8 FFN (_ffn_int8).
 //   _encoder_layer_kernel_int8_attn (B8, FDIFF_FUSED_INT8=2):
 //     encoder_layer_int8_kernel<T, true, *>: the QKV, PV and out-projection
@@ -48,12 +48,13 @@
 // weights (0.33 MB of codes and scales) are shared by all chains, so the
 // layer is bound by operations. This first version runs the int8 products
 // on the CUDA cores' __dp4a (no int8 tensor-core mma or wgmma yet) and the
-// rest as B1 does, with B1's plan: one CTA per (32-row tile, chain) keeps
+// rest on the CUDA cores (encoder_layer.cuh's matmul): one CTA per (32-row
+// tile, chain) keeps
 // its rows, the chain's K|V (and for B8 V's codes) and one FFN chunk (h in
 // fp32, then its codes: 80 KB) in shared memory. Where that plan does not fit
 // (at D=72 from L=192 for B7 and L=161 for B8; at D=128 from L=79 and 67), a
 // first launch writes each chain's K|V (B8: K rounded, V in fp32) to a
-// (B, L, 2D) device workspace, as B1 does, and every CTA reads the whole
+// (B, L, 2D) device workspace (kv_proj_kernel for B7), and every CTA reads the whole
 // chain's V from there for its scales. No two CTAs write one element.
 
 #include "encoder_layer.cuh"

@@ -2,15 +2,19 @@
 // backward (B4), fp32, for the training path on Hopper (sm_90a).
 //
 // Replaces the TPU kernels of fourierdiffusion_tpu/ops/fused_encoder_train.py:
-//   _train_fwd_kernel (B3): encoder_layer_kernel<float, true> of
-//     encoder_layer.cuh, with the dropout masks at its four sites
-//     (attention probabilities, attention output, FFN hidden layer, FFN
-//     output). Its numerics, mask hash, layout and bound are described there.
-//   _train_bwd_kernel (B4): recomputes that forward from x alone, regenerates
-//     the four dropout masks with the same hash, and computes dx and the
-//     gradients of the 12 packed weights. The TPU kernel sums the weight
-//     gradients over its sequential grid (ref += contrib); here each sum
-//     over rows is split into row slices whose partials one last launch
+//   _train_fwd_kernel (B3): the layer with the dropout masks at its four
+//     sites (attention probabilities, attention output, FFN hidden layer,
+//     FFN output), in the four launches of encoder_layer_tc.cuh (seven where
+//     D is wider than 256): the QKV tile product, attention_fwd_kernel with
+//     the attention-site dropout, and the tail in kTailTrainFwd with its
+//     finish, which writes LN2's output (train_forward).
+//   _train_bwd_kernel (B4): recomputes that forward from x alone with the
+//     same launches on the same plan (train_forward in kTailTrainBwd), so the
+//     gradient belongs to the forward whose loss was taken, sum for sum;
+//     regenerates the four dropout masks with the same hash, and computes dx
+//     and the gradients of the 12 packed weights. The TPU kernel sums the
+//     weight gradients over its sequential grid (ref += contrib); here each
+//     sum over rows is split into row slices whose partials one last launch
 //     adds in slice order.
 //
 // Numerics: fp32 throughout (products as 3xTF32 on the tensor cores,
@@ -22,12 +26,14 @@
 // gradients in the same layout.
 //
 // Bound: at the flagship's training shape (B 64, L 100, D 72, F 2048, H 12)
-// the backward does about 12.7 GFLOP (the recompute, then two products per
+// the forward does about 4.2 GFLOP against 1.3 MB of weights and 2 x 1.8 MB
+// of activations, the backward about 12.7 GFLOP (the recompute, then two products per
 // forward product); weights are 1.3 MB and x 1.8 MB, so it is bound by
-// operations. The first B4 ran one CTA per chain (64 CTAs on 132 SMs), each
+// operations, both. The first B3 and B4 ran one CTA per chain (64 CTAs on 132 SMs), each
 // product a loop of 4 x 4 fp32 outputs per thread over operands read from
-// L2. This one spreads the work over all B*L rows in 17 launches (20 where
-// the tail runs wide, encoder_layer_tc.cuh), in order:
+// L2 (B3: per 32 query rows of a chain, K and V recomputed by each). Both
+// now spread the work over all B*L rows on the tensor cores: B3 in the 4
+// launches above, B4 in 17 (20 where the tail runs wide), in order:
 //   forward   qkv (tile product), attention_fwd_kernel, layer_tail_kernel<kTrain>
 //             and tail_finish_kernel<kTrain> (encoder_layer_tc.cuh): x1, the
 //             LN statistics, LN2's backward g2 and dF2 = g2 * keep_ff2;
@@ -44,9 +50,10 @@
 //   reduce    column sums (bias and LayerNorm gradients) per row slice, then
 //             every partial added in slice order.
 // Every sum has one fixed order, so two calls on the same inputs give
-// bit-identical results. The plan (row slices, workspace offsets) comes
-// from the wrapper (ops/fused_encoder_train.py: train_bwd_plan), which also
-// holds a plain PyTorch version that follows these stages.
+// bit-identical results. The plans (the tail's plan and CTAs, row slices,
+// workspace offsets) come from the wrapper (ops/fused_encoder_train.py:
+// train_fwd_plan, and train_bwd_plan, whose forward stage is the same plan),
+// which also holds a plain PyTorch version that follows B4's stages.
 
 #include "encoder_layer_tc.cuh"
 
@@ -95,6 +102,16 @@ struct BwdPlan {
 };
 
 constexpr int kBwdStages = 7;  // events: before, then after each stage
+
+// The forward's plan, as ops/fused_encoder_train.py's FwdPlan passes it:
+// the tail's plan and CTAs, and workspace offsets in floats: qkv (N x 3D),
+// attn (N x D), x1 (N x D; the wide route's x1 in T), the wide route's pre
+// (N x D) and h (N x F), the fused route's f2 partials.
+struct FwdPlan {
+  TailPlan tail;
+  long long tail_ctas;
+  long long qkv, attn, x1, pre, h, tail_part;
+};
 
 __device__ __forceinline__ void chain_of(int m, int L, int& b, int& l) {
   b = m / L;
@@ -421,6 +438,27 @@ __global__ void dropout_masks_kernel(float* attn, float* out_m, float* ff, float
   }
 }
 
+// The training forward over the N = B*L rows (encoder_layer_tc.cuh): the
+// QKV tile product rounded as the sampling layer rounds it, attention with
+// the attention-site dropout, and the tail in kMode: kTailTrainFwd (B3)
+// writes LN2's output to out, kTailTrainBwd (B4's recompute) the residuals
+// and LN2's backward to tr. Returns cudaGetLastError() after the last launch.
+template <TailMode kMode>
+cudaError_t train_forward(const float* x, const Weights<float>& W, float* out, float* qkv,
+                          float* attn, const TailWs<float>& tail_ws, const TailTrain& tr,
+                          const TailPlan& tail, int tail_ctas, int B, int L, int D, int H,
+                          int F, const Dropout& dp, cudaStream_t s) {
+  const int N = B * L, D3 = 3 * D;
+  cudaError_t err = tc::gemm<float, true, false>(x, D, W.w_qkv, D3, N, D3, D,
+                                                 tc::round_up(D, tc::kGemmBK), 1,
+                                                 StoreBiasRounded<float>{qkv, W.b_qkv, D3}, s);
+  if (err != cudaSuccess) return err;
+  err = launch_attention_fwd<float, true>(qkv, attn, B, L, D, H, dp, s);
+  if (err != cudaSuccess) return err;
+  return launch_layer_tail<float, kMode>(x, attn, W, out, N, L, D, F, dp, tail, tail_ctas, tr,
+                                         tail_ws, s);
+}
+
 #define FDIFF_TRY(expr)                              \
   do {                                               \
     const cudaError_t e_ = (expr);                   \
@@ -445,14 +483,11 @@ int train_bwd(const float* x, const float* dy, const Weights<float>& W, float* d
 
   FDIFF_TRY(mark());
   // forward recompute, LN2 backward
-  FDIFF_TRY((tc::gemm<float, true, false>(x, D, W.w_qkv, D3, N, D3, D, full, 1,
-                                          StoreBiasRounded<float>{at(p.qkv), W.b_qkv, D3}, s)));
-  FDIFF_TRY((launch_attention_fwd<float, true>(at(p.qkv), at(p.attn), B, L, D, H, dp, s)));
   const TailTrain tr{at(p.xhat1), at(p.inv1), at(p.xhat2), at(p.inv2), at(p.g2), at(p.df2), dy};
   // (the wide tail's pre and h in dx1 and h, free until later stages)
   const TailWs<float> tail_ws{at(p.x1), at(p.tail_part), at(p.dx1), at(p.x1), at(p.h)};
-  FDIFF_TRY((launch_layer_tail<float, true>(x, at(p.attn), W, nullptr, N, L, D, F, dp, p.tail,
-                                            (int)p.tail_ctas, tr, tail_ws, s)));
+  FDIFF_TRY(train_forward<kTailTrainBwd>(x, W, nullptr, at(p.qkv), at(p.attn), tail_ws, tr,
+                                         p.tail, (int)p.tail_ctas, B, L, D, H, F, dp, s));
   FDIFF_TRY(mark());
   // the hidden layer and its gradient, in one pass of two products
   FDIFF_TRY((tc::gemm_pair<float, true, false, true>(
@@ -523,27 +558,27 @@ int train_bwd(const float* x, const float* dy, const Weights<float>& W, float* d
 
 extern "C" {
 
-int fdiff_train_fwd_smem_bytes(int L, int D) { return encoder_layer_smem_bytes(L, D); }
-
-// Floats per chain of the forward's K|V workspace (0: none; encoder_layer.cuh).
-int fdiff_train_fwd_kv_floats(int L, int D) { return encoder_layer_kv_floats(L, D); }
-
 int fdiff_train_grad_floats(int D, int F) { return GradOffsets(D, F).total; }
 
 // B4's stages (events: stages + 1).
 int fdiff_train_bwd_stages() { return kBwdStages; }
 
-// weights: the 12 packed tensors in the order w_qkv, b_qkv, w_out, b_out,
-// ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b. kv_ws: B x
-// fdiff_train_fwd_kv_floats floats (null when that is 0). Returns
-// cudaGetLastError() after the launch (0 on success), or the error that
+// The forward (B3): weights, the 12 packed tensors in the order w_qkv,
+// b_qkv, w_out, b_out, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b; out (B, L,
+// D); workspace and plan from the wrapper (FwdPlan). Returns
+// cudaGetLastError() after the last launch (0 on success), or the error that
 // stopped it before.
-int fdiff_train_fwd(const void* x, const void* const* weights, void* out, void* kv_ws,
-                    int B, int L, int D, int H, int F, int group, unsigned int seed,
-                    unsigned int thr, float scale, void* stream) {
+int fdiff_train_fwd(const void* x, const void* const* weights, void* out, void* workspace,
+                    const void* plan, int B, int L, int D, int H, int F, int group,
+                    unsigned int seed, unsigned int thr, float scale, void* stream) {
   const Dropout dp{seed, thr, scale, group};
-  return launch_encoder_layer<float, true>(x, weights_of<float>(weights), out, kv_ws, B, L,
-                                           D, H, F, dp, static_cast<cudaStream_t>(stream));
+  const FwdPlan& p = *static_cast<const FwdPlan*>(plan);
+  float* ws = static_cast<float*>(workspace);
+  const TailWs<float> tail_ws{ws + p.x1, ws + p.tail_part, ws + p.pre, ws + p.x1, ws + p.h};
+  return (int)train_forward<kTailTrainFwd>(
+      static_cast<const float*>(x), weights_of<float>(weights), static_cast<float*>(out),
+      ws + p.qkv, ws + p.attn, tail_ws, TailTrain{}, p.tail, (int)p.tail_ctas, B, L, D, H, F, dp,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The backward: dx (B, L, D), grads (fdiff_train_grad_floats), workspace

@@ -1,6 +1,8 @@
-// Tensor-core tile products for Hopper (sm_90a), shared by the sampling
-// layer (B1, encoder_layer_tc.cuh) and the training backward (B4,
-// fused_encoder_train.cu).
+// Tensor-core tile products for Hopper (sm_90a), shared by the layer
+// kernels of encoder_layer_tc.cuh (the sampling layer B1, the training
+// forward B3 and B4's recompute of it), the training backward (B4,
+// fused_encoder_train.cu) and the attention forward (B2, flash_attention.cu,
+// which uses the fragment helpers and stage_tile).
 //
 // Operands are staged in shared memory and multiplied by warp-level
 // mma.sync with fp32 accumulators in registers, in two forms:
@@ -69,6 +71,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16 bytes from global to shared; bytes past src_bytes are written as zero.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes from global to shared (cp.async.cg takes only 16, so this one is
+// .ca); bytes past src_bytes are written as zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

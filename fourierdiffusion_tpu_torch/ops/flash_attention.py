@@ -5,9 +5,10 @@ with and without dropout on the attention weights (port of
 ``flash_attention(q, k, v)`` computes ``softmax(q k^T / sqrt(dh)) v`` and is
 differentiable (``FlashAttention``):
 
-* on CUDA tensors the forward launches the hand-written kernel B2 and the
-  backward the kernel B5 (``csrc/flash_attention.cu``); ``launches`` and
-  ``bwd_launches`` count them;
+* on CUDA tensors the forward launches the hand-written kernel B2 (on the
+  tensor cores, ``attention_fwd_plan``) and the backward the kernel B5
+  (``csrc/flash_attention.cu``); ``launches`` and ``bwd_launches`` count
+  them;
 * on CPU tensors it runs ``flash_attention_reference`` and, for the
   gradient, ``flash_attention_bwd_reference``, the plain PyTorch versions.
 
@@ -52,6 +53,12 @@ from fourierdiffusion_tpu_torch.ops.dropout_hash import (
 SCORE_CLAMP = 60.0
 DH_PAD = 16  # the TPU kernels' head padding; the fast form is for dh < 16
 MAX_DH = 64  # the CUDA kernels' largest head dim
+# B2's tiles (csrc/flash_attention.cu): keys in blocks of 64 streamed
+# through a ring of two, a warp per 16 query rows, at most 8 warps (128
+# rows) per CTA.
+KEY_BLOCK, WARP_ROWS, MAX_WARPS, FWD_STAGES = 64, 16, 8, 2
+TILE_ROWS = MAX_WARPS * WARP_ROWS
+SMEM_LIMIT = 232448  # bytes of shared memory a block can opt into on sm_90
 
 #: Kernel launches so far in this process; only the CUDA branches add to
 #: them (B2, B5, B6-fwd, B6-bwd). Callers reset them to 0 to count a run.
@@ -65,11 +72,18 @@ def _fast(q: torch.Tensor) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] < DH_PAD
 
 
-def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
-    """``q * scale`` as the TPU wrapper forms it in bf16: the scale is a
-    bf16 value and the product is rounded to bf16."""
-    s = torch.tensor(scale, dtype=torch.bfloat16).float().item()
-    return (q.float() * s).to(torch.bfloat16)
+@functools.cache
+def _bf16_scale(dh: int) -> float:
+    """``1/sqrt(dh)`` rounded to bf16, as the TPU wrapper's fast form
+    multiplies q by it."""
+    return torch.tensor(1.0 / math.sqrt(dh), dtype=torch.bfloat16).float().item()
+
+
+def _prescale(q: torch.Tensor) -> torch.Tensor:
+    """``q / sqrt(dh)`` as the TPU wrapper forms it in bf16: the scale is a
+    bf16 value and the product is rounded to bf16 (the kernel B2 does the
+    same as it loads q)."""
+    return (q.float() * _bf16_scale(q.shape[-1])).to(torch.bfloat16)
 
 
 # ---- masks ------------------------------------------------------------------------
@@ -112,7 +126,7 @@ def flash_attention_reference(
     dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     if _fast(q):
-        s = _prescale(q, scale).float() @ k.float().transpose(-1, -2)
+        s = _prescale(q).float() @ k.float().transpose(-1, -2)
         e = torch.exp(torch.clamp(s, -SCORE_CLAMP, SCORE_CLAMP))
         p = e * (1.0 / e.sum(-1, keepdim=True))
     else:
@@ -171,6 +185,40 @@ def flash_attention_dropout_bwd_reference(q, k, v, do, seed, rate: float):
 # ---- the kernels ---------------------------------------------------------------------
 
 
+class AttnFwdPlan(ctypes.Structure):
+    """B2's launch as the kernel takes it (``AttnFwdPlan`` of
+    ``csrc/flash_attention.cu``): the instance's head width, warps per CTA,
+    CTAs per head, key blocks, the row stride of a staged block, the
+    elements of a stage of the ring and the shared memory in bytes."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "kdh", "warps", "q_tiles", "key_blocks", "stride", "stage", "bytes")]
+
+
+@functools.lru_cache(maxsize=64)
+def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
+    """B2's launch at length ``max_len`` and head width ``dh`` in ``dtype``
+    (for every chain and head alike): the head width of the instance
+    (``kdh``: the mma's k step, 8 in fp32 and 16 in bf16, doubled up to
+    cover dh), the warps of a CTA (one per 16 query rows of the first tile,
+    at most 8), the CTAs per head (tiles of 128 query rows), the key blocks
+    of 64, the row stride of a staged K or V block, the elements of a stage
+    of the ring (a block of K and one of V), the shared memory (FWD_STAGES
+    stages, whatever L) and all of it as ``AttnFwdPlan`` (``struct``)."""
+    from fourierdiffusion_tpu_torch.ops.fused_encoder import tile_stride  # (import cycle)
+
+    size = torch.finfo(dtype).bits // 8
+    kdh = 8 if size == 4 else 16
+    while kdh < dh:
+        kdh *= 2
+    stride = tile_stride(size, kdh, True)
+    stage = 2 * KEY_BLOCK * stride
+    plan = {"kdh": kdh, "warps": min(MAX_WARPS, -(-max_len // WARP_ROWS)),
+            "q_tiles": -(-max_len // TILE_ROWS), "key_blocks": -(-max_len // KEY_BLOCK),
+            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * size}
+    return {**plan, "struct": AttnFwdPlan(**plan)}
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, dh), got shape {tuple(q.shape)}")
@@ -195,7 +243,7 @@ def _library() -> ctypes.CDLL:
     i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
     dropout = [p, u, f, i, p]  # seed, threshold, scale, group, stream
     lib.fdiff_attention_fwd.restype = i
-    lib.fdiff_attention_fwd.argtypes = [i] + [p] * 4 + [i] * 4 + [f] + dropout
+    lib.fdiff_attention_fwd.argtypes = [i] + [p] * 4 + [i] * 4 + [f, p] + dropout
     lib.fdiff_attention_bwd.restype = i
     lib.fdiff_attention_bwd.argtypes = [p] * 7 + [i] * 4 + [f] + dropout
     lib.fdiff_attention_dropout_masks.restype = i
@@ -243,14 +291,16 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
         _fp32_only(q, "dropout attention")
         variant = 0
     elif _fast(q):
-        variant, q = 2, _prescale(q, scale)
+        variant, scale = 2, _bf16_scale(dh)
     else:
         variant = 0 if q.dtype == torch.float32 else 1
+    plan = None if seed is not None else attention_fwd_plan(l, dh, q.dtype)["struct"]
     lib = _library()
     out = torch.empty_like(q)
     err = lib.fdiff_attention_fwd(
         variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, l, dh, scale, *_dropout_args(q, seed, rate),
+        b, h, l, dh, scale, None if plan is None else ctypes.byref(plan),
+        *_dropout_args(q, seed, rate),
     )
     _raise_on(err, "attention forward")
     if seed is None:
@@ -267,7 +317,7 @@ def _launch_bwd(q, k, v, do, seed: torch.Tensor | None = None, rate: float = 0.0
     b, h, l, dh = _dims(q)
     do = do.to(q.dtype).contiguous()
     lib = _library()
-    if lib.fdiff_attention_bwd_smem_bytes(l, dh) > 232448:
+    if lib.fdiff_attention_bwd_smem_bytes(l, dh) > SMEM_LIMIT:
         raise ValueError(f"L={l}, dh={dh} needs too much shared memory for the backward")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = lib.fdiff_attention_bwd(
@@ -368,6 +418,7 @@ def flash_attention_dropout(
 __all__ = [
     "FlashAttention",
     "FlashAttentionDropout",
+    "attention_fwd_plan",
     "attention_group",
     "attention_keep",
     "attention_keep_cuda",

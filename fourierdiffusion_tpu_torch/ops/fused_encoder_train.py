@@ -7,12 +7,13 @@ probabilities, attention output, FFN hidden layer, FFN output) and is
 differentiable in ``x`` and the packed weights:
 
 * on a CUDA tensor it applies ``FusedEncoderLayerTrain``: the forward
-  launches the hand-written kernel B3 and the backward the kernels of B4
-  (``csrc/fused_encoder_train.cu``, 16 launches over all B*L rows on the
-  tensor cores, 20 for layers wider than 256, ``train_bwd_plan``), which
-  recompute the forward from
-  ``x``, regenerate the masks and return ``dx`` and the 12 weight
-  gradients; ``fwd_launches`` and ``bwd_launches`` count one per call;
+  launches the hand-written kernels of B3 and the backward those of B4
+  (``csrc/fused_encoder_train.cu``, over all B*L rows on the tensor cores:
+  B3 in 4 launches, 7 for layers wider than 256, ``train_fwd_plan``; B4 in
+  17, or 20, ``train_bwd_plan``), which recompute the forward from ``x``
+  with B3's launches on B3's plan, regenerate the masks and return ``dx``
+  and the 12 weight gradients; ``fwd_launches`` and ``bwd_launches`` count
+  one per call;
 * on a CPU tensor it runs ``fused_encoder_layer_train_reference``, the
   plain PyTorch version, and autograd through it is the plain backward.
 
@@ -204,15 +205,13 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_encoder_train")
     i, u, p, f = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_float
     dropout = [i, u, u, f, p]  # group, seed, threshold, scale, stream
-    lib.fdiff_train_fwd.argtypes = [p, p, p, p] + [i] * 5 + dropout
+    lib.fdiff_train_fwd.argtypes = [p, p, p, p, ctypes.POINTER(FwdPlan)] + [i] * 5 + dropout
     lib.fdiff_train_bwd.argtypes = [p] * 6 + [ctypes.POINTER(BwdPlan)] + [i] * 6 + [u, u, f, p, p]
     lib.fdiff_dropout_masks.argtypes = [p] * 4 + [i] * 5 + dropout
     for name in ("fdiff_train_fwd", "fdiff_train_bwd", "fdiff_dropout_masks"):
         getattr(lib, name).restype = i
-    for name in ("fdiff_train_fwd_smem_bytes", "fdiff_train_fwd_kv_floats",
-                 "fdiff_train_grad_floats"):
-        getattr(lib, name).restype = i
-        getattr(lib, name).argtypes = [i, i]
+    lib.fdiff_train_grad_floats.restype = i
+    lib.fdiff_train_grad_floats.argtypes = [i, i]
     lib.fdiff_train_bwd_stages.restype = i
     lib.fdiff_train_bwd_stages.argtypes = []
     lib.fdiff_train_error_string.restype = ctypes.c_char_p
@@ -247,21 +246,66 @@ def _weight_ptrs(layer: dict[str, torch.Tensor]):
 
 
 def _launch_fwd(x, layer, seed: int, n_head: int, rate: float) -> torch.Tensor:
+    """B3 on contiguous CUDA tensors: its launches on ``train_fwd_plan``."""
     global fwd_launches
     b, l, d, h, f, group = _dims(x, layer, n_head)
     lib = _library()
-    if lib.fdiff_train_fwd_smem_bytes(l, d) > fe.SMEM_LIMIT:
-        raise ValueError(f"L={l}, D={d} needs too much shared memory for the forward")
+    plan = train_fwd_plan(b, l, d, h, f, fe.sm_count(x.device))
+    workspace = torch.empty(plan["workspace_floats"], device=x.device)
     out = torch.empty_like(x)
-    kv = fe.kv_workspace(lib.fdiff_train_fwd_kv_floats(l, d), x)
     err = lib.fdiff_train_fwd(
-        x.data_ptr(), _weight_ptrs(layer), out.data_ptr(), fe.data_ptr(kv), b, l, d, h, f,
-        group,
-        *_dropout_args(seed, rate, x),
+        x.data_ptr(), _weight_ptrs(layer), out.data_ptr(), workspace.data_ptr(),
+        ctypes.byref(plan["struct"]), b, l, d, h, f, group, *_dropout_args(seed, rate, x),
     )
-    _raise_on(err, "training forward kernel")
+    _raise_on(err, "training forward kernels")
     fwd_launches += 1
     return out
+
+
+# ---- the forward's plan ----------------------------------------------------------------
+
+#: Workspace regions of the forward, in floats, in the kernel's order
+#: (``FwdPlan``): qkv (N x 3D), the attention output (N x D), x1 (N x D),
+#: the wide route's pre (N x D) and h (N x F), and the fused route's f2
+#: partials (``fe.tail_schedule``'s parts x tm x D), with N = B*L.
+FWD_WS_FIELDS = ("qkv", "attn", "x1", "pre", "h", "tail_part")
+
+
+class FwdPlan(ctypes.Structure):
+    """B3's plan as the kernels take it (``FwdPlan`` of
+    ``csrc/fused_encoder_train.cu``): the tail's plan and CTAs, and the
+    workspace offsets (``FWD_WS_FIELDS``)."""
+
+    _fields_ = ([("tail", fe.TailPlan), ("tail_ctas", ctypes.c_longlong)]
+                + [(k, ctypes.c_longlong) for k in FWD_WS_FIELDS])
+
+
+@functools.lru_cache(maxsize=32)
+def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
+                   d_ff: int, sms: int = fe.SMS) -> dict:
+    """B3's plan on a card of ``sms`` SMs: the tail's plan and persistent
+    schedule (those of B4's forward stage, which ``train_bwd_plan`` takes
+    from here), the workspace offsets (in floats, 16-byte aligned), its
+    size, the CUDA launches of one call (4: the QKV product, attention, the
+    tail and its finish; 7 where the tail runs wide) and all of it as
+    ``FwdPlan`` (``struct``)."""
+    n, d, f = batch * max_len, d_model, d_ff
+    tail = fe.tail_plan(d, torch.float32)
+    wide = bool(tail["wide"])
+    sched = None if wide else fe.tail_schedule(n, d, f, torch.float32, sms)
+    sizes = {"qkv": 3 * n * d, "attn": n * d, "x1": n * d, "pre": n * d if wide else 0,
+             "h": n * f if wide else 0,
+             "tail_part": 0 if wide else sched["parts"] * tail["tm"] * d}
+    plan: dict = {"tail": tail, "tail_schedule": sched}
+    offset = 0
+    for k in FWD_WS_FIELDS:
+        plan[k] = offset
+        offset += fe._round_up(sizes[k], 4)
+    plan["workspace_floats"] = offset
+    plan["launches"] = 7 if wide else 4
+    plan["struct"] = FwdPlan(tail=fe.TailPlan(**tail), tail_ctas=0 if wide else sched["ctas"],
+                             **{k: plan[k] for k in FWD_WS_FIELDS})
+    return plan
 
 
 # ---- the backward's plan and its plain staged version ---------------------------------
@@ -315,17 +359,18 @@ def _row_slices(n_rows: int, out_rows: int, out_cols: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=32)
 def train_bwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
                    d_ff: int, sms: int = fe.SMS) -> dict:
-    """B4's plan on a card of ``sms`` SMs: the tail's plan and schedule,
-    the workspace offsets (in floats, 16-byte aligned), the row slices of
+    """B4's plan on a card of ``sms`` SMs: the tail's plan and schedule
+    (``train_fwd_plan``'s, so the recompute runs B3's launches), the
+    workspace offsets (in floats, 16-byte aligned), the row slices of
     the four weight products and of the column sums, the d_ff slices of dh
     W1^T, the offsets and counts of every gradient's partials, the
     workspace size, the CUDA launches of one call (17; 20 where the tail
     runs wide) and all of it as ``BwdPlan`` (``struct``)."""
     n, d, f = batch * max_len, d_model, d_ff
-    tail = fe.tail_plan(d, torch.float32)
+    fwd = train_fwd_plan(batch, max_len, d_model, n_head, d_ff, sms)
+    tail = fwd["tail"]
     plan: dict = {"tail": tail, "dx1_slices": _row_slices(f, n, d),
-                  "tail_schedule": None if tail["wide"]
-                  else fe.tail_schedule(n, d, f, torch.float32, sms)}
+                  "tail_schedule": fwd["tail_schedule"]}
     sizes = {k: n * d for k in WS_FIELDS}
     sizes.update(qkv=3 * n * d, dqkv=3 * n * d, h=n * f, dh=n * f, inv1=n, inv2=n,
                  stats=3 * n * n_head, dx1p=plan["dx1_slices"][1] * n * d,
@@ -353,9 +398,8 @@ def train_bwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
         fields.update({f"ks_{k}": per, f"sp_{k}": slices})
     fields["ks_dx1"], fields["sp_dx1"] = plan["dx1_slices"]
     per_grad = ctypes.c_longlong * len(LAYER_KEYS)
-    ctas = 0 if tail["wide"] else plan["tail_schedule"]["ctas"]
-    plan["struct"] = BwdPlan(tail=fe.TailPlan(**tail), tail_ctas=ctas, p_off=per_grad(*p_off),
-                             p_n=per_grad(*p_n), **fields)
+    plan["struct"] = BwdPlan(tail=fe.TailPlan(**tail), tail_ctas=fwd["struct"].tail_ctas,
+                             p_off=per_grad(*p_off), p_n=per_grad(*p_n), **fields)
     return plan
 
 
@@ -556,7 +600,8 @@ def dropout_masks_cuda(
 
 class FusedEncoderLayerTrain(torch.autograd.Function):
     """The training layer on the card: B3 forward, B4 backward. The forward
-    saves only ``x``, the weights and the seed; the backward recomputes."""
+    saves only ``x``, the weights and the seed; the backward recomputes the
+    forward with B3's launches."""
 
     @staticmethod
     def forward(ctx, x, seed: int, n_head: int, rate: float, *weights):
@@ -602,5 +647,6 @@ __all__ = [
     "pack_encoder_layer_train",
     "train_backward_staged",
     "train_bwd_plan",
+    "train_fwd_plan",
     "train_group",
 ]

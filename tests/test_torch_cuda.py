@@ -25,7 +25,10 @@ site's codes flip (an upstream bf16 rounding that flipped, as B1 has, moves
 a quantizer's input by up to about a code). The sites whose inputs the two
 versions compute alike (x, and V from exact integer sums) flip nowhere.
 
-B1 and B4 run on the tensor cores (``csrc/mma_tile.cuh``): B1 is checked
+B1, B2, B3 and B4 run on the tensor cores (``csrc/mma_tile.cuh``). B2 is
+checked at L 24 to 365 and dh 6 to 64, fp32 and bf16, and up to L 3616 (in
+bf16 to 4 ulps of its largest output, ``B2_BF16_ULPS``), B3 at rate 0 and 0.1
+at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is checked
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
 gates located within 1e-5 of the sum of |terms| of 0 and matched), a
@@ -172,9 +175,23 @@ def test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff) -> None
         assert rel <= 1e-3, (name, rel)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,l,d,n_head,d_ff", LONG_SHAPES, ids=LONG_IDS)
-def test_training_kernels_match_plain_on_long_sequences(cuda, b, l, d, n_head, d_ff) -> None:
-    test_training_kernels_match_plain(cuda, 0.1, b, l, d, n_head, d_ff)
+def test_training_kernels_match_plain_on_long_sequences(cuda, rate, b, l, d, n_head,
+                                                        d_ff) -> None:
+    test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff)
+
+
+def test_training_forward_is_bit_identical_across_calls(cuda) -> None:
+    """B3 sums every product and the tail's partials in one fixed order."""
+    lay = {k: t.detach() for k, t in _train_layer(72, 12, 2048, cuda).items()}
+    x = torch.randn(64, 100, 72, generator=torch.Generator().manual_seed(10)).to(cuda)
+    before = fet.fwd_launches
+    first = fet._launch_fwd(x, lay, 7, 12, 0.1)
+    second = fet._launch_fwd(x, lay, 7, 12, 0.1)
+    torch.cuda.synchronize()
+    assert fet.fwd_launches == before + 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES + LONG_SHAPES[2:3], ids=SHAPE_IDS + ["L365"])
@@ -265,10 +282,65 @@ def test_wide_layer_matches_plain(cuda, dtype, b, l, d, n_head, d_ff) -> None:
     test_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff)
 
 
-@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_SHAPES[:2], ids=WIDE_IDS[:2])
-def test_wide_training_layer_matches_plain(cuda, b, l, d, n_head, d_ff) -> None:
-    """B3 (unchanged) takes these widths at short L, and B4 runs its wide tail."""
-    test_training_kernels_match_plain(cuda, 0.1, b, l, d, n_head, d_ff)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_SHAPES, ids=WIDE_IDS)
+def test_wide_training_layer_matches_plain(cuda, rate, b, l, d, n_head, d_ff) -> None:
+    """B3 and B4 run their wide tails (7 and 20 launches)."""
+    assert fet.train_fwd_plan(b, l, d, n_head, d_ff)["launches"] == 7
+    test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff)
+
+
+# B2 at the lengths of the datasets (MIMIC 24, the synthetic runs 100, ECG
+# 187, USDroughts 365) and the head widths of the shipped configurations (6,
+# 12, 16) and the widest the kernel takes (64): fp32, and bf16 in its fast
+# (dh < 16) and exact forms.
+B2_LENGTHS = (24, 100, 187, 365)
+B2_WIDTHS = (6, 12, 16, 64)
+# ... and at the longest L that fits a head's K and V in fp32 plus four rows
+# of scores in 232,448 bytes of shared memory, (58,112 - 256) / (2 dh + 4):
+# the lengths a forward that stages the whole head serves. B2 streams its
+# key blocks, so shared memory bounds no length.
+B2_LONG = {6: 3616, 12: 2066, 16: 1607, 64: 438}
+# B2 in bf16 against its plain version: both round P and O at the same
+# points, and a rounding that flips between their fp32 sum orders moves an
+# output by about one bf16 ulp of |o| (the card's largest: 2**-9, at L 187
+# and dh 6). Attention outputs on random heads are far below LayerNorm's
+# |y| < 8, where TOL's 2**-4 could hide a lost key block, so the tolerance
+# is B2_BF16_ULPS ulps of the largest |o| of the plain version.
+B2_BF16_ULPS = 4
+
+
+def b2_tol(dtype: torch.dtype, ref: torch.Tensor) -> float:
+    if dtype == torch.float32:
+        return TOL[dtype]
+    top = ref.float().abs().max().item()
+    return B2_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _attention_forward_matches_plain(cuda, dtype, b, h, l, dh) -> None:
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g).to(cuda, dtype) for _ in range(3))
+    before = fa.launches
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out.float()).all()
+    ref = fa.flash_attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= b2_tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", B2_WIDTHS, ids=[f"dh{d}" for d in B2_WIDTHS])
+@pytest.mark.parametrize("l", B2_LENGTHS, ids=[f"L{l}" for l in B2_LENGTHS])
+def test_attention_forward_matches_plain_at_every_shape(cuda, dtype, dh, l) -> None:
+    _attention_forward_matches_plain(cuda, dtype, 3, 2, l, dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", sorted(B2_LONG), ids=[f"dh{d}" for d in sorted(B2_LONG)])
+def test_attention_forward_matches_plain_at_long_lengths(cuda, dtype, dh) -> None:
+    _attention_forward_matches_plain(cuda, dtype, 1, 2, B2_LONG[dh], dh)
 
 
 def _attention_grads(fn, q, k, v, do):

@@ -1,6 +1,7 @@
 """The launch plans of the tensor-core kernels B1 (``ops/fused_encoder.py``:
-``sample_plan``, ``tail_plan``) and B4 (``ops/fused_encoder_train.py``:
-``train_bwd_plan``), and the fp32 product form they use, on the CPU.
+``sample_plan``, ``tail_plan``), B3 and B4 (``ops/fused_encoder_train.py``:
+``train_fwd_plan``, ``train_bwd_plan``) and B2 (``ops/flash_attention.py``:
+``attention_fwd_plan``), and the fp32 product form they use, on the CPU.
 
 The wrappers compute every plan and pass it to the kernels, so these
 checks hold what the kernels are given: at every (L, D, H, F) that
@@ -16,15 +17,30 @@ core). A plain-torch emulation of both roundings shows why: at the
 flagship's FFN shape (100 x 72 times 72 x 2048) three TF32 products stay
 within 1e-6 of the largest |value| of the fp64 product, as fp32 does, while
 one TF32 pass leaves about 3e-4, which the fp32 gates (1e-4) do not admit.
+
+B3 runs B4's forward stage: the same tail plan, schedule and CTAs, so the
+two sum alike. B2's order of operations (two passes over key blocks of 64:
+the running max and rescaled sum, then P rounded to the input type before
+P V, the products as 3xTF32 in fp32) is emulated in plain torch and held
+against the JAX package's ``_fwd_kernel`` and ``_fast_fwd_kernel`` in
+interpret mode, with ``tests/test_torch_attention.py``'s tolerances: fp32
+1e-5 absolute and relative (the same arithmetic in other sum orders; 3xTF32
+is within ~1e-6 of fp32, above), bf16 2**-5 absolute (one flipped bf16
+rounding of P or O moves an output by one bf16 ulp).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from fourierdiffusion_tpu.ops.flash_attention import flash_attention as jax_flash
+from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
 
@@ -148,6 +164,60 @@ def test_backward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     assert list(struct.p_off) == plan["p_off"] and list(struct.p_n) == plan["p_n"]
 
 
+@pytest.mark.parametrize("widths,b,l", CASES, ids=IDS)
+def test_forward_plan_fits_and_covers_every_row(widths, b, l) -> None:
+    """B3's plan: the tail's plan and schedule as in B1 and B4, the
+    workspace regions in order, 16-byte aligned and not overlapping, and 4
+    launches per call."""
+    d, h, f = widths
+    plan = fet.train_fwd_plan(b, l, d, h, f)
+    n = b * l
+    check_tail(plan["tail"], n, d, 4)
+    check_schedule(plan["tail_schedule"], n, f, plan["tail"]["tm"], plan["tail"]["fc"])
+    sizes = {"qkv": 3 * n * d, "attn": n * d, "x1": n * d, "pre": 0, "h": 0,
+             "tail_part": plan["tail_schedule"]["parts"] * plan["tail"]["tm"] * d}
+    end = 0
+    for k in fet.FWD_WS_FIELDS:
+        assert plan[k] >= end and plan[k] % 4 == 0, k
+        end = plan[k] + sizes[k]
+    assert end <= plan["workspace_floats"]
+    assert plan["launches"] == 4
+    struct = plan["struct"]
+    assert struct.tail_ctas == plan["tail_schedule"]["ctas"]
+    assert [getattr(struct.tail, k) for k in plan["tail"]] == list(plan["tail"].values())
+    assert [getattr(struct, k) for k in fet.FWD_WS_FIELDS] == [plan[k] for k in
+                                                               fet.FWD_WS_FIELDS]
+
+
+@pytest.mark.parametrize("d_model,l", [(264, 17), (384, 17), (264, 365), (384, 365)])
+def test_wide_forward_plan_has_its_workspace(d_model, l) -> None:
+    """Past 256 columns B3 runs the wide tail (7 launches) with pre (N x D)
+    and h (N x F) in its workspace, and no f2 partials."""
+    b, f = 3, 512
+    n = b * l
+    plan = fet.train_fwd_plan(b, l, d_model, 6, f)
+    assert plan["tail"]["wide"] == 1 and plan["tail_schedule"] is None
+    assert plan["launches"] == 7 and plan["struct"].tail.wide == 1
+    assert plan["struct"].tail_ctas == 0
+    assert plan["x1"] + n * d_model <= plan["pre"] and plan["pre"] + n * d_model <= plan["h"]
+    assert plan["h"] + n * f <= plan["tail_part"] == plan["workspace_floats"]
+
+
+@pytest.mark.parametrize("widths,b,l", CASES + [((264, 6, 512), 3, 17), ((384, 6, 512), 2, 365)],
+                         ids=IDS + ["D264-wide", "D384-L365-wide"])
+def test_forward_plan_is_the_backward_forward_stage(widths, b, l) -> None:
+    """B3 and B4's recompute run the same launches on the same plan: the
+    tail's plan, schedule and CTAs are equal, so every sum of the forward
+    is taken in the same order in both."""
+    d, h, f = widths
+    for sms in (fe.SMS, 114):
+        fwd, bwd = fet.train_fwd_plan(b, l, d, h, f, sms), fet.train_bwd_plan(b, l, d, h, f, sms)
+        assert fwd["tail"] == bwd["tail"] and fwd["tail_schedule"] == bwd["tail_schedule"]
+        assert fwd["struct"].tail_ctas == bwd["struct"].tail_ctas
+        assert bytes(fwd["struct"].tail) == bytes(bwd["struct"].tail)
+        assert bwd["launches"] - fwd["launches"] == 13
+
+
 def test_flagship_plans_fill_the_card() -> None:
     """The grids of B4's product stages fill the 132 SMs at the training
     shape, B=64, L=100, and so do B1's QKV product and attention at B=32,
@@ -236,3 +306,110 @@ def test_three_tf32_products_hold_fp32_accuracy_and_one_does_not(seed: int) -> N
     one = a_hi @ w_hi
     assert (three.double() - exact).abs().max().item() / scale <= 1e-6
     assert (one.double() - exact).abs().max().item() / scale > 1e-4
+
+
+# ---- B2: the attention forward's tiles and its order of operations ----------------------
+
+B2_LENGTHS = (1, 17, 24, 100, 128, 129, 187, 251, 252, 365)
+B2_WIDTHS = (1, 6, 8, 12, 16, 22, 32, 33, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("l", B2_LENGTHS)
+def test_attention_plan_covers_every_row_and_key(dtype, l) -> None:
+    """Every query row in exactly one warp's 16 rows (at most 8 warps, 128
+    rows, per CTA), every key in one block of 64, the instance's width
+    covering dh in steps of the mma's k, bank-conflict-free strides with
+    16-byte rows, and a ring of two stages of a K and a V block whose shared
+    memory does not depend on L and stays within 232,448 bytes up to dh 64."""
+    size = torch.finfo(dtype).bits // 8
+    for dh in B2_WIDTHS:
+        plan = fa.attention_fwd_plan(l, dh, dtype)
+        assert 1 <= plan["warps"] <= fa.MAX_WARPS
+        seen = torch.zeros(l, dtype=torch.int64)
+        for y in range(plan["q_tiles"]):
+            for w in range(plan["warps"]):
+                r0 = y * fa.TILE_ROWS + w * fa.WARP_ROWS
+                seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
+        assert bool((seen == 1).all()), dh
+        keys = torch.zeros(l, dtype=torch.int64)
+        for kb in range(plan["key_blocks"]):
+            keys[kb * fa.KEY_BLOCK:(kb + 1) * fa.KEY_BLOCK] += 1
+        assert bool((keys == 1).all()) and (plan["key_blocks"] - 1) * fa.KEY_BLOCK < l
+        assert plan["kdh"] >= dh and plan["kdh"] % (8 if size == 4 else 16) == 0
+        assert plan["kdh"] < 2 * max(dh, 8 if size == 4 else 16)
+        assert plan["stride"] >= plan["kdh"] and plan["stride"] * size % 16 == 0
+        assert plan["stride"] % 8 == 4 if size == 4 else plan["stride"] % 16 == 8
+        assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"]
+        assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * size
+        assert plan["bytes"] == fa.attention_fwd_plan(100_000, dh, dtype)["bytes"]
+        assert plan["bytes"] <= fe.SMEM_LIMIT
+        struct = plan["struct"]
+        assert [getattr(struct, k) for k, _ in struct._fields_] == [
+            plan[k] for k, _ in fa.AttnFwdPlan._fields_]
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as three TF32 products with fp32 sums (lo hi + hi lo + hi hi)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def b2_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """B2's order of operations over (B, H, L, dh) heads: pass 1 over key
+    blocks of 64 keeps each row's running max and its sum of exp(s - max),
+    rescaled as the max grows (the fast form: the sum of exp(s), s clamped
+    to +-60, q pre-scaled); pass 2 recomputes S block by block, forms P,
+    rounds it to the input type and adds P V. fp32 products as 3xTF32, bf16
+    products exact in fp32."""
+    dtype, (l, dh) = q.dtype, q.shape[-2:]
+    fast = fa._fast(q)
+    scale = 1.0 / math.sqrt(dh)
+    mm = mm_3xtf32 if dtype == torch.float32 else torch.matmul
+    qf = (fa._prescale(q) if fast else q).float()
+    kf, vf = k.float(), v.float()
+    blocks = [(j0, min(l, j0 + fa.KEY_BLOCK)) for j0 in range(0, l, fa.KEY_BLOCK)]
+
+    def scores(j0: int, j1: int) -> torch.Tensor:
+        s = mm(qf, kf[..., j0:j1, :].transpose(-1, -2))
+        return s.clamp(-fa.SCORE_CLAMP, fa.SCORE_CLAMP) if fast else s * scale
+
+    m = torch.full(q.shape[:-1] + (1,), torch.finfo(torch.float32).min)
+    total = torch.zeros_like(m)
+    for j0, j1 in blocks:
+        s = scores(j0, j1)
+        if fast:
+            total = total + torch.exp(s).sum(-1, keepdim=True)
+        else:
+            mb = torch.maximum(m, s.amax(-1, keepdim=True))
+            total = total * torch.exp(m - mb) + torch.exp(s - mb).sum(-1, keepdim=True)
+            m = mb
+    out = torch.zeros_like(qf)
+    for j0, j1 in blocks:
+        s = scores(j0, j1)
+        p = torch.exp(s) * (1.0 / total) if fast else torch.exp(s - m) / total
+        out = out + mm(p.to(dtype).float(), vf[..., j0:j1, :])
+    return out.to(dtype)
+
+
+B2_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=2.0**-5, rtol=0.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", [6, 12, 16])
+@pytest.mark.parametrize("l", [24, 100, 365])
+def test_attention_two_pass_order_matches_jax(dtype, dh, l) -> None:
+    """B2's two passes against JAX's ``_fwd_kernel`` (fp32; bf16 at dh 16)
+    and ``_fast_fwd_kernel`` (bf16 below dh 16), in interpret mode."""
+    rng = np.random.default_rng(l * 100 + dh)
+    q, k, v = (rng.normal(size=(1, 2, l, dh)).astype(np.float32) for _ in range(3))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = np.asarray(jax_flash(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+                     .astype(jnp.float32))
+    ours = b2_emulation(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)))
+    np.testing.assert_allclose(ours.float().numpy(), ref, **B2_TOL[dtype])
