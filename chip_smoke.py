@@ -15,8 +15,9 @@ Phases, each printed with its seconds as it ends:
    together (a library already built is reused), with ptxas's registers,
    stack and spills for every kernel instance, and, from ``cuobjdump
    -sass``, the instructions and tensor-core instructions (HMMA) of each
-   kernel of B1, B2, B3 and B4; every kernel that runs a tile product must
-   have HMMA, and B2's kernel and the training tail must be among them.
+   kernel of B1, B2, B3, B4 and B5/B6-bwd; every kernel that runs a tile
+   product must have HMMA, and B2's kernel, the two launches of B5/B6-bwd
+   and the training tail must be among them.
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel (beside
@@ -73,13 +74,20 @@ Phases, each printed with its seconds as it ends:
    438 (dh 6 and 64: longer than a kernel that stages the whole head takes),
    against its plain version (bf16: to B2_BF16_ULPS ulps of the largest
    output), with its time, its plain version's and SDPA's.
-10. unfused attention kernels: B5 (backward), B6-fwd and B6-bwd (dropout
-   0.1) against their plain versions at (64, 12, 100, 6) and (8, 12, 365, 6),
-   fp32, with the masks bit for bit, and the times of each kernel, its plain
-   version, its bound and a yardstick the port never calls: the autograd
-   backward of ``F.scaled_dot_product_attention`` for B5, SDPA with
-   ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend printed);
-   B2's fp32 time on the same heads beside SDPA's without dropout.
+10. unfused attention kernels: B6-fwd (dropout 0.1) against its plain
+   version at (64, 12, 100, 6) and (8, 12, 365, 6), fp32, with the masks
+   bit for bit, and B2's fp32 time on the same heads beside SDPA's; B5 and
+   B6-bwd (two launches on the tensor cores each) there and at (8, 8, 187,
+   16), (1, 8, 896, 16), (1, 12, 3616, 6) and (1, 2, 438, 64) against their
+   plain versions (B5 also against autograd of the plain forward), launch
+   1's row statistics against ``attention_bwd_staged``, two calls
+   bit-identical and ``torch.profiler`` counting 2 launches per call. The
+   times of each kernel (B5 and B6-bwd beside their times before the
+   redesign, PRIOR_MS, with each launch's device time), its plain version,
+   its bound (B5, B6-bwd also 3xTF32) and a yardstick the port never calls:
+   the autograd backward of ``F.scaled_dot_product_attention`` for B5, SDPA
+   with ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend
+   printed).
 11. unfused training check (``FDIFF_FUSED_TRAIN=0``): the first 3 steps of
    the flagship's training configuration through the kernels and through
    ``Trainer(plain=True)``, from the same weights, batches, ``t``, ``z`` and
@@ -87,8 +95,9 @@ Phases, each printed with its seconds as it ends:
    0.1 (B6) and 0 (B2 + B5): losses and the first step's gradients.
 12. unfused training main path: ``Trainer.fit`` as in phase 8, with
    ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch (16 steps), at dropout 0.1 (B6-fwd
-   = B6-bwd = steps x 10) and at dropout 0 (B5 = steps x 10), B2 for
-   validation; all losses finite; its steps/s beside phase 8's.
+   = B6-bwd = steps x 10 calls; a B5 or B6-bwd call is 2 CUDA launches)
+   and at dropout 0 (B5 = steps x 10), B2 for validation; all losses
+   finite; its steps/s beside phase 8's.
 13. int8 kernels: B7 (``FDIFF_FUSED_INT8=1``) and B8 (``=2``) against their
    plain versions on the trained flagship's layer 0 at L=100, B=64 and 32,
    fp32 and bf16, and at B=8 on phase 9's shapes (random weights). The
@@ -194,14 +203,21 @@ PRIOR_MS = {
     # 6; the same card and power limit).
     "B2": {"float32 B=64 H=12 L=100 dh=6": 0.1287, "bfloat16 B=64 H=12 L=100 dh=6": 0.1294},
     "B3": {"L=100 D=72 H=12 F=2048": 0.9166},
+    # B5 and B6-bwd before their redesign on the tensor cores (PERF.md,
+    # section 6; the same card and power limit).
+    "B5": {"B=64 H=12 L=100 dh=6": 0.4462}, "B6-bwd": {"B=64 H=12 L=100 dh=6": 0.4413},
 }
-# The kernels that run tile products (B1, B2, B3, B4): each must show
-# tensor-core instructions (HMMA) in its SASS.
+# The kernels that run tile products (B1, B2, B3, B4, B5/B6-bwd): each must
+# show tensor-core instructions (HMMA) in its SASS.
 PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
-                   "attention_fwd_mma_kernel")
-# ... and these must be among them: B2's kernel, and the tail that B3 runs.
-REQUIRED_PRODUCT_KERNELS = {"flash_attention": "attention_fwd_mma_kernel",
-                            "fused_encoder_train": "layer_tail_kernel"}
+                   "attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
+                   "attention_bwd_dkv_mma_kernel")
+# ... and these must be among them: B2's kernel, the two launches of B5 and
+# B6-bwd, and the tail that B3 runs.
+REQUIRED_PRODUCT_KERNELS = (("flash_attention", "attention_fwd_mma_kernel"),
+                            ("flash_attention", "attention_bwd_dq_mma_kernel"),
+                            ("flash_attention", "attention_bwd_dkv_mma_kernel"),
+                            ("fused_encoder_train", "layer_tail_kernel"))
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
 SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
@@ -261,6 +277,19 @@ ATTN_SHAPES = ((TRAIN_BATCH, MAX_LEN), (8, 365))
 # Attention outputs against the plain version: fp32 sums of 100-365 terms in
 # other orders, |o| < 4: 1e-4 as for B1. Gradients: GRAD_TOL, as for B4.
 ATTN_TOL = 1e-4
+# B5 and B6-bwd at ATTN_SHAPES and beyond, (B, H, L, dh): ECG's L at fast.yaml's
+# head width (16); L=896 there, the longest L JAX's _bwd_kernel serves at
+# dh 16 (the port's previous backward staged the whole head and refused L
+# >= 775); and the long heads phase 9 checks B2 at.
+BWD_SHAPES = tuple((b, N_HEAD, l, 72 // N_HEAD) for b, l in ATTN_SHAPES) + (
+    (8, 8, 187, 16), (1, 8, 896, 16), (1, 12, 3616, 6), (1, 2, 438, 64))
+BWD_FUNCTIONS = ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")
+BWD_LAUNCHES = len(BWD_FUNCTIONS)  # CUDA launches per B5 or B6-bwd call
+# Launch 1's row statistics (max, sum, D = dO . O) against
+# attention_bwd_staged, each to STATS_TOL of its largest: the same fp32
+# terms summed in other orders, with S from 3xTF32 products (within ~1e-6
+# of fp32), as ATTN_TOL allows for outputs.
+STATS_TOL = ATTN_TOL
 # B2 beyond the flagship's heads, (B, H, L, dh) at B=8: the dataset lengths
 # (MIMIC 24, ECG 187, USDroughts 365) at the shipped head widths (6 in
 # default.yaml, 12 in heads6.yaml, 16 in fast.yaml) and the widest head the
@@ -317,6 +346,17 @@ INT8_EXACT_SITES = ("x", "v")
 PC_STEPS, PC_CORRECTOR_STEPS, PC_SNR = 250, 1, 0.16
 # configs/sampler/default.yaml of the JAX package recommends 8.0.
 DIVERGENCE_THRESHOLD = 8.0
+
+
+# torch.profiler now and then drops one kernel, or all of them, from a
+# trace, whatever the kernel: scripts/torch_profiler_probe.py saw it in about
+# one trace in 170 of ten torch.mm calls when the kernels filled the trace's
+# window, and in none of 1200 with the host idle 5 ms at both ends of it; a
+# padded trace of B5 still lost one launch in twenty (PERF.md section 7). So
+# traces are padded, and a trace that lost kernels is taken again, the
+# traces taken kept in each result.
+PROFILE_PAD_S = 0.005
+PROFILE_ATTEMPTS = 3
 
 
 def phase(name: str, t0: float) -> None:
@@ -416,29 +456,42 @@ def kernel_name(demangled: str) -> str:
     return name
 
 
-def device_us_by_kernel(fn, calls: int = 10) -> tuple[dict[str, float], float]:
+def device_us_by_kernel(fn, calls: int = 10,
+                        launches: int | None = None) -> tuple[dict[str, float], float, int]:
     """Device microseconds per call of ``fn`` by CUDA kernel (summed over a
-    kernel's launches in one call), and the kernel launches per call, from
-    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    kernel's launches in one call), the kernel launches per call, and the
+    traces taken, from ``torch.profiler`` over ``calls`` calls after a
+    warm-up, with the host idle for PROFILE_PAD_S at both ends of the
+    trace's window. A trace with no device event, or with other than
+    ``launches`` per call where that is given, is taken again, up to
+    PROFILE_ATTEMPTS traces, each such trace printed; the caller gates the
+    last trace's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out, launches = {}, 0
-    for event in prof.key_averages():
-        device_us = getattr(event, "device_time_total", 0.0)
-        if device_us > 0:
-            name = kernel_name(event.key)
-            out[name] = out.get(name, 0.0) + device_us / calls
-            launches += event.count
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        out, count = {}, 0
+        for event in prof.key_averages():
+            device_us = getattr(event, "device_time_total", 0.0)
+            if device_us > 0:
+                name = kernel_name(event.key)
+                out[name] = out.get(name, 0.0) + device_us / calls
+                count += event.count
+        if out and (launches is None or count == launches * calls):
+            break
+        print(f"  torch.profiler trace {attempt} of {PROFILE_ATTEMPTS} held {count} kernel "
+              f"launches for {calls} calls", flush=True)
     if not out:
         raise AssertionError("torch.profiler recorded no device time")
-    return out, launches / calls
+    return out, count / calls, attempt
 
 
 def kernel_breakdown(layer, n_head: int) -> dict:
@@ -447,6 +500,8 @@ def kernel_breakdown(layer, n_head: int) -> dict:
     training batch, L=100, from ``torch.profiler``; B3's and B4's launches
     must be those their plans count."""
     d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    plans = {"B3": fet.train_fwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"],
+             "B4": fet.train_bwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"]}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         packed = fe.pack_encoder_layer(layer, n_head, dtype)
@@ -457,22 +512,22 @@ def kernel_breakdown(layer, n_head: int) -> dict:
     lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head).items()}
     x = torch.randn((TRAIN_BATCH, MAX_LEN, d), device="cuda")
     dy = torch.randn_like(x)
-    out["B3"] = device_us_by_kernel(lambda: fet._launch_fwd(x, lay, 5, n_head, DROPOUT))
+    out["B3"] = device_us_by_kernel(lambda: fet._launch_fwd(x, lay, 5, n_head, DROPOUT),
+                                    launches=plans["B3"])
     out["B4"] = device_us_by_kernel(
-        lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5)
-    plans = {"B3": fet.train_fwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"],
-             "B4": fet.train_bwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"]}
-    for name, (kernels, launches) in out.items():
+        lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5, launches=plans["B4"])
+    for name, (kernels, launches, traces) in out.items():
         batch = TRAIN_BATCH if name in ("B3", "B4") else SAMPLE_CHAINS
         print(f"  {name} B={batch} L={MAX_LEN}: device us per call by kernel (torch.profiler): "
               f"{json.dumps({k: round(v, 1) for k, v in kernels.items()})}; total "
               f"{sum(kernels.values()):.1f}; {launches} kernel launches per call "
-              f"(plan: {plans.get(name, '-')})", flush=True)
+              f"(plan: {plans.get(name, '-')}); traces taken {traces}", flush=True)
         if name in plans and launches != plans[name]:
             raise AssertionError(f"{name}: {launches} kernel launches per call, the plan "
                                  f"counts {plans[name]}")
-    return {name: {"device_us_by_kernel": kernels, "launches_per_call": launches}
-            for name, (kernels, launches) in out.items()}
+    return {name: {"device_us_by_kernel": kernels, "launches_per_call": launches,
+                   "profile_traces": traces}
+            for name, (kernels, launches, traces) in out.items()}
 
 
 def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
@@ -567,9 +622,9 @@ def train_layer_flops(b: int, l: int, d: int, d_ff: int) -> float:
 
 def build_all() -> dict:
     """One nvcc per source, all started together; returns the SASS counts
-    (instructions, HMMA) of the kernels of B1, B2, B3 and B4 and fails if a
-    product kernel has no tensor-core instruction, or if B2's kernel or the
-    training tail is missing from them."""
+    (instructions, HMMA) of the kernels of B1, B2, B3, B4 and B5/B6-bwd and
+    fails if a product kernel has no tensor-core instruction, or if one of
+    REQUIRED_PRODUCT_KERNELS is missing from them."""
     def one(name: str) -> tuple[str, float, bool]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
@@ -593,7 +648,7 @@ def build_all() -> dict:
                           f"{counts['hmma']} HMMA", flush=True)
     no_hmma = [k for k, c in sass.items()
                if any(p in k for p in PRODUCT_KERNELS) and c["hmma"] == 0]
-    missing = [f"{lib}: {kernel}" for lib, kernel in REQUIRED_PRODUCT_KERNELS.items()
+    missing = [f"{lib}: {kernel}" for lib, kernel in REQUIRED_PRODUCT_KERNELS
                if not any(k.startswith(f"{lib}: ") and kernel in k for k in sass)]
     if no_hmma or missing:
         raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}; "
@@ -679,7 +734,7 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
         kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        device_us, _ = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
+        device_us, _, traces = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
     size = torch.finfo(dtype).bits // 8
     bound_ms, bound_by = bound(
         4 * TRAIN_BATCH * N_HEAD * MAX_LEN * MAX_LEN * dh, 4 * q.numel() * size, dtype
@@ -687,7 +742,7 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
     r = {"max_abs_err": err, "tol": tol, "err_bf16_ulps_of_max": ulps, "ms": kernel_ms,
          "plain_ms": plain_ms,
          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "device_us_by_kernel": device_us}
+         "device_us_by_kernel": device_us, "profile_traces": traces}
     prior = PRIOR_MS["B2"][f"{str(dtype).removeprefix('torch.')} B={TRAIN_BATCH} H={N_HEAD} "
                            f"L={MAX_LEN} dh={dh}"]
     print(f"  B2 {dtype} B={TRAIN_BATCH}: {json.dumps(r)}; before the redesign {prior} ms, "
@@ -725,8 +780,9 @@ def attention_vs_plain(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> d
              "err_bf16_ulps_of_max": err / bf16_ulp(ref.float().abs().max().item()),
              "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
              "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
-             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-             "device_us_by_kernel": device_us_by_kernel(lambda: fa.flash_attention(q, k, v))[0]}
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v))}
+        r["device_us_by_kernel"], _, r["profile_traces"] = device_us_by_kernel(
+            lambda: fa.flash_attention(q, k, v))
     size = torch.finfo(dtype).bits // 8
     r["bound_ms"], r["bound_by"] = bound(4 * b * h * l * l * dh, 4 * q.numel() * size, dtype)
     print(f"  B2 {shape}: {json.dumps(r)}", flush=True)
@@ -1193,56 +1249,25 @@ def sdpa_backend(q, k, v, dropout_p: float) -> str:
         return f"unknown ({type(e).__name__}: {e})"
 
 
-def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
-    """B5, B6-fwd and B6-bwd on random fp32 (b, 12, l, 6) heads against their
-    plain versions (and B5 also against autograd of the plain forward), the
-    masks bit for bit; with ``timed``, their times, bounds and yardsticks,
-    and B2's time on the same heads beside SDPA's."""
+def check_attention_kernels(b: int, l: int) -> dict:
+    """B6-fwd on random fp32 (b, 12, l, 6) heads against its plain version,
+    the masks bit for bit, its time, bound and yardstick, and B2's time on
+    the same heads beside SDPA's."""
     dh = 72 // N_HEAD
     g = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v, do = (torch.randn((b, N_HEAD, l, dh), generator=g, device="cuda")
-                   for _ in range(4))
+    q, k, v = (torch.randn((b, N_HEAD, l, dh), generator=g, device="cuda") for _ in range(3))
     seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
     shape = f"B={b} H={N_HEAD} L={l} dh={dh}"
     kernel_keep = fa.attention_keep_cuda(b, N_HEAD, l, seed, DROPOUT)
     if not torch.equal(kernel_keep, fa.attention_keep(b, N_HEAD, l, seed, DROPOUT, "cuda")):
         raise AssertionError(f"B6 {shape}: the masks of the kernel and plain differ")
-    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-    autograd_plain = torch.autograd.grad(fa.flash_attention_reference(qg, kg, vg),
-                                         (qg, kg, vg), do)
-    b5, b5_plain = fa._launch_bwd(q, k, v, do), fa.flash_attention_bwd_reference(q, k, v, do)
-    b6f = fa._launch_fwd(q, k, v, seed, DROPOUT)
-    b6f_plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
-    b6b = fa._launch_bwd(q, k, v, do, seed, DROPOUT)
-    b6b_plain = fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed, DROPOUT)
-    torch.cuda.synchronize()
-    grads = ("dq", "dk", "dv")
-    r = {
-        "B5": {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, b5, b5_plain)},
-               "vs_autograd_of_plain": {n: rel_err(a, p) for n, a, p in
-                                        zip(grads, b5, autograd_plain)},
-               "max_abs_err": max((a - p).abs().max().item() for a, p in zip(b5, b5_plain))},
-        "B6-fwd": {"max_abs_err": (b6f - b6f_plain).abs().max().item()},
-        "B6-bwd": {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, b6b, b6b_plain)},
-                   "max_abs_err": max((a - p).abs().max().item()
-                                      for a, p in zip(b6b, b6b_plain))},
-    }
-    if not (torch.isfinite(b6f).all() and r["B6-fwd"]["max_abs_err"] <= ATTN_TOL):
-        raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
-    for name in ("B5", "B6-bwd"):
-        worst = max(r[name]["max_rel_err"].values())
-        if not worst <= GRAD_TOL:
-            raise AssertionError(f"{name} {shape}: kernel disagrees with plain version: {r}")
-    if not max(r["B5"]["vs_autograd_of_plain"].values()) <= GRAD_TOL:
-        raise AssertionError(f"B5 {shape}: kernel disagrees with autograd of plain: {r}")
-    print(f"  B5/B6 {shape}: masks bit for bit; {json.dumps(r)} (outputs tol {ATTN_TOL:.0e}, "
-          f"gradients tol {GRAD_TOL:.0e} of max)", flush=True)
-    if not timed:
-        return r
-
-    numel = q.numel()
-    fwd_flops, bwd_flops = 4 * b * N_HEAD * l * l * dh, 12 * b * N_HEAD * l * l * dh
     with torch.no_grad():
+        b6f = fa._launch_fwd(q, k, v, seed, DROPOUT)
+        b6f_plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
+        torch.cuda.synchronize()
+        r = {"B6-fwd": {"max_abs_err": (b6f - b6f_plain).abs().max().item()}}
+        if not (torch.isfinite(b6f).all() and r["B6-fwd"]["max_abs_err"] <= ATTN_TOL):
+            raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
         b2 = fa._launch_fwd(q, k, v)
         r["B2"] = {"max_abs_err": (b2 - fa.flash_attention_reference(q, k, v)).abs().max().item(),
                    "ms": time_ms(lambda: fa._launch_fwd(q, k, v)),
@@ -1256,24 +1281,87 @@ def check_attention_kernels(b: int, l: int, timed: bool) -> dict:
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                                       dropout_p=DROPOUT)),
         )
-    r["B5"].update(ms=time_ms(lambda: fa._launch_bwd(q, k, v, do)),
-                   plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do)))
-    r["B6-bwd"].update(
-        ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, seed, DROPOUT)),
-        plain_ms=time_ms(lambda: fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed,
-                                                                          DROPOUT)))
-    for name, p in (("B5", 0.0), ("B6-bwd", DROPOUT)):
-        out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
-        r[name]["library_ms"] = time_ms(
-            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
-    for name, flops, bytes_ in (("B5", bwd_flops, 7 * numel * 4),
-                                ("B6-fwd", fwd_flops, 4 * numel * 4 + 8),
-                                ("B6-bwd", bwd_flops, 7 * numel * 4 + 8)):
-        r[name]["bound_ms"], r[name]["bound_by"] = bound(flops, bytes_, torch.float32)
+    r["B6-fwd"]["bound_ms"], r["B6-fwd"]["bound_by"] = bound(
+        4 * b * N_HEAD * l * l * dh, 4 * q.numel() * 4 + 8, torch.float32)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     r["sdpa_backend"] = {"no dropout": sdpa_backend(qg, kg, vg, 0.0),
                          f"dropout {DROPOUT}": sdpa_backend(qg, kg, vg, DROPOUT)}
-    print(f"  B5/B6 {shape} times: {json.dumps(r)}", flush=True)
+    print(f"  B6-fwd {shape}: masks bit for bit; {json.dumps(r)} (outputs tol "
+          f"{ATTN_TOL:.0e})", flush=True)
     return r
+
+
+def check_attention_bwd(b: int, h: int, l: int, dh: int) -> dict:
+    """B5 and B6-bwd (dropout 0.1) on random fp32 (b, h, l, dh) heads, from
+    the plain forward's output, against their plain versions (JAX's
+    ``_bwd_core``; B5 also against autograd of the plain forward), to
+    GRAD_TOL of each tensor's largest; launch 1's statistics against
+    ``attention_bwd_staged`` to STATS_TOL; two calls bit-identical;
+    BWD_LAUNCHES CUDA launches per call counted by ``torch.profiler``, with
+    each launch's device time; and the times of the kernel, its plain
+    version and SDPA's autograd backward (with ``dropout_p`` 0.1 for
+    B6-bwd), its bound and 3xTF32 bound."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, l, dh), generator=g, device="cuda") for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
+    shape = f"B={b} H={h} L={l} dh={dh}"
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    # The five products S = q k^T, dP = dO v^T, dq = dS k, dk = dS^T q and
+    # dv = P^T dO; D comes from the saved output o.
+    flops = 10 * b * h * l * l * dh
+    grads, out = ("dq", "dk", "dv"), {}
+    for name, sd, rate in (("B5", None, 0.0), ("B6-bwd", seed, DROPOUT)):
+        keep = None if sd is None else fa.attention_keep(b, h, l, seed, rate, "cuda")
+        if sd is None:
+            o = fa.flash_attention_reference(q, k, v)
+            plain_fn = lambda: fa.flash_attention_bwd_reference(q, k, v, do)  # noqa: E731
+        else:
+            o = fa.flash_attention_dropout_reference(q, k, v, seed, rate)
+            plain_fn = lambda: fa.flash_attention_dropout_bwd_reference(  # noqa: E731
+                q, k, v, do, seed, rate)
+        call = lambda: fa._launch_bwd(q, k, v, o, do, sd, rate)  # noqa: E731
+        got, again, plain = call(), call(), plain_fn()
+        staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
+        torch.cuda.synchronize()
+        r = {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, got, plain)},
+             "max_abs_err": max((a - p).abs().max().item() for a, p in zip(got, plain)),
+             "stats_rel_err": {n: rel_err(got[3][..., i], staged[3][..., i])
+                               for i, n in enumerate(("m", "l", "D"))},
+             "bit_identical": all(torch.equal(a, c) for a, c in zip(got, again))}
+        if sd is None:
+            ref = torch.autograd.grad(fa.flash_attention_reference(qg, kg, vg), (qg, kg, vg), do)
+            r["vs_autograd_of_plain"] = {n: rel_err(a, p) for n, a, p in zip(grads, got, ref)}
+        del keep, staged, again, plain
+        bad = [n for n, t in zip(grads, got) if not torch.isfinite(t).all()]
+        worst = max(r["max_rel_err"].values())
+        if sd is None:
+            worst = max(worst, *r["vs_autograd_of_plain"].values())
+        if bad or not worst <= GRAD_TOL:
+            raise AssertionError(f"{name} {shape}: kernel disagrees with plain version "
+                                 f"(not finite: {bad}): {r}")
+        if not max(r["stats_rel_err"].values()) <= STATS_TOL:
+            raise AssertionError(f"{name} {shape}: launch 1's statistics disagree with the "
+                                 f"staged plain version: {r['stats_rel_err']}")
+        if not r["bit_identical"]:
+            raise AssertionError(f"{name} {shape}: two calls on the same inputs differ")
+        r["device_us_by_kernel"], r["launches_per_call"], r["profile_traces"] = \
+            device_us_by_kernel(call, launches=BWD_LAUNCHES)
+        if r["launches_per_call"] != BWD_LAUNCHES:
+            raise AssertionError(f"{name} {shape}: {r['launches_per_call']} CUDA launches per "
+                                 f"call, expected {BWD_LAUNCHES}")
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
+        r.update(ms=time_ms(call), plain_ms=time_ms(plain_fn, iters=10),
+                 library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                                                retain_graph=True)))
+        del sdpa, got
+        r["bound_ms"], r["bound_by"] = bound(flops, 8 * q.numel() * 4 + (0 if sd is None else 8),
+                                             torch.float32)
+        print(f"  {name} {shape}: {json.dumps(r)} (gradients tol {GRAD_TOL:.0e} of max, "
+              f"statistics tol {STATS_TOL:.0e} of max; 3xTF32 bound "
+              f"{tf32x3_bound_ms(flops):.6f} ms; before the redesign "
+              f"{PRIOR_MS[name].get(shape)} ms)", flush=True)
+        out[name] = r
+    return out
 
 
 @contextlib.contextmanager
@@ -1439,8 +1527,8 @@ def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
          "val_pass_s": sum(h["val_seconds"] for h in history) / UNFUSED_EPOCHS,
          "losses": [(h["train/loss"], h["val/loss"]) for h in history]}
     print(f"  unfused, dropout {rate}: {steps} steps in {train_s:.3f} s = "
-          f"{r['steps_per_s']:.3f} steps/s ({r['step_ms']:.2f} ms/step); launches {counts}",
-          flush=True)
+          f"{r['steps_per_s']:.3f} steps/s ({r['step_ms']:.2f} ms/step); launches {counts} "
+          f"(a B5 or B6-bwd call is {BWD_LAUNCHES} CUDA launches)", flush=True)
     return r
 
 
@@ -1840,9 +1928,11 @@ def main() -> int:
         phase("9 long sequences and wide layers", t0)
 
         t0 = time.perf_counter()
-        attn_kernels = {f"B={b} L={l}": check_attention_kernels(b, l, timed=True)
-                        for b, l in ATTN_SHAPES}
-        attn_main = attn_kernels[f"B={TRAIN_BATCH} L={MAX_LEN}"]
+        attn_kernels = {f"B={b} L={l}": check_attention_kernels(b, l) for b, l in ATTN_SHAPES}
+        attn_bwd = {f"B={b} H={h} L={l} dh={dh}": check_attention_bwd(b, h, l, dh)
+                    for b, h, l, dh in BWD_SHAPES}
+        attn_main = {**attn_kernels[f"B={TRAIN_BATCH} L={MAX_LEN}"],
+                     **attn_bwd[f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD}"]}
         phase("10 unfused attention kernels vs plain", t0)
 
         t0 = time.perf_counter()
@@ -1891,6 +1981,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder: ")},
             "device_us_by_kernel": breakdown[f"B1 {name}"]["device_us_by_kernel"],
+            "profile_traces": breakdown[f"B1 {name}"]["profile_traces"],
             "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048",
             "samples_per_s": main[dtype]["samples_per_s"],
             "by_batch": {str(b): c for b, c in by_batch.items()},
@@ -1930,6 +2021,7 @@ def main() -> int:
             "launches_per_call": breakdown[count]["launches_per_call"],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
             "device_us_by_kernel": breakdown[count]["device_us_by_kernel"],
+            "profile_traces": breakdown[count]["profile_traces"],
             **({"stage_ms": r["stage_ms"]} if key == "bwd" else {}),
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 fp32 dropout {DROPOUT}",
             "steps_per_s": training["steps_per_s"],
@@ -1943,16 +2035,24 @@ def main() -> int:
          unfused[DROPOUT]["launches"]["B6-bwd"]),
     ):
         r = attn_main[key]
+        checked = attn_kernels if key == "B6-fwd" else attn_bwd
+        extra = {} if key == "B6-fwd" else {
+            "functions": [f"{f}<{str(key == 'B6-bwd').lower()}, kDh>" for f in BWD_FUNCTIONS],
+            "launches_per_call": r["launches_per_call"],
+            "device_us_by_kernel": r["device_us_by_kernel"],
+            "profile_traces": r["profile_traces"],
+            "sass": {k: v for k, v in sass.items() if k.startswith("flash_attention: ")
+                     and "attention_bwd" in k}}
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
             "launches": launches,
-            "max_abs_err": max(a[key]["max_abs_err"] for a in attn_kernels.values()),
+            "max_abs_err": max(a[key]["max_abs_err"] for a in checked.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], **extra,
             "shape": f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD} float32"
                      + ("" if key == "B5" else f" dropout {DROPOUT}"),
             "sdpa_backend": attn_main["sdpa_backend"],
-            "checked_shapes": {k: a[key] for k, a in attn_kernels.items()},
+            "checked_shapes": {k: a[key] for k, a in checked.items()},
         })
     for level in INT8_LEVELS:
         by_shape = int8_checks[level]

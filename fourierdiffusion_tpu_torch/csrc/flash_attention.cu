@@ -19,9 +19,10 @@
 //     factors (keep / (1 - rate)) multiplied into P before P v, and into dP
 //     and P^T in the backward.
 // attention_fwd_mma_kernel<T, kFast, kDh> serves B2 (fp32, bf16 and the fast
-// bf16 form); attention_dropout_fwd_kernel serves B6-fwd;
-// attention_bwd_kernel<kDrop> serves B5 (kDrop false: every keep factor is
-// the constant 1) and B6-bwd. The training kernels are fp32 only.
+// bf16 form); attention_dropout_fwd_kernel serves B6-fwd; the two launches
+// attention_bwd_dq_mma_kernel<kDrop, kDh> and attention_bwd_dkv_mma_kernel<
+// kDrop, kDh> serve B5 (kDrop false: every keep factor is the constant 1)
+// and B6-bwd. The training kernels are fp32 only.
 //
 // Dropout masks: the TPU kernels' interpret-mode _keep_scale. Head h of
 // chain b is keyed by tag = seed + b*131071 + g0 (uint32), where g0 = h - h %
@@ -32,15 +33,19 @@
 // The hash is encoder_layer.cuh's. The seed is read from device memory, so
 // drawing it costs the host no synchronisation.
 //
-// The TPU kernels pad L to 128 lanes and mask keys at or past L; B2 pads the
-// keys to blocks of 64 and gives a padded key no weight; B5 and B6 take
-// exactly L keys, so nothing is masked there.
+// The TPU kernels pad L to 128 lanes and mask keys at or past L; B2, B5
+// and B6-bwd pad to blocks of 64 and give a padded key (or query row) no
+// weight; B6-fwd takes exactly L keys, so nothing is masked there.
 //
 // Bound: at the flagship's training shape (B 64, H 12, L 100, dh 6) the
 // forward does 4 B H L^2 dh = 184 MFLOP against 4 x 1.8 MB of q, k, v, o in
-// fp32, and the backward about three times that (12 B H L^2 dh) against 7 x
-// 1.8 MB, so operations bound both in fp32 (2.7 us and 8.3 us at 67
-// TFLOP/s); bytes bound the bf16 forward (1.1 us at 3.35 TB/s).
+// fp32, and the backward five products of that size (10 B H L^2 dh: S =
+// q k^T, dP = dO v^T, dq = dS k, dk = dS^T q, dv = P^T dO; D comes from the
+// saved o) against 8 x 1.8 MB (q, k, v, o, dO in; dq, dk, dv out), so
+// operations bound both in fp32 (2.7 us and 6.9 us at 67 TFLOP/s on the
+// CUDA cores; as 3xTF32 on the tensor cores, three times the products at
+// 495 TFLOP/s, 1.1 us and 2.8 us); bytes bound the bf16 forward (1.1 us at
+// 3.35 TB/s).
 //
 // B2's design (attention_fwd_mma_kernel): one CTA per (chain, head) and 128
 // query rows, a warp per 16 query rows (one m16 tile), up to 8 warps. The
@@ -61,19 +66,35 @@
 // head widths recomputing S costs one small mma per key tile. The launch's
 // plan (AttnFwdPlan) is computed by the Python wrapper and passed in. The
 // old forward (one row per warp, a shuffle sum per output) stays only for
-// B6-fwd.
+// B6-fwd: it stages the head's K and V in shared memory as fp32; each warp
+// takes query rows in turn, keeps the row of scores in shared memory,
+// reduces its max and sum with shuffles, and forms the dh outputs of the row
+// as warp sums over the keys.
 //
-// B5/B6's design: one CTA per (chain, head), 4 warps. The dropout forward
-// stages the head's K and V in shared memory as fp32; each warp takes query
-// rows in turn, keeps the row of scores in shared memory, reduces its max
-// and sum with shuffles, and forms the dh outputs of the row as warp sums
-// over the keys. The backward stages Q, K, V and dO of the head and makes
-// three passes, all with fixed warp and lane orders (no atomics, so its sums
-// are the same in every run): (1) per query row, the softmax max and sum and
-// D = dO . (P_used v); (2) per query row, dS over the keys and dq as warp
-// sums; (3) per key, dS and P_used down the column and dk, dv as warp sums.
-// Scores and probabilities are recomputed in each pass and never reach
-// device memory.
+// B5/B6-bwd's design: JAX's _bwd_core, dq = dS k scale, dk = dS^T q scale,
+// dv = P_used^T dO with dS = P o (dP o keep - D), as two launches on B2's
+// tiles, with no atomics: each output row is summed by one warp in one
+// fixed order, so two calls on the same inputs are bit-identical.
+//   Launch 1, attention_bwd_dq_mma_kernel: a CTA per (chain, head, 128 query
+//   rows), a warp per 16 rows, K and V streamed through B2's ring of two
+//   key blocks of 64. Pass 1 keeps each row's running max and rescaled sum
+//   (B2's first pass); D = dO . O takes the O the forward wrote (JAX
+//   recomputes O = P_used v, which in fp32 differs only in summation
+//   order); pass 2 computes S = q k^T scale and dP = dO v^T, forms P and
+//   dS with the keep factors, and adds dS K from the accumulator registers
+//   (the n8 tile's keys permuted as B2 feeds P into P v). It writes dq and
+//   each row's (m, l, D) to a (B, H, L, 3) scratch.
+//   Launch 2, attention_bwd_dkv_mma_kernel: a CTA per (chain, head, 128
+//   keys), a warp per 16 keys, Q, dO and the rows' statistics streamed
+//   through the ring in blocks of 64 query rows: S^T = k q^T scale and dP^T
+//   = v dO^T, P^T from the statistics (0 for query rows at or past L, whose
+//   statistics were never written), then dk += dS^T q and dv += (P o
+//   keep)^T dO.
+// Every product is 3xTF32 on mma.sync, with mma_tile.cuh's fragments. The
+// keep factors are hashed per (i, j) in both launches, as B4's attention
+// stage does. Shared memory is two stages of two blocks and the statistics
+// of 64 rows whatever L (AttnBwdPlan, from the Python wrapper), so every
+// length runs. Scores and probabilities never reach device memory.
 
 #include <cmath>
 
@@ -93,6 +114,21 @@ struct AttnFwdPlan {
   int stride;      // row stride (elements) of a staged K or V block
   int stage;       // elements of a stage of the ring
   int bytes;       // dynamic shared memory: two stages
+};
+
+// B5/B6-bwd's two launches, as ops/flash_attention.py's AttnBwdPlan passes
+// it (computed there by attention_bwd_plan). Launch 1 takes the rows of a
+// tile as query rows and streams blocks of keys (K, then K and V); launch 2
+// takes them as keys and streams blocks of query rows (Q, dO and their
+// statistics).
+struct AttnBwdPlan {
+  int kdh;     // head width of the instance: dh padded to the mma's k step (8), doubled
+  int warps;   // per CTA: one per 16 rows, at most 8
+  int tiles;   // CTAs per head (grid.y): tiles of 128 rows
+  int blocks;  // blocks of 64 rows streamed through the ring
+  int stride;  // row stride (floats) of a staged block
+  int stage;   // floats of a stage of the ring: two blocks and 64 rows of statistics
+  int bytes;   // dynamic shared memory: two stages
 };
 
 namespace {
@@ -148,9 +184,9 @@ namespace tc = fdiff::tc;
 
 constexpr int kKeyBlock = 64;  // keys per block of the two passes; keys pad to it
 constexpr int kWarpRows = 16;  // query rows per warp: one m16 tile
-constexpr int kFwdWarps = 8;   // at most; 128 query rows per CTA
-constexpr int kTileRows = kFwdWarps * kWarpRows;
-constexpr int kFwdStages = 2;  // key blocks in the ring: one staged while one is used
+constexpr int kMmaWarps = 8;   // at most; 128 query rows per CTA
+constexpr int kTileRows = kMmaWarps * kWarpRows;
+constexpr int kRingStages = 2;  // key blocks in the ring: one staged while one is used
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a in the low half
@@ -178,11 +214,52 @@ __device__ __forceinline__ void stage_keys(T* __restrict__ s, int S, const T* __
   }
 }
 
+// The ring of B2 and of B5/B6-bwd's launches: step s + 1 is staged (load)
+// while step s is used; ring_begin(s) waits for step s and gives its stage;
+// the barrier after its use frees the stage for step s + 2.
+template <typename T, typename Load>
+__device__ __forceinline__ T* ring_begin(T* ring, int stage, int s, int steps, Load load) {
+  if (s + 1 < steps) load(s + 1);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  return ring + (s % kRingStages) * stage;
+}
+
+// acc[n] += x . (rows n0 .. n0 + 7 of the staged block s, columns 8n ..
+// 8n + 7) for the head width's NO n8 tiles, as 3xTF32. x is a tile in the
+// accumulator layout over those 8 block rows (element e at row g + 8 (e >>
+// 1), block row n0 + 2t + (e & 1)); taking block rows n0 + 2t and n0 + 2t +
+// 1 as the mma's k = t and t + 4 makes (x0, x1; x2, x3) the A fragment (a0,
+// a2; a1, a3), and the block's rows are read in the same order (B2's P v in
+// fp32, and B5/B6-bwd's dS K, dS^T Q and P^T dO).
+template <int NO>
+__device__ __forceinline__ void acc_times_block(float (&acc)[NO][4], const float (&x)[4],
+                                                const float* __restrict__ s, int S, int n0,
+                                                int dh) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float xa[4] = {x[0], x[2], x[1], x[3]};
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) tc::split_tf32(xa[e], ah[e], al[e]);
+  const float* r = s + (n0 + 2 * t) * S + g;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (8 * n >= dh) break;
+    uint32_t bh[2], bl[2];
+    tc::split_tf32(r[8 * n], bh[0], bl[0]);
+    tc::split_tf32(r[8 * n + S], bh[1], bl[1]);
+    tc::mma_tf32(acc[n], al, bh);
+    tc::mma_tf32(acc[n], ah, bl);
+    tc::mma_tf32(acc[n], ah, bh);
+  }
+}
+
 // B2 over (B, H, L, dh) tensors: grid (B * H, p.q_tiles); blockDim p.warps
 // warps. kFast: the max-free bf16 form; `scale` (rounded to bf16 by the
 // caller) then scales q as it is loaded, rounded to bf16, in place of S.
 template <typename T, bool kFast, int kDh>
-__global__ void __launch_bounds__(kFwdWarps * 32)
+__global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o, int L, int dh,
                          float scale, AttnFwdPlan p) {
@@ -194,11 +271,11 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int S = p.stride, nb = p.key_blocks, steps = 2 * nb;
   const size_t base = (size_t)blockIdx.x * L * dh;
 
-  // Step s of 2 nb stages key block s % nb into stage s % kFwdStages: K in
+  // Step s of 2 nb stages key block s % nb into stage s % kRingStages: K in
   // the first pass (s < nb), K and V in the second; zero past L keys and dh
   // columns.
   auto load = [&](int s) {
-    T* sK = ring + (s % kFwdStages) * p.stage;
+    T* sK = ring + (s % kRingStages) * p.stage;
     const int j0 = (s % nb) * kKeyBlock;
     stage_keys<T, kDh>(sK, S, k + base, j0, L, dh);
     if (s >= nb) stage_keys<T, kDh>(sK + kKeyBlock * S, S, v + base, j0, L, dh);
@@ -339,29 +416,10 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if constexpr (kF32) {
-      // The n8 tile's keys n + 2t and n + 2t + 1 are the mma's k = t and
-      // t + 4: the accumulator (c0, c1; c2, c3) is then the A fragment
-      // (a0, a2; a1, a3), and V's rows are read in the same order.
-      const float* vf = reinterpret_cast<const float*>(sV);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j0 + 8 * j >= L) continue;
-        uint32_t ah[4], al[4];
-        const float pa[4] = {pr[j][0], pr[j][2], pr[j][1], pr[j][3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tc::split_tf32(pa[e], ah[e], al[e]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          if (8 * n >= dh) continue;
-          const float* vr = vf + (8 * j + 2 * t) * S + 8 * n + g;
-          uint32_t bh[2], bl[2];
-          tc::split_tf32(vr[0], bh[0], bl[0]);
-          tc::split_tf32(vr[S], bh[1], bl[1]);
-          tc::mma_tf32(acc[n], al, bh);
-          tc::mma_tf32(acc[n], ah, bl);
-          tc::mma_tf32(acc[n], ah, bh);
-        }
-      }
+      for (int j = 0; j < 8; ++j)
+        if (j0 + 8 * j < L)
+          acc_times_block(acc, pr[j], reinterpret_cast<const float*>(sV), S, 8 * j, dh);
     } else {
       // Two n8 tiles of P (16 keys) are one m16n8k16 A fragment, rounded to
       // bf16 as it is packed.
@@ -383,24 +441,14 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  // The ring: step s + 1 is staged while step s is used. begin(s) waits
-  // for step s's block and gives its stage; the barrier after its use
-  // frees the stage for step s + 2.
-  auto begin = [&](int s) {
-    if (s + 1 < steps) load(s + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    return ring + (s % kFwdStages) * p.stage;
-  };
   for (int s = 0; s < nb; ++s) {
-    const T* sK = begin(s);
+    const T* sK = ring_begin(ring, p.stage, s, steps, load);
     if (live) pass1(sK, s * kKeyBlock);
     __syncthreads();
   }
   if (live) row_stats();
   for (int s = nb; s < steps; ++s) {
-    const T* sK = begin(s);
+    const T* sK = ring_begin(ring, p.stage, s, steps, load);
     if (live) pass2(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
     __syncthreads();
   }
@@ -421,9 +469,9 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, bool kFast, int kDh>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
                    int dh, float scale, const AttnFwdPlan& p, cudaStream_t stream) {
-  if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kFwdWarps ||
+  if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
       p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride ||
-      p.bytes < kFwdStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
+      p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   auto kernel = attention_fwd_mma_kernel<T, kFast, kDh>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -505,134 +553,289 @@ attention_dropout_fwd_kernel(const float* __restrict__ q, const float* __restric
   }
 }
 
-// S[i, j] = (q_i . k_j) * scale and dO_i . v_j, in one fixed order, so that
-// every pass of the backward recomputes the same values.
-__device__ __forceinline__ float score(const float* qs, const float* ks, int i, int j, int dh,
-                                       float scale) {
-  float s = 0.0f;
-  for (int d = 0; d < dh; ++d) s = fmaf(qs[i * dh + d], ks[j * dh + d], s);
-  return s * scale;
+// ---- B5 and B6-bwd: the attention backward on mma.sync tiles ------------------------------
+
+constexpr int kStatCols = 3;  // per query row: the softmax max m, its sum l, D = dO . O
+
+// Rows [r0, r0 + 16) x columns [0, kDh) of a head's (L, dh) fp32 rows as
+// m16n8k8 A fragments split into TF32 hi and lo (element e of k step ks:
+// row g + 8 (e & 1), column 8 ks + t + 4 (e >> 1)), zero past L and dh.
+template <int kDh>
+struct RowFrags {
+  uint32_t hi[kDh / 8][4], lo[kDh / 8][4];
+
+  __device__ __forceinline__ void load(const float* __restrict__ x, int r0, int L, int dh) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < kDh / 8; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e & 1), c = 8 * ks + t + 4 * (e >> 1);
+        tc::split_tf32(r < L && c < dh ? x[(size_t)r * dh + c] : 0.0f, hi[ks][e], lo[ks][e]);
+      }
+  }
+};
+
+// c = (the 16 rows of a) . (rows n .. n + 7 of the staged block s)^T over the
+// head width, as 3xTF32: element e at (row g + 8 (e >> 1), block row n + 2t
+// + (e & 1)). The block's rows are split into TF32 hi and lo as they are read.
+template <int kDh>
+__device__ __forceinline__ void rows_dot_block(float (&c)[4], const RowFrags<kDh>& a,
+                                               const float* __restrict__ s, int S, int n,
+                                               int dh) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* r = s + (n + g) * S + t;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < kDh / 8; ++ks) {
+    if (8 * ks >= dh) break;
+    uint32_t bh[2], bl[2];
+    tc::split_tf32(r[8 * ks], bh[0], bl[0]);
+    tc::split_tf32(r[8 * ks + 4], bh[1], bl[1]);
+    tc::mma_tf32(c, a.lo[ks], bh);
+    tc::mma_tf32(c, a.hi[ks], bl);
+    tc::mma_tf32(c, a.hi[ks], bh);
+  }
 }
 
-__device__ __forceinline__ float dot_rows(const float* a, const float* b, int i, int j,
-                                          int dh) {
-  float s = 0.0f;
-  for (int d = 0; d < dh; ++d) s = fmaf(a[i * dh + d], b[j * dh + d], s);
-  return s;
+// out[r0 + row, col] = acc * scale for the warp's rows below L and columns
+// below dh (element e of tile n at row g + 8 (e >> 1), column 8n + 2t + (e
+// & 1)).
+template <int NO>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&acc)[NO][4],
+                                           int r0, int L, int dh, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+      if (r < L && c < dh) out[(size_t)r * dh + c] = acc[n][e] * scale;
+    }
 }
 
-// Shared memory of the backward, in floats: q, k, v, dO of the head
-// (4 L dh), the row statistics m, l, D (3 L), and two L-long buffers per warp.
-__host__ __device__ inline int bwd_smem_floats(int L, int dh) {
-  return 4 * L * dh + 3 * L + 2 * kWarps * L;
-}
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                     int H, int L, int dh, float scale, AttnDropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // L x dh
-  float* ks = qs + L * dh;
-  float* vs = ks + L * dh;
-  float* dos = vs + L * dh;
-  float* row_m = dos + L * dh;      // softmax max of row i
-  float* row_l = row_m + L;         // softmax sum of row i
-  float* row_d = row_l + L;         // D_i = dO_i . O_i
-  float* bufs = row_d + L;          // kWarps x 2L
+// Launch 1 over (B, H, L, dh) fp32 heads: grid (B * H, p.tiles), p.warps
+// warps, a warp per 16 query rows. dq = scale dS K, and (m, l, D) of each
+// row into stats (B, H, L, 3).
+template <bool kDrop, int kDh>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ o,
+                            const float* __restrict__ dout, float* __restrict__ dq,
+                            float* __restrict__ stats, int H, int L, int dh, float scale,
+                            AttnDropout drop, AttnBwdPlan p) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* ring = reinterpret_cast<float*>(bwd_smem);
+  const int S = p.stride, nb = p.blocks, steps = 2 * nb;
   const size_t base = (size_t)blockIdx.x * L * dh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Step s of 2 nb stages key block s % nb: K in pass 1 (s < nb), K and V
+  // in pass 2; zero past L keys and dh columns.
+  auto load = [&](int s) {
+    float* sK = ring + (s % kRingStages) * p.stage;
+    const int j0 = (s % nb) * kKeyBlock;
+    stage_keys<float, kDh>(sK, S, k + base, j0, L, dh);
+    if (s >= nb) stage_keys<float, kDh>(sK + kKeyBlock * S, S, v + base, j0, L, dh);
+  };
+  load(0);
+  tc::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
+  const bool live = r0 < L;  // a warp past L still stages and waits at the barriers
   const HeadMask mask = head_mask<kDrop>(drop, blockIdx.x / H, blockIdx.x % H);
-  for (int e = threadIdx.x; e < L * dh; e += blockDim.x) {
-    qs[e] = q[base + e];
-    ks[e] = k[base + e];
-    vs[e] = v[base + e];
-    dos[e] = dout[base + e];
-  }
-  __syncthreads();
-  float* buf = bufs + warp * 2 * L;
-  float* buf2 = buf + L;
+  RowFrags<kDh> qf, df;
+  if (live) qf.load(q + base, r0, L, dh);
 
-  // Pass 1, per query row i: m, l and D = sum_d dO[i, d] O[i, d] with
-  // O = P_used v recomputed (P_used = P o keep).
-  for (int i = warp; i < L; i += kWarps) {
-    float m = -FLT_MAX;
-    for (int j = lane; j < L; j += 32) {
-      const float s = score(qs, ks, i, j, dh, scale);
-      buf[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(buf[j] - m);
-      buf[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) buf[j] = buf[j] / sum * keep<kDrop>(mask, i, j);
-    __syncwarp();
-    float dsum = 0.0f;
-    for (int d = 0; d < dh; ++d) {
-      float acc = 0.0f;
-      for (int j = lane; j < L; j += 32) acc = fmaf(buf[j], vs[j * dh + d], acc);
-      dsum = fmaf(dos[i * dh + d], warp_sum(acc), dsum);
-    }
-    if (lane == 0) {
-      row_m[i] = m;
-      row_l[i] = sum;
-      row_d[i] = dsum;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
+  // S of the n8 tile at key n of the block staged at sK, whose first key is
+  // j0, scaled; keys past L give -inf (0 weight).
+  auto scores = [&](const float* sK, int j0, int n, float (&c)[4]) {
+    if (j0 + n < L) rows_dot_block(c, qf, sK, S, n, dh);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[e] = j0 + n + 2 * t + (e & 1) < L ? c[e] * scale : -INFINITY;
+  };
 
-  // Pass 2, per query row i: dS[i, :] and dq_i = scale * sum_j dS[i, j] k_j.
-  for (int i = warp; i < L; i += kWarps) {
-    const float m = row_m[i], l = row_l[i], D = row_d[i];
-    for (int j = lane; j < L; j += 32) {
-      const float p = expf(score(qs, ks, i, j, dh, scale) - m) / l;
-      const float dp = dot_rows(dos, vs, i, j, dh) * keep<kDrop>(mask, i, j);
-      buf[j] = p * (dp - D);
+  // Pass 1, per row (g and g + 8): the running max and the sum of exp(s -
+  // max) rescaled as the max grows, over this thread's keys of the block;
+  // then over the row's four threads.
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
+  auto pass1 = [&](const float* sK, int j0) {
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) scores(sK, j0, 8 * j, sc[j]);
+    float mb[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mb[e >> 1] = fmaxf(mb[e >> 1], sc[j][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] *= expf(m[r] - mb[r]);
+      m[r] = mb[r];
     }
-    __syncwarp();
-    for (int d = 0; d < dh; ++d) {
-      float acc = 0.0f;
-      for (int j = lane; j < L; j += 32) acc = fmaf(buf[j], ks[j * dh + d], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) dq[base + (size_t)i * dh + d] = acc * scale;
-    }
-    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+  };
+  for (int s = 0; s < nb; ++s) {
+    const float* sK = ring_begin(ring, p.stage, s, steps, load);
+    if (live) pass1(sK, s * kKeyBlock);
+    __syncthreads();
   }
 
-  // Pass 3, per key j: dS[:, j] and P_used[:, j]; dk_j = scale * sum_i
-  // dS[i, j] q_i and dv_j = sum_i P_used[i, j] dO_i.
-  for (int j = warp; j < L; j += kWarps) {
-    for (int i = lane; i < L; i += 32) {
-      const float p = expf(score(qs, ks, i, j, dh, scale) - row_m[i]) / row_l[i];
-      const float kp = keep<kDrop>(mask, i, j);
-      const float dp = dot_rows(dos, vs, i, j, dh) * kp;
-      buf[i] = p * (dp - row_d[i]);
-      buf2[i] = p * kp;
-    }
-    __syncwarp();
-    for (int d = 0; d < dh; ++d) {
-      float acc_k = 0.0f, acc_v = 0.0f;
-      for (int i = lane; i < L; i += 32) {
-        acc_k = fmaf(buf[i], qs[i * dh + d], acc_k);
-        acc_v = fmaf(buf2[i], dos[i * dh + d], acc_v);
+  // The row statistics over the quad, and D = dO . O of each row (a quad
+  // thread per fourth column, then over the quad), both the same in all
+  // four threads.
+  float D[2] = {0.0f, 0.0f};
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off), mn = fmaxf(m[r], mo);
+        l[r] = l[r] * expf(m[r] - mn) + lo * expf(mo - mn);
+        m[r] = mn;
       }
-      acc_k = warp_sum(acc_k);
-      acc_v = warp_sum(acc_v);
-      if (lane == 0) {
-        dk[base + (size_t)j * dh + d] = acc_k * scale;
-        dv[base + (size_t)j * dh + d] = acc_v;
+      const int row = r0 + g + 8 * r;
+      if (row < L)
+        for (int c = t; c < dh; c += 4)
+          D[r] = fmaf(dout[base + (size_t)row * dh + c], o[base + (size_t)row * dh + c], D[r]);
+      D[r] += __shfl_xor_sync(0xffffffffu, D[r], 1);
+      D[r] += __shfl_xor_sync(0xffffffffu, D[r], 2);
+    }
+    df.load(dout + base, r0, L, dh);
+  }
+
+  // Pass 2: S and dP = dO V^T again per n8 tile of keys, P = exp(s - m) /
+  // l, dS = P (dP keep - D), and dq += dS K from the accumulator registers.
+  float acc[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  auto pass2 = [&](const float* sK, const float* sV, int j0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j0 + 8 * j >= L) break;
+      float sc[4], dp[4], ds[4];
+      scores(sK, j0, 8 * j, sc);
+      rows_dot_block(dp, df, sV, S, 8 * j, dh);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, i = r0 + g + 8 * r, jj = j0 + 8 * j + 2 * t + (e & 1);
+        const float pr = expf(sc[e] - m[r]) / l[r];
+        ds[e] = pr * (dp[e] * keep<kDrop>(mask, i, jj) - D[r]);
+      }
+      acc_times_block(acc, ds, sK, S, 8 * j, dh);
+    }
+  };
+  for (int s = nb; s < steps; ++s) {
+    const float* sK = ring_begin(ring, p.stage, s, steps, load);
+    if (live) pass2(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
+    __syncthreads();
+  }
+  if (!live) return;
+
+  store_rows(dq + base, acc, r0, L, dh, scale);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row < L) {
+        float* st = stats + ((size_t)blockIdx.x * L + row) * kStatCols;
+        st[0] = m[r];
+        st[1] = l[r];
+        st[2] = D[r];
       }
     }
-    __syncwarp();
   }
+}
+
+// Launch 2 over the same heads: grid (B * H, p.tiles), p.warps warps, a
+// warp per 16 keys. dk = scale dS^T Q and dv = (P o keep)^T dO, with P^T
+// formed from launch 1's statistics.
+template <bool kDrop, int kDh>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+attention_bwd_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ stats, float* __restrict__ dk,
+                             float* __restrict__ dv, int H, int L, int dh, float scale,
+                             AttnDropout drop, AttnBwdPlan p) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* ring = reinterpret_cast<float*>(bwd_smem);
+  const int S = p.stride, nb = p.blocks;
+  const size_t base = (size_t)blockIdx.x * L * dh;
+  const float* head_stats = stats + (size_t)blockIdx.x * L * kStatCols;
+
+  // Step s stages query block s: its rows of Q and dO (zero past L rows and
+  // dh columns) and their statistics (zero past L).
+  auto load = [&](int s) {
+    float* sQ = ring + (s % kRingStages) * p.stage;
+    const int i0 = s * kKeyBlock;
+    stage_keys<float, kDh>(sQ, S, q + base, i0, L, dh);
+    stage_keys<float, kDh>(sQ + kKeyBlock * S, S, dout + base, i0, L, dh);
+    float* st = sQ + 2 * kKeyBlock * S;
+    for (int c = threadIdx.x; c < kKeyBlock * kStatCols; c += blockDim.x) {
+      const bool in = i0 + c / kStatCols < L;
+      tc::cp_async4(st + c, in ? head_stats + (size_t)i0 * kStatCols + c : head_stats,
+                    in ? 4 : 0);
+    }
+  };
+  load(0);
+  tc::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
+  const bool live = r0 < L;
+  const HeadMask mask = head_mask<kDrop>(drop, blockIdx.x / H, blockIdx.x % H);
+  RowFrags<kDh> kf, vf;
+  if (live) {
+    kf.load(k + base, r0, L, dh);
+    vf.load(v + base, r0, L, dh);
+  }
+  float dka[kDh / 8][4], dva[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+
+  // Per n8 tile of query rows: S^T and dP^T, P^T = exp(s - m) / l (0 past
+  // L, in either direction), dS^T = P^T (dP^T keep - D), then dk += dS^T Q
+  // and dv += (P^T keep) dO from the accumulator registers.
+  auto block = [&](const float* sQ, int i0) {
+    const float* sD = sQ + kKeyBlock * S;
+    const float* st = sQ + 2 * kKeyBlock * S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (i0 + 8 * j >= L) break;
+      float sc[4], dp[4], ds[4], pk[4];
+      rows_dot_block(sc, kf, sQ, S, 8 * j, dh);
+      rows_dot_block(dp, vf, sD, S, 8 * j, dh);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = r0 + g + 8 * (e >> 1), il = 8 * j + 2 * t + (e & 1), i = i0 + il;
+        const float* sti = st + il * kStatCols;
+        const float pr = i < L && key < L ? expf(sc[e] * scale - sti[0]) / sti[1] : 0.0f;
+        const float kp = keep<kDrop>(mask, i, key);
+        ds[e] = pr * (dp[e] * kp - sti[2]);
+        pk[e] = pr * kp;
+      }
+      acc_times_block(dka, ds, sQ, S, 8 * j, dh);
+      acc_times_block(dva, pk, sD, S, 8 * j, dh);
+    }
+  };
+  for (int s = 0; s < nb; ++s) {
+    const float* sQ = ring_begin(ring, p.stage, s, nb, load);
+    if (live) block(sQ, s * kKeyBlock);
+    __syncthreads();
+  }
+  if (!live) return;
+  store_rows(dk + base, dka, r0, L, dh, scale);
+  store_rows(dv + base, dva, r0, L, dh, 1.0f);
 }
 
 // The keep factors of B6 as the kernels above apply them, (B, H, L, L), for checking.
@@ -661,20 +864,55 @@ int launch_dropout_fwd(const void* q, const void* k, const void* v, void* o, int
   return (int)cudaGetLastError();
 }
 
-template <bool kDrop>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
-               void* dk, void* dv, int B, int H, int L, int dh, float scale,
-               const AttnDropout& drop, cudaStream_t stream) {
-  const int bytes = bwd_smem_floats(L, dh) * (int)sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<kDrop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// B5 (kDrop false) or B6-bwd at the instance's head width: launch 1, then
+// launch 2 on the same stream.
+template <bool kDrop, int kDh>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, void* dq, void* dk, void* dv, void* stats, int B, int H,
+                   int L, int dh, float scale, const AttnDropout& drop, const AttnBwdPlan& p,
+                   cudaStream_t stream) {
+  if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
+      (p.tiles - 1) * kTileRows + p.warps * kWarpRows < L || p.blocks * kKeyBlock < L ||
+      p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride + kKeyBlock * kStatCols ||
+      p.bytes < kRingStages * p.stage * (int)sizeof(float) || p.bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  auto in = [](const void* x) { return static_cast<const float*>(x); };
+  auto out = [](void* x) { return static_cast<float*>(x); };
+  auto dq_kernel = attention_bwd_dq_mma_kernel<kDrop, kDh>;
+  auto dkv_kernel = attention_bwd_dkv_mma_kernel<kDrop, kDh>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<kDrop><<<B * H, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, L, dh, scale, drop);
+  const dim3 grid(B * H, p.tiles);
+  dq_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(in(q), in(k), in(v), in(o), in(dout),
+                                                     out(dq), out(stats), H, L, dh, scale, drop,
+                                                     p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(in(q), in(k), in(v), in(dout), in(stats),
+                                                      out(dk), out(dv), H, L, dh, scale, drop,
+                                                      p);
   return (int)cudaGetLastError();
+}
+
+// The instance by the plan's head width.
+template <bool kDrop>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               void* dq, void* dk, void* dv, void* stats, int B, int H, int L, int dh,
+               float scale, const AttnDropout& drop, const AttnBwdPlan& p, cudaStream_t s) {
+  switch (p.kdh) {
+    case 8: return launch_bwd_mma<kDrop, 8>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                            scale, drop, p, s);
+    case 16: return launch_bwd_mma<kDrop, 16>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                              scale, drop, p, s);
+    case 32: return launch_bwd_mma<kDrop, 32>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                              scale, drop, p, s);
+    case 64: return launch_bwd_mma<kDrop, 64>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                              scale, drop, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -707,18 +945,25 @@ int fdiff_attention_fwd(int variant, const void* q, const void* k, const void* v
   return (int)cudaErrorInvalidValue;
 }
 
-// fp32 backward: dq, dk, dv from q, k, v and dO (all (B, H, L, dh)); seed as
-// in fdiff_attention_fwd (null: B5, else B6-bwd).
-int fdiff_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                        void* dq, void* dk, void* dv, int B, int H, int L, int dh,
-                        float scale, const void* seed, unsigned int thr, float keep_scale,
-                        int group, void* stream) {
+// fp32 backward (B5 with seed null, else B6-bwd): dq, dk, dv from q, k, v,
+// the forward's output o and dO (all (B, H, L, dh)), in two launches
+// (plan: ops/flash_attention.py: attention_bwd_plan), with the rows'
+// softmax max, sum and D = dO . o written to stats (B, H, L, 3); seed,
+// thr, keep_scale and group as in fdiff_attention_fwd.
+int fdiff_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+                        int H, int L, int dh, float scale, const AttnBwdPlan* plan,
+                        const void* seed, unsigned int thr, float keep_scale, int group,
+                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const AttnDropout drop{static_cast<const long long*>(seed), thr, keep_scale, group};
   if (seed == nullptr)
-    return launch_bwd<false>(q, k, v, dout, dq, dk, dv, B, H, L, dh, scale, drop, s);
+    return launch_bwd<false>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh, scale, drop,
+                             *plan, s);
   if (group < 1) return (int)cudaErrorInvalidValue;
-  return launch_bwd<true>(q, k, v, dout, dq, dk, dv, B, H, L, dh, scale, drop, s);
+  return launch_bwd<true>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh, scale, drop, *plan,
+                          s);
 }
 
 // The (B, H, L, L) keep factors of fdiff_attention_fwd's dropout, for checking.
@@ -730,11 +975,6 @@ int fdiff_attention_dropout_masks(void* out, int B, int H, int L, const void* se
   attention_masks_kernel<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), B, H, L, drop);
   return (int)cudaGetLastError();
-}
-
-// Shared-memory bytes of one backward CTA.
-int fdiff_attention_bwd_smem_bytes(int L, int dh) {
-  return bwd_smem_floats(L, dh) * (int)sizeof(float);
 }
 
 const char* fdiff_attention_error_string(int code) {

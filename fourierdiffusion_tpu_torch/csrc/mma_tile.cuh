@@ -1,8 +1,9 @@
 // Tensor-core tile products for Hopper (sm_90a), shared by the layer
 // kernels of encoder_layer_tc.cuh (the sampling layer B1, the training
 // forward B3 and B4's recompute of it), the training backward (B4,
-// fused_encoder_train.cu) and the attention forward (B2, flash_attention.cu,
-// which uses the fragment helpers and stage_tile).
+// fused_encoder_train.cu) and the attention forward and backward (B2, B5
+// and B6-bwd, flash_attention.cu, which use the fragment helpers and
+// stage_tile).
 //
 // Operands are staged in shared memory and multiplied by warp-level
 // mma.sync with fp32 accumulators in registers, in two forms:

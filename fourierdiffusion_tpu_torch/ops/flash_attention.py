@@ -6,9 +6,11 @@ with and without dropout on the attention weights (port of
 differentiable (``FlashAttention``):
 
 * on CUDA tensors the forward launches the hand-written kernel B2 (on the
-  tensor cores, ``attention_fwd_plan``) and the backward the kernel B5
+  tensor cores, ``attention_fwd_plan``) and the backward the kernel B5 (two
+  launches on the tensor cores, ``attention_bwd_plan``; it takes the
+  forward's output, which the Function saves beside q, k and v)
   (``csrc/flash_attention.cu``); ``launches`` and ``bwd_launches`` count
-  them;
+  them, one per call;
 * on CPU tensors it runs ``flash_attention_reference`` and, for the
   gradient, ``flash_attention_bwd_reference``, the plain PyTorch versions.
 
@@ -30,6 +32,10 @@ clamped to +-60, exp, reciprocal of the row sum). P is rounded to the
 input dtype and ``O = P v`` accumulates in fp32. The backward recomputes P
 with the exact softmax in fp32. The kernels of the backward and of the
 dropout forward are fp32 only: a bf16 tensor on the card raises there.
+``attention_bwd_staged`` is the plain version of the backward as its two
+launches split the work (row statistics over key blocks, then dq; then dk
+and dv over blocks of query rows), beside the plain versions of JAX's
+``_bwd_core``.
 """
 
 from __future__ import annotations
@@ -58,7 +64,9 @@ MAX_DH = 64  # the CUDA kernels' largest head dim
 # rows) per CTA.
 KEY_BLOCK, WARP_ROWS, MAX_WARPS, FWD_STAGES = 64, 16, 8, 2
 TILE_ROWS = MAX_WARPS * WARP_ROWS
-SMEM_LIMIT = 232448  # bytes of shared memory a block can opt into on sm_90
+# B5/B6-bwd's statistics per query row (softmax max, sum, D = dO . O); its
+# two launches take B2's tiles and ring.
+STAT_COLS = 3
 
 #: Kernel launches so far in this process; only the CUDA branches add to
 #: them (B2, B5, B6-fwd, B6-bwd). Callers reset them to 0 to count a run.
@@ -182,6 +190,47 @@ def flash_attention_dropout_bwd_reference(q, k, v, do, seed, rate: float):
     return _bwd_core(q, k, v, do, _keep_of(q, seed, rate))
 
 
+def attention_bwd_staged(q, k, v, o, do, keep: torch.Tensor | None = None):
+    """Plain PyTorch version of B5 (``keep`` None) and B6-bwd as their two
+    launches split the work, fp32: launch 1 keeps each query row's running
+    max and rescaled sum over key blocks of 64, takes D = dO . o from the
+    forward's output ``o``, and adds dq block by block; launch 2 forms P
+    from those statistics and adds dk and dv over blocks of 64 query rows.
+    Returns ``(dq, dk, dv, stats)``, stats ``(B, H, L, 3)``: m, l, D."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    n = q.shape[-2]
+    blocks = [(i0, min(n, i0 + KEY_BLOCK)) for i0 in range(0, n, KEY_BLOCK)]
+
+    def scores(qb, kb):
+        return (qb @ kb.transpose(-1, -2)) * scale
+
+    m = torch.full(q.shape[:-1] + (1,), torch.finfo(torch.float32).min, device=q.device)
+    total = torch.zeros_like(m)
+    for j0, j1 in blocks:
+        s = scores(qf, kf[..., j0:j1, :])
+        mb = torch.maximum(m, s.amax(-1, keepdim=True))
+        total = total * torch.exp(m - mb) + torch.exp(s - mb).sum(-1, keepdim=True)
+        m = mb
+    d_col = (dof * of).sum(-1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    for j0, j1 in blocks:
+        p = torch.exp(scores(qf, kf[..., j0:j1, :]) - m) / total
+        dp = dof @ vf[..., j0:j1, :].transpose(-1, -2)
+        ds = p * (dp * (1.0 if keep is None else keep[..., j0:j1]) - d_col)
+        dq = dq + ds @ kf[..., j0:j1, :]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0, i1 in blocks:
+        rows = slice(i0, i1)
+        p = torch.exp(scores(qf[..., rows, :], kf) - m[..., rows, :]) / total[..., rows, :]
+        kp = 1.0 if keep is None else keep[..., rows, :]
+        dp = dof[..., rows, :] @ vf.transpose(-1, -2)
+        ds = p * (dp * kp - d_col[..., rows, :])
+        dk = dk + ds.transpose(-1, -2) @ qf[..., rows, :]
+        dv = dv + (p * kp).transpose(-1, -2) @ dof[..., rows, :]
+    return dq * scale, dk * scale, dv, torch.cat([m, total, d_col], dim=-1)
+
+
 # ---- the kernels ---------------------------------------------------------------------
 
 
@@ -219,6 +268,40 @@ def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
     return {**plan, "struct": AttnFwdPlan(**plan)}
 
 
+class AttnBwdPlan(ctypes.Structure):
+    """B5/B6-bwd's two launches as the kernels take them (``AttnBwdPlan`` of
+    ``csrc/flash_attention.cu``): the instance's head width, warps per CTA,
+    CTAs per head, blocks of 64 rows in the ring, the row stride of a staged
+    block, the floats of a stage and the shared memory in bytes."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "kdh", "warps", "tiles", "blocks", "stride", "stage", "bytes")]
+
+
+@functools.lru_cache(maxsize=64)
+def attention_bwd_plan(max_len: int, dh: int) -> dict:
+    """B5/B6-bwd's launches at length ``max_len`` and head width ``dh``
+    (fp32, every chain and head alike). Both take tiles of 128 rows (query
+    rows in launch 1, keys in launch 2), a warp per 16 of them (at most 8),
+    and stream blocks of 64 rows (keys, then query rows) through a ring of
+    FWD_STAGES stages: ``kdh`` (8 doubled up to cover dh), ``warps``,
+    ``tiles``, ``blocks``, the row ``stride`` of a staged block, the floats
+    of a ``stage`` (two blocks and 64 rows of STAT_COLS statistics), the
+    shared memory in ``bytes`` (whatever L) and all of it as
+    ``AttnBwdPlan`` (``struct``)."""
+    from fourierdiffusion_tpu_torch.ops.fused_encoder import tile_stride  # (import cycle)
+
+    kdh = 8
+    while kdh < dh:
+        kdh *= 2
+    stride = tile_stride(4, kdh, True)
+    stage = 2 * KEY_BLOCK * stride + KEY_BLOCK * STAT_COLS
+    plan = {"kdh": kdh, "warps": min(MAX_WARPS, -(-max_len // WARP_ROWS)),
+            "tiles": -(-max_len // TILE_ROWS), "blocks": -(-max_len // KEY_BLOCK),
+            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * 4}
+    return {**plan, "struct": AttnBwdPlan(**plan)}
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, dh), got shape {tuple(q.shape)}")
@@ -245,11 +328,9 @@ def _library() -> ctypes.CDLL:
     lib.fdiff_attention_fwd.restype = i
     lib.fdiff_attention_fwd.argtypes = [i] + [p] * 4 + [i] * 4 + [f, p] + dropout
     lib.fdiff_attention_bwd.restype = i
-    lib.fdiff_attention_bwd.argtypes = [p] * 7 + [i] * 4 + [f] + dropout
+    lib.fdiff_attention_bwd.argtypes = [p] * 9 + [i] * 4 + [f, p] + dropout
     lib.fdiff_attention_dropout_masks.restype = i
     lib.fdiff_attention_dropout_masks.argtypes = [p] + [i] * 3 + dropout
-    lib.fdiff_attention_bwd_smem_bytes.restype = i
-    lib.fdiff_attention_bwd_smem_bytes.argtypes = [i, i]
     lib.fdiff_attention_error_string.restype = ctypes.c_char_p
     lib.fdiff_attention_error_string.argtypes = [i]
     return lib
@@ -310,27 +391,28 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
     return out
 
 
-def _launch_bwd(q, k, v, do, seed: torch.Tensor | None = None, rate: float = 0.0):
-    """B5 (seed None) or B6-bwd on contiguous CUDA tensors: ``(dq, dk, dv)``."""
+def _launch_bwd(q, k, v, o, do, seed: torch.Tensor | None = None, rate: float = 0.0):
+    """B5 (seed None) or B6-bwd on contiguous CUDA tensors, from the
+    forward's output ``o``: ``(dq, dk, dv, stats)``, stats the rows' (m, l,
+    D) that launch 1 wrote for launch 2."""
     global bwd_launches, dropout_bwd_launches
     _fp32_only(q, "attention backward")
     b, h, l, dh = _dims(q)
-    do = do.to(q.dtype).contiguous()
-    lib = _library()
-    if lib.fdiff_attention_bwd_smem_bytes(l, dh) > SMEM_LIMIT:
-        raise ValueError(f"L={l}, dh={dh} needs too much shared memory for the backward")
+    o, do = (t.to(q.dtype).contiguous() for t in (o, do))
+    plan = attention_bwd_plan(l, dh)["struct"]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = lib.fdiff_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, l, dh, 1.0 / math.sqrt(dh),
-        *_dropout_args(q, seed, rate),
+    stats = torch.empty((b, h, l, STAT_COLS), dtype=torch.float32, device=q.device)
+    err = _library().fdiff_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, l, dh, 1.0 / math.sqrt(dh),
+        ctypes.byref(plan), *_dropout_args(q, seed, rate),
     )
     _raise_on(err, "attention backward")
     if seed is None:
         bwd_launches += 1
     else:
         dropout_bwd_launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, stats
 
 
 def attention_keep_cuda(
@@ -349,7 +431,8 @@ def attention_keep_cuda(
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its backward: B2 and B5 on CUDA tensors, the plain
-    versions on CPU tensors. Saves q, k and v; the backward recomputes P."""
+    versions on CPU tensors. Saves q, k, v and the output; the backward
+    recomputes P (B5 takes D = dO . O from the saved output)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -358,21 +441,21 @@ class FlashAttention(torch.autograd.Function):
             out = _launch_fwd(q, k, v)
         else:
             out = flash_attention_reference(q, k, v)
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, out = ctx.saved_tensors
         if q.device.type == "cuda":
-            return _launch_bwd(q, k, v, do)
+            return _launch_bwd(q, k, v, out, do)[:3]
         return flash_attention_bwd_reference(q, k, v, do)
 
 
 class FlashAttentionDropout(torch.autograd.Function):
     """Attention with dropout on the weights, and its backward with the mask
     regenerated: B6-fwd and B6-bwd on CUDA tensors, the plain versions on CPU
-    tensors. Saves q, k, v and the seed."""
+    tensors. Saves q, k, v, the output and the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate: float):
@@ -382,15 +465,15 @@ class FlashAttentionDropout(torch.autograd.Function):
             out = _launch_fwd(q, k, v, seed, rate)
         else:
             out = flash_attention_dropout_reference(q, k, v, seed, rate)
-        ctx.save_for_backward(q, k, v, seed)
+        ctx.save_for_backward(q, k, v, out, seed)
         ctx.rate = rate
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, seed = ctx.saved_tensors
+        q, k, v, out, seed = ctx.saved_tensors
         if q.device.type == "cuda":
-            grads = _launch_bwd(q, k, v, do, seed, ctx.rate)
+            grads = _launch_bwd(q, k, v, out, do, seed, ctx.rate)[:3]
         else:
             grads = flash_attention_dropout_bwd_reference(q, k, v, do, seed, ctx.rate)
         return (*grads, None, None)
@@ -418,6 +501,8 @@ def flash_attention_dropout(
 __all__ = [
     "FlashAttention",
     "FlashAttentionDropout",
+    "attention_bwd_plan",
+    "attention_bwd_staged",
     "attention_fwd_plan",
     "attention_group",
     "attention_keep",

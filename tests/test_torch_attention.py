@@ -82,11 +82,17 @@ def _port_vjp(fn, q, k, v, do):
     return out, torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
 
 
-@pytest.mark.parametrize("l", [100, 365], ids=["L100", "L365"])
-def test_flash_attention_backward_matches_jax(l: int) -> None:
+@pytest.mark.parametrize(
+    "shape", [(2, 12, 100, 4), (2, 12, 365, 4), (1, 2, 775, 16)],
+    ids=["L100", "L365", "L775-dh16"],
+)
+def test_flash_attention_backward_matches_jax(shape) -> None:
     """B5's plain version: the port's forward and autograd backward against
-    ``jax.vjp`` of JAX's ``flash_attention`` (its ``_bwd_kernel``)."""
-    q, k, v = _qkv((2, 12, l, 4), seed=4)
+    ``jax.vjp`` of JAX's ``flash_attention`` (its ``_bwd_kernel``). L=775
+    at dh 16 is a length JAX serves with one head per group; the CUDA
+    kernels' cover of it is checked by ``test_torch_launch_plans.py`` and,
+    on the card, by ``test_torch_cuda.py``."""
+    q, k, v = _qkv(shape, seed=4)
     do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
     out_ref, vjp = jax.vjp(jax_flash, *(jnp.asarray(a) for a in (q, k, v)))
     before = (fa.launches, fa.bwd_launches)
@@ -94,6 +100,41 @@ def test_flash_attention_backward_matches_jax(l: int) -> None:
     assert (fa.launches, fa.bwd_launches) == before  # CPU tensors never reach a kernel
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **TOL["float32"])
     _assert_grads_close(grads, vjp(jnp.asarray(do)))
+
+
+def _jax_bwd(q, k, v, do, seed: int | None):
+    """JAX's ``_bwd_call`` (seed None) or ``_dropout_bwd_call`` at RATE."""
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    if seed is None:
+        return jax_fa._bwd_call(*args, jnp.asarray(do))
+    return jax_fa._dropout_bwd_call(*args, jnp.asarray(seed, jnp.int32), RATE, jnp.asarray(do))
+
+
+@pytest.mark.parametrize("seed", [None, 2**31 - 2], ids=["B5", "B6-bwd"])
+@pytest.mark.parametrize("l", [19, 100, 187, 365], ids=lambda l: f"L{l}")
+def test_staged_backward_matches_jax(l: int, seed: int | None) -> None:
+    """The plain staged version of B5/B6-bwd's two launches (statistics over
+    key blocks of 64, D from the forward's output, dq, then dk and dv over
+    blocks of query rows; no L here a multiple of 64) against the port's
+    ``_bwd_core`` and JAX's ``_bwd_call`` / ``_dropout_bwd_call`` in
+    interpret mode; its statistics against the softmax max, sum and dO . O
+    taken whole."""
+    q, k, v = _qkv((2, 3, l, 6), seed=l)
+    do = np.random.default_rng(l + 1).normal(size=q.shape).astype(np.float32)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    if seed is None:
+        keep, o = None, fa.flash_attention_reference(qt, kt, vt)
+    else:
+        keep = fa.attention_keep(2, 3, l, seed, RATE)
+        o = fa.flash_attention_dropout_reference(qt, kt, vt, seed, RATE)
+    *grads, stats = fa.attention_bwd_staged(qt, kt, vt, o, dot, keep)
+    _assert_grads_close(grads, fa._bwd_core(qt, kt, vt, dot, keep))
+    _assert_grads_close(grads, _jax_bwd(q, k, v, do, seed))
+    s = (qt @ kt.transpose(-1, -2)) / 6**0.5
+    m = s.amax(-1)
+    want = torch.stack([m, torch.exp(s - m[..., None]).sum(-1), (dot * o).sum(-1)], dim=-1)
+    assert stats.shape == (2, 3, l, fa.STAT_COLS)
+    torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_backward_takes_noncontiguous_heads() -> None:

@@ -25,9 +25,11 @@ site's codes flip (an upstream bf16 rounding that flipped, as B1 has, moves
 a quantizer's input by up to about a code). The sites whose inputs the two
 versions compute alike (x, and V from exact integer sums) flip nowhere.
 
-B1, B2, B3 and B4 run on the tensor cores (``csrc/mma_tile.cuh``). B2 is
-checked at L 24 to 365 and dh 6 to 64, fp32 and bf16, and up to L 3616 (in
-bf16 to 4 ulps of its largest output, ``B2_BF16_ULPS``), B3 at rate 0 and 0.1
+B1, B2, B3, B4 and B5/B6-bwd run on the tensor cores
+(``csrc/mma_tile.cuh``). B2 is checked at L 24 to 365 and dh 6 to 64, fp32
+and bf16, and up to L 3616 (in bf16 to 4 ulps of its largest output,
+``B2_BF16_ULPS``); B5 and B6-bwd up to L 3616 and at dh 16 and 64, and two
+calls bit for bit; B3 at rate 0 and 0.1
 at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is checked
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
@@ -353,16 +355,25 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
 
 
+# B5/B6-bwd's shapes, (B, H, L, dh): the flagship's, USDroughts' L, a short
+# L; L=896 at dh 16 (the longest L JAX's _bwd_kernel serves there, which the
+# port's previous backward, staging the whole head, refused from L=775),
+# and the long heads B2 is checked at.
+BWD_SHAPES = [(64, 12, 100, 6), (8, 12, 365, 6), (3, 12, 19, 6), (1, 8, 896, 16),
+              (1, 12, 3616, 6), (1, 2, 438, 64)]
+BWD_IDS = ["L100", "L365", "L19", "L896-dh16", "L3616", "L438-dh64"]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,l", [(64, 100), (8, 365), (3, 19)], ids=["L100", "L365", "L19"])
-def test_attention_backward_kernels_match_plain(cuda, rate, b, l) -> None:
+@pytest.mark.parametrize("b,h,l,dh", BWD_SHAPES, ids=BWD_IDS)
+def test_attention_backward_kernels_match_plain(cuda, rate, b, h, l, dh) -> None:
     """B5 (rate 0) and B6 (rate 0.1), forward and backward, against their
     plain versions, on heads transposed out of (B, L, H, dh) as the module
     hands them in."""
     g = torch.Generator().manual_seed(6)
-    q, k, v = (torch.randn(b, l, 12, 6, generator=g).to(cuda).transpose(1, 2)
+    q, k, v = (torch.randn(b, l, h, dh, generator=g).to(cuda).transpose(1, 2)
                for _ in range(3))
-    do = torch.randn(b, 12, l, 6, generator=g).to(cuda)
+    do = torch.randn(b, h, l, dh, generator=g).to(cuda)
     seed = 2**31 - 3
     if rate:
         kernel = lambda *t: fa.flash_attention_dropout(*t, seed, rate)  # noqa: E731
@@ -385,6 +396,33 @@ def test_attention_backward_kernels_match_plain(cuda, rate, b, l) -> None:
     else:
         ref_bwd = fa.flash_attention_bwd_reference(q, k, v, do)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref_bwd):
+        assert _rel(got, want) <= 1e-3, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B5", "B6-bwd"])
+@pytest.mark.parametrize("b,h,l,dh", [(8, 12, 100, 6), (2, 8, 187, 16)], ids=["L100", "L187"])
+def test_attention_backward_repeats_bit_for_bit(cuda, rate, b, h, l, dh) -> None:
+    """Two calls of B5 (and of B6-bwd) on the same inputs give the same bits
+    (every sum in one fixed order, no atomics), each call counts one launch
+    of its wrapper, and launch 1's row statistics (max, sum, D = dO . O)
+    agree with the staged plain version to 1e-4 of each one's largest."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, l, dh, generator=g).to(cuda) for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda) if rate else None
+    keep = fa.attention_keep(b, h, l, seed, rate, cuda) if rate else None
+    o = (fa.flash_attention_dropout_reference(q, k, v, seed, rate) if rate
+         else fa.flash_attention_reference(q, k, v))
+    count = "dropout_bwd_launches" if rate else "bwd_launches"
+    before = getattr(fa, count)
+    first = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    second = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    torch.cuda.synchronize()
+    assert getattr(fa, count) == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
+    for i in range(fa.STAT_COLS):
+        assert _rel(first[3][..., i], staged[3][..., i]) <= 1e-4, i
+    for name, got, want in zip(("dq", "dk", "dv"), first, staged):
         assert _rel(got, want) <= 1e-3, name
 
 

@@ -1,7 +1,8 @@
 """The launch plans of the tensor-core kernels B1 (``ops/fused_encoder.py``:
 ``sample_plan``, ``tail_plan``), B3 and B4 (``ops/fused_encoder_train.py``:
-``train_fwd_plan``, ``train_bwd_plan``) and B2 (``ops/flash_attention.py``:
-``attention_fwd_plan``), and the fp32 product form they use, on the CPU.
+``train_fwd_plan``, ``train_bwd_plan``), B2 and B5/B6-bwd
+(``ops/flash_attention.py``: ``attention_fwd_plan``,
+``attention_bwd_plan``), and the fp32 product form they use, on the CPU.
 
 The wrappers compute every plan and pass it to the kernels, so these
 checks hold what the kernels are given: at every (L, D, H, F) that
@@ -347,6 +348,42 @@ def test_attention_plan_covers_every_row_and_key(dtype, l) -> None:
         struct = plan["struct"]
         assert [getattr(struct, k) for k, _ in struct._fields_] == [
             plan[k] for k, _ in fa.AttnFwdPlan._fields_]
+
+
+# ---- B5/B6-bwd: the attention backward's tiles ----------------------------------------------
+
+
+@pytest.mark.parametrize("dh", [6, 12, 16, 64])
+@pytest.mark.parametrize("l", [19, 100, 365, 775, 896, 3616])
+def test_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
+    """Both launches of the backward: every row (query rows in launch 1,
+    keys in launch 2) in exactly one warp's 16 rows, every row of the
+    streamed blocks (keys, then query rows) in one block of 64, the
+    instance's width covering dh in steps of 8, bank-conflict-free strides
+    with 16-byte rows, and shared memory that does not depend on L (the old
+    kernel staged the whole head and refused L >= 775 at dh 16) and stays
+    within 232,448 bytes."""
+    plan = fa.attention_bwd_plan(l, dh)
+    assert 1 <= plan["warps"] <= fa.MAX_WARPS
+    seen = torch.zeros(l, dtype=torch.int64)
+    for y in range(plan["tiles"]):
+        for w in range(plan["warps"]):
+            r0 = y * fa.TILE_ROWS + w * fa.WARP_ROWS
+            seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
+    assert bool((seen == 1).all())
+    rows = torch.zeros(l, dtype=torch.int64)
+    for kb in range(plan["blocks"]):
+        rows[kb * fa.KEY_BLOCK:(kb + 1) * fa.KEY_BLOCK] += 1
+    assert bool((rows == 1).all()) and (plan["blocks"] - 1) * fa.KEY_BLOCK < l
+    assert plan["kdh"] >= dh and plan["kdh"] % 8 == 0 and plan["kdh"] < 2 * max(dh, 8)
+    assert plan["stride"] >= plan["kdh"] and plan["stride"] % 8 == 4
+    assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"] + fa.KEY_BLOCK * fa.STAT_COLS
+    assert plan["stage"] % 4 == 0  # the second stage starts on 16 bytes
+    assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * 4
+    assert plan["bytes"] == fa.attention_bwd_plan(19, dh)["bytes"] <= fe.SMEM_LIMIT
+    struct = plan["struct"]
+    assert [getattr(struct, k) for k, _ in struct._fields_] == [
+        plan[k] for k, _ in fa.AttnBwdPlan._fields_]
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
