@@ -14,10 +14,12 @@ Phases, each printed with its seconds as it ends:
    ``csrc/fused_encoder_int8.cu`` (B7, B8), one ``nvcc`` each, all started
    together (a library already built is reused), with ptxas's registers,
    stack and spills for every kernel instance, and, from ``cuobjdump
-   -sass``, the instructions and tensor-core instructions (HMMA) of each
-   kernel of B1, B2, B3, B4 and B5/B6-bwd; every kernel that runs a tile
-   product must have HMMA, and B2's kernel, the two launches of B5/B6-bwd
-   and the training tail must be among them.
+   -sass``, the instructions and tensor-core instructions (HMMA, and IMMA
+   for the int8 products) of each kernel of B1, B2, B3, B4, B5/B6-bwd, B7
+   and B8; every kernel that runs a tile product must have HMMA (an int8
+   one IMMA), B2's kernel, the two launches of B5/B6-bwd, the training
+   tail and B7/B8's three int8 kernels must be among them, and no kernel
+   of B7/B8 may hold a ``__dp4a`` (IDP4A).
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel (beside
@@ -105,12 +107,18 @@ Phases, each printed with its seconds as it ends:
    version is run with those codes put in, site by site, and every code
    where the two part is located (``locate_code_flips``) and held to a
    band around a rounding boundary (INT8_FLIP_BAND); the output is held
-   to B1's tolerance against that run. Times of each kernel, its plain
-   version and B1 at the same shape and dtype, and the bound.
+   to B1's tolerance against that run. Times of each kernel (beside its
+   time before its redesign on the tensor cores, PRIOR_MS), its plain
+   version and B1 at the same shape and dtype, and the bound; at the main
+   path's shape (B=32, L=100) the device time of each of its CUDA launches
+   from ``torch.profiler``, whose launches per call must be
+   ``fused_encoder.int8_plan``'s.
 14. int8 main path: phase 4's sampler in bf16 with ``FDIFF_FUSED_INT8=1``
    and then ``=2``: B7 (or B8) K x 10 launches and B1 none; the samples
    finite, their samples/s and relative L2 distance from phase 4's bf16
-   samples (the same generator seed); a 20-step fp32 trajectory through
+   samples (the same generator seed); each level run twice, in turns with
+   phase 4's bf16 run (bf16, 1, 2, bf16, 1, 2: the host sets these rates,
+   and they move between runs of one process); a 20-step fp32 trajectory through
    B7/B8 and through their plain versions on the card and on the CPU with
    the kernel's int8 codes of every layer and step put in (every flip
    located), pairwise.
@@ -139,6 +147,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -206,6 +215,9 @@ PRIOR_MS = {
     # B5 and B6-bwd before their redesign on the tensor cores (PERF.md,
     # section 6; the same card and power limit).
     "B5": {"B=64 H=12 L=100 dh=6": 0.4462}, "B6-bwd": {"B=64 H=12 L=100 dh=6": 0.4413},
+    # B7 and B8 on __dp4a, before their redesign on the tensor cores
+    # (PERF.md, section 6; the same card and power limit).
+    "B7": {"bfloat16 L=100 D=72 B=32": 0.2485}, "B8": {"bfloat16 L=100 D=72 B=32": 0.2697},
 }
 # The kernels that run tile products (B1, B2, B3, B4, B5/B6-bwd): each must
 # show tensor-core instructions (HMMA) in its SASS.
@@ -217,7 +229,14 @@ PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
 REQUIRED_PRODUCT_KERNELS = (("flash_attention", "attention_fwd_mma_kernel"),
                             ("flash_attention", "attention_bwd_dq_mma_kernel"),
                             ("flash_attention", "attention_bwd_dkv_mma_kernel"),
-                            ("fused_encoder_train", "layer_tail_kernel"))
+                            ("fused_encoder_train", "layer_tail_kernel"),
+                            ("fused_encoder_int8", "qkv_int8_kernel"),
+                            ("fused_encoder_int8", "attention_int8_kernel"),
+                            ("fused_encoder_int8", "int8_tail_kernel"))
+# The kernels of B7 and B8 that run int8 products: each must show int8
+# tensor-core instructions (IMMA), and no kernel of their library a __dp4a
+# (IDP4A), the CUDA-core product their first bodies ran.
+INT8_PRODUCT_KERNELS = ("qkv_int8_kernel", "attention_int8_kernel", "int8_tail_kernel")
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
 SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
@@ -352,11 +371,14 @@ DIVERGENCE_THRESHOLD = 8.0
 # trace, whatever the kernel: scripts/torch_profiler_probe.py saw it in about
 # one trace in 170 of ten torch.mm calls when the kernels filled the trace's
 # window, and in none of 1200 with the host idle 5 ms at both ends of it; a
-# padded trace of B5 still lost one launch in twenty (PERF.md section 7). So
-# traces are padded, and a trace that lost kernels is taken again, the
-# traces taken kept in each result.
+# padded trace of B5 still lost one launch in twenty. And some processes,
+# from some point on, lose the first one to three kernels of every trace,
+# however padded (PERF.md section 7). So each trace opens with spin kernels
+# that absorb that loss, is padded, and is taken again where it lost
+# kernels of the calls, the traces taken kept in each result.
 PROFILE_PAD_S = 0.005
 PROFILE_ATTEMPTS = 3
+PROFILE_PRIMES = 8
 
 
 def phase(name: str, t0: float) -> None:
@@ -456,16 +478,26 @@ def kernel_name(demangled: str) -> str:
     return name
 
 
-def device_us_by_kernel(fn, calls: int = 10,
-                        launches: int | None = None) -> tuple[dict[str, float], float, int]:
-    """Device microseconds per call of ``fn`` by CUDA kernel (summed over a
-    kernel's launches in one call), the kernel launches per call, and the
-    traces taken, from ``torch.profiler`` over ``calls`` calls after a
-    warm-up, with the host idle for PROFILE_PAD_S at both ends of the
-    trace's window. A trace with no device event, or with other than
-    ``launches`` per call where that is given, is taken again, up to
-    PROFILE_ATTEMPTS traces, each such trace printed; the caller gates the
-    last trace's launches."""
+class Profile(NamedTuple):
+    """What ``device_us_by_kernel`` read from its last trace."""
+
+    us_by_kernel: dict[str, float]  # device us per call, summed over a kernel's launches
+    us_per_launch: dict[str, float]  # device us per launch: a kernel's time over its events
+    launches: float  # kernel launches per call that the device ran
+    host_launches: float  # CUDA launches per call that the host made
+    traces: int  # traces taken
+
+
+def device_us_by_kernel(fn, calls: int = 10, launches: int | None = None) -> Profile:
+    """Device time of ``fn`` by CUDA kernel and its launches per call, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up. Each trace
+    opens with PROFILE_PRIMES spin kernels (``torch.cuda._sleep``), which a
+    trace may lose, and the host idles PROFILE_PAD_S before the first call
+    and after the last; the spin kernels are left out of every count. A
+    trace with no device event, with fewer kernels than the host launched,
+    or with other than ``launches`` per call where that is given, is taken
+    again, up to PROFILE_ATTEMPTS traces, each such trace printed; the
+    caller gates the last trace's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -473,25 +505,36 @@ def device_us_by_kernel(fn, calls: int = 10,
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMES):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        out, count = {}, 0
+        total, per_launch, count, host, primes = {}, {}, 0, -PROFILE_PRIMES, 0
         for event in prof.key_averages():
             device_us = getattr(event, "device_time_total", 0.0)
-            if device_us > 0:
+            if device_us > 0 and "spin_kernel" in event.key:
+                primes += event.count
+            elif device_us > 0 and not event.key.startswith(("Memcpy", "Memset")):
                 name = kernel_name(event.key)
-                out[name] = out.get(name, 0.0) + device_us / calls
+                total[name] = total.get(name, 0.0) + device_us / calls
+                per_launch[name] = device_us / event.count
                 count += event.count
-        if out and (launches is None or count == launches * calls):
+            elif event.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                host += event.count
+        if primes < PROFILE_PRIMES:
+            print(f"  torch.profiler trace {attempt} held {primes} of its {PROFILE_PRIMES} "
+                  f"spin kernels", flush=True)
+        if total and count == host and (launches is None or count == launches * calls):
             break
         print(f"  torch.profiler trace {attempt} of {PROFILE_ATTEMPTS} held {count} kernel "
-              f"launches for {calls} calls", flush=True)
-    if not out:
+              f"launches of the host's {host} for {calls} calls", flush=True)
+    if not total:
         raise AssertionError("torch.profiler recorded no device time")
-    return out, count / calls, attempt
+    return Profile(total, per_launch, count / calls, host / calls, attempt)
 
 
 def kernel_breakdown(layer, n_head: int) -> dict:
@@ -516,18 +559,18 @@ def kernel_breakdown(layer, n_head: int) -> dict:
                                     launches=plans["B3"])
     out["B4"] = device_us_by_kernel(
         lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5, launches=plans["B4"])
-    for name, (kernels, launches, traces) in out.items():
+    for name, prof in out.items():
         batch = TRAIN_BATCH if name in ("B3", "B4") else SAMPLE_CHAINS
         print(f"  {name} B={batch} L={MAX_LEN}: device us per call by kernel (torch.profiler): "
-              f"{json.dumps({k: round(v, 1) for k, v in kernels.items()})}; total "
-              f"{sum(kernels.values()):.1f}; {launches} kernel launches per call "
-              f"(plan: {plans.get(name, '-')}); traces taken {traces}", flush=True)
-        if name in plans and launches != plans[name]:
-            raise AssertionError(f"{name}: {launches} kernel launches per call, the plan "
+              f"{json.dumps({k: round(v, 1) for k, v in prof.us_by_kernel.items()})}; total "
+              f"{sum(prof.us_by_kernel.values()):.1f}; {prof.launches} kernel launches per "
+              f"call (plan: {plans.get(name, '-')}); traces taken {prof.traces}", flush=True)
+        if name in plans and prof.launches != plans[name]:
+            raise AssertionError(f"{name}: {prof.launches} kernel launches per call, the plan "
                                  f"counts {plans[name]}")
-    return {name: {"device_us_by_kernel": kernels, "launches_per_call": launches,
-                   "profile_traces": traces}
-            for name, (kernels, launches, traces) in out.items()}
+    return {name: {"device_us_by_kernel": prof.us_by_kernel,
+                   "launches_per_call": prof.launches, "profile_traces": prof.traces}
+            for name, prof in out.items()}
 
 
 def check_kernel(model: ScoreTransformer, dtype: torch.dtype, batch: int) -> dict:
@@ -622,9 +665,10 @@ def train_layer_flops(b: int, l: int, d: int, d_ff: int) -> float:
 
 def build_all() -> dict:
     """One nvcc per source, all started together; returns the SASS counts
-    (instructions, HMMA) of the kernels of B1, B2, B3, B4 and B5/B6-bwd and
-    fails if a product kernel has no tensor-core instruction, or if one of
-    REQUIRED_PRODUCT_KERNELS is missing from them."""
+    (instructions, HMMA, IMMA, IDP4A) of the kernels of B1, B2, B3, B4,
+    B5/B6-bwd, B7 and B8 and fails if a product kernel has no tensor-core
+    instruction (an int8 one no IMMA), if one of REQUIRED_PRODUCT_KERNELS
+    is missing from them, or if a kernel of B7/B8 holds an IDP4A."""
     def one(name: str) -> tuple[str, float, bool]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
@@ -640,18 +684,23 @@ def build_all() -> dict:
         for kernel, usage in ptxas_usage(log.read_text() if log.exists() else ""):
             print(f"  ptxas {name}: {kernel}: {usage}")
         print(f"  {lib.name} ({'reused' if cached else 'built'} in {seconds:.2f} s)", flush=True)
-        if name in ("fused_encoder", "flash_attention", "fused_encoder_train"):
-            for kernel, counts in sass_counts(lib).items():
-                if any(k in kernel for k in PRODUCT_KERNELS + ("attention",)):
-                    sass[f"{name}: {kernel}"] = counts
-                    print(f"  sass {name}: {kernel}: {counts['instructions']} instructions, "
-                          f"{counts['hmma']} HMMA", flush=True)
+        for kernel, counts in sass_counts(lib).items():
+            if any(k in kernel for k in PRODUCT_KERNELS + INT8_PRODUCT_KERNELS + (
+                    "attention", "finish")):
+                sass[f"{name}: {kernel}"] = counts
+                print(f"  sass {name}: {kernel}: {counts['instructions']} instructions, "
+                      f"{counts['hmma']} HMMA, {counts['imma']} IMMA, {counts['idp4a']} IDP4A",
+                      flush=True)
     no_hmma = [k for k, c in sass.items()
                if any(p in k for p in PRODUCT_KERNELS) and c["hmma"] == 0]
+    no_imma = [k for k, c in sass.items()
+               if any(p in k for p in INT8_PRODUCT_KERNELS) and c["imma"] == 0]
+    dp4a = [k for k, c in sass.items() if k.startswith("fused_encoder_int8: ") and c["idp4a"]]
     missing = [f"{lib}: {kernel}" for lib, kernel in REQUIRED_PRODUCT_KERNELS
                if not any(k.startswith(f"{lib}: ") and kernel in k for k in sass)]
-    if no_hmma or missing:
+    if no_hmma or no_imma or dp4a or missing:
         raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}; "
+                             f"int8 ones without IMMA: {no_imma}; with IDP4A: {dp4a}; "
                              f"missing: {missing}")
     return sass
 
@@ -686,8 +735,9 @@ def cuobjdump_path() -> str | None:
 
 def sass_counts(library: Path) -> dict[str, dict[str, int]]:
     """Per kernel of a built library, from ``cuobjdump -sass``: its SASS
-    instructions and its tensor-core instructions (HMMA), the kernel's
-    name demangled where ``c++filt`` is present."""
+    instructions, its tensor-core instructions (HMMA; IMMA for int8) and its
+    IDP4A (``__dp4a``), the kernel's name demangled where ``c++filt`` is
+    present."""
     tool = cuobjdump_path()
     if tool is None:
         raise RuntimeError("cuobjdump not found beside nvcc")
@@ -699,10 +749,12 @@ def sass_counts(library: Path) -> dict[str, dict[str, int]]:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"instructions": 0, "hmma": 0}
+            counts[name] = {"instructions": 0, "hmma": 0, "imma": 0, "idp4a": 0}
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             counts[name]["instructions"] += 1
             counts[name]["hmma"] += "HMMA" in line
+            counts[name]["imma"] += "IMMA" in line
+            counts[name]["idp4a"] += "IDP4A" in line
     try:
         names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
                                text=True, check=True).stdout.split("\n")
@@ -734,7 +786,7 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
         kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        device_us, _, traces = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
+        prof = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
     size = torch.finfo(dtype).bits // 8
     bound_ms, bound_by = bound(
         4 * TRAIN_BATCH * N_HEAD * MAX_LEN * MAX_LEN * dh, 4 * q.numel() * size, dtype
@@ -742,7 +794,7 @@ def check_attention(model: ScoreTransformer, dtype: torch.dtype) -> dict:
     r = {"max_abs_err": err, "tol": tol, "err_bf16_ulps_of_max": ulps, "ms": kernel_ms,
          "plain_ms": plain_ms,
          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "device_us_by_kernel": device_us, "profile_traces": traces}
+         "device_us_by_kernel": prof.us_by_kernel, "profile_traces": prof.traces}
     prior = PRIOR_MS["B2"][f"{str(dtype).removeprefix('torch.')} B={TRAIN_BATCH} H={N_HEAD} "
                            f"L={MAX_LEN} dh={dh}"]
     print(f"  B2 {dtype} B={TRAIN_BATCH}: {json.dumps(r)}; before the redesign {prior} ms, "
@@ -781,8 +833,8 @@ def attention_vs_plain(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> d
              "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
              "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v))}
-        r["device_us_by_kernel"], _, r["profile_traces"] = device_us_by_kernel(
-            lambda: fa.flash_attention(q, k, v))
+        prof = device_us_by_kernel(lambda: fa.flash_attention(q, k, v))
+        r["device_us_by_kernel"], r["profile_traces"] = prof.us_by_kernel, prof.traces
     size = torch.finfo(dtype).bits // 8
     r["bound_ms"], r["bound_by"] = bound(4 * b * h * l * l * dh, 4 * q.numel() * size, dtype)
     print(f"  B2 {shape}: {json.dumps(r)}", flush=True)
@@ -1344,8 +1396,9 @@ def check_attention_bwd(b: int, h: int, l: int, dh: int) -> dict:
                                  f"staged plain version: {r['stats_rel_err']}")
         if not r["bit_identical"]:
             raise AssertionError(f"{name} {shape}: two calls on the same inputs differ")
+        prof = device_us_by_kernel(call, launches=BWD_LAUNCHES)
         r["device_us_by_kernel"], r["launches_per_call"], r["profile_traces"] = \
-            device_us_by_kernel(call, launches=BWD_LAUNCHES)
+            prof.us_by_kernel, prof.launches, prof.traces
         if r["launches_per_call"] != BWD_LAUNCHES:
             raise AssertionError(f"{name} {shape}: {r['launches_per_call']} CUDA launches per "
                                  f"call, expected {BWD_LAUNCHES}")
@@ -1605,11 +1658,48 @@ def check_int8_layer(layer, n_head: int, dtype: torch.dtype, batch: int, l: int,
         plain_ms = time_ms(lambda: fe.fused_encoder_layer_plain(x, packed, n_head=n_head),
                            iters=10, warmup=2)
     bound_ms, bound_by = int8_bound_ms(batch, l, d, d_ff, dtype, level)
-    print(f"  {what}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, B1 {b1_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    prior = PRIOR_MS[INT8_NAMES[level]].get(
+        f"{str(dtype).removeprefix('torch.')} L={l} D={d} B={batch}")
+    print(f"  {what}: kernel {kernel_ms:.4f} ms"
+          + ("" if prior is None else f" (before the redesign: {prior:.4f})")
+          + f", plain {plain_ms:.4f} ms, B1 {b1_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     return {"max_abs_err": err, "max_abs_err_vs_plain": err_plain, "tol": TOL[dtype],
-            "flips": flips, "ms": kernel_ms, "plain_ms": plain_ms, "b1_ms": b1_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "flips": flips, "ms": kernel_ms, "plain_ms": plain_ms,
+            "b1_ms": b1_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def int8_breakdown(layer, n_head: int) -> dict:
+    """Device time per CUDA launch and the launches of one B7 and one B8
+    call (fp32 and bf16) at the main path's shape, B=32, L=100, from
+    ``torch.profiler``: the launches per call must be ``int8_plan``'s, each
+    of its kernels once."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    out = {}
+    for dtype, level in itertools.product((torch.float32, torch.bfloat16), INT8_LEVELS):
+        packed = fe.pack_encoder_layer(layer, n_head, dtype, int8_ffn=True,
+                                       int8_attn=level == 2)
+        x = torch.randn((SAMPLE_CHAINS, MAX_LEN, d), device="cuda").to(dtype)
+        plan = fe.int8_plan(SAMPLE_CHAINS, MAX_LEN, d, n_head, d_ff, dtype, level,
+                            fe.sm_count(x.device))
+        with torch.no_grad():
+            prof = device_us_by_kernel(lambda: fe.fused_encoder_layer(x, packed, n_head=n_head),
+                                       launches=plan["launches"])
+        kernels = prof.us_per_launch
+        what = f"{INT8_NAMES[level]} {str(dtype).removeprefix('torch.')}"
+        print(f"  {what} B={SAMPLE_CHAINS} L={MAX_LEN}: device us per launch by kernel "
+              f"(torch.profiler): {json.dumps({k: round(v, 1) for k, v in kernels.items()})}; "
+              f"sum {sum(kernels.values()):.1f}; {prof.launches} kernel launches per call "
+              f"({prof.host_launches} by the host; plan: {plan['launches']}); traces taken "
+              f"{prof.traces}", flush=True)
+        missing = [k for k, _, _ in plan["kernels"] if not any(k in name for name in kernels)]
+        if prof.launches != plan["launches"] or missing or len(kernels) != plan["launches"]:
+            raise AssertionError(f"{what}: {prof.launches} kernel launches per call of kernels "
+                                 f"{list(kernels)}; the plan counts {plan['launches']} "
+                                 f"({missing} missing)")
+        out[what] = {"device_us_per_launch": kernels, "launches_per_call": prof.launches,
+                     "profile_traces": prof.traces}
+    return out
 
 
 def check_int8_kernels(phase3: dict, coverage: dict) -> dict:
@@ -1633,12 +1723,18 @@ def check_int8_kernels(phase3: dict, coverage: dict) -> dict:
                 out[level][f"{name} {key} B={COVERAGE_BATCH}"] = check_int8_layer(
                     layer, n_head, dtype, COVERAGE_BATCH, l, level,
                     coverage[key]["B1"][name]["kernel_ms"])
-    lib = fe._int8_library()
-    sizes = {f"{INT8_NAMES[level]} L={l} D={d}": {
-        "smem bytes": lib.fdiff_encoder_layer_int8_smem_bytes(level - 1, l, d),
-        "K|V workspace floats per chain": lib.fdiff_encoder_layer_int8_kv_floats(level - 1, l, d)}
-        for level in INT8_LEVELS for l, d in ((MAX_LEN, 72), (187, 72), (365, 72), (187, 128))}
+    sizes = {}
+    for level, (l, d, n_head, d_ff) in itertools.product(
+            INT8_LEVELS, ((MAX_LEN, 72, N_HEAD, 2048),) + COVERAGE):
+        plan = fe.int8_plan(1, l, d, n_head, d_ff, torch.bfloat16, level)
+        sizes[f"{INT8_NAMES[level]} L={l} D={d} F={d_ff} bf16"] = {
+            "smem bytes by launch": {k: b for k, _, b in plan["kernels"]},
+            "tail CTAs per SM": plan["tail_ctas_per_sm"],
+            "workspace bytes per chain": sum(
+                n * torch.finfo(t).bits // 8 for n, t in filter(None, plan["workspaces"].values()))}
     print(f"  int8 plans: {json.dumps(sizes)}", flush=True)
+    out["breakdown"] = int8_breakdown(load_flagship(torch.float32, "cuda").backbone.layers[0],
+                                      N_HEAD)
     return out
 
 
@@ -1955,7 +2051,17 @@ def main() -> int:
     phase("13 int8 kernels vs plain", t0)
 
     t0 = time.perf_counter()
-    int8_main = {level: run_int8_main_path(level, main[torch.bfloat16]) for level in INT8_LEVELS}
+    turns: dict = {0: [], **{level: [] for level in INT8_LEVELS}}
+    for _ in range(2):
+        turns[0].append(run_main_path(torch.bfloat16)["samples_per_s"])
+        for level in INT8_LEVELS:
+            turns[level].append(run_int8_main_path(level, main[torch.bfloat16]))
+    int8_main = {level: {**runs[0], "samples_per_s_runs": [r["samples_per_s"] for r in runs],
+                         "bf16_samples_per_s_runs": turns[0]}
+                 for level, runs in turns.items() if level}
+    print(f"  samples/s in turns, bf16 {turns[0]}, "
+          + ", ".join(f"{INT8_NAMES[level]} {int8_main[level]['samples_per_s_runs']}"
+                      for level in INT8_LEVELS), flush=True)
     int8_traj = {level: check_int8_trajectory(level) for level in INT8_LEVELS}
     phase("14 int8 main path", t0)
 
@@ -2054,6 +2160,7 @@ def main() -> int:
             "sdpa_backend": attn_main["sdpa_backend"],
             "checked_shapes": {k: a[key] for k, a in checked.items()},
         })
+    breakdown8 = int8_checks["breakdown"]
     for level in INT8_LEVELS:
         by_shape = int8_checks[level]
         r = by_shape[f"bfloat16 L={MAX_LEN} D=72 B={SAMPLE_CHAINS}"]  # the main path's shape
@@ -2066,9 +2173,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "library_note": "no one PyTorch call computes a W8A8 encoder layer",
             "b1_ms": r["b1_ms"],
+            "launches_per_call": breakdown8[f"{INT8_NAMES[level]} bfloat16"]["launches_per_call"],
+            "device_us_per_launch": {
+                k: v["device_us_per_launch"] for k, v in breakdown8.items()
+                if k.startswith(INT8_NAMES[level])},
+            "profile_traces": breakdown8[f"{INT8_NAMES[level]} bfloat16"]["profile_traces"],
+            "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_int8: ")},
             "shape": f"B={SAMPLE_CHAINS} L={MAX_LEN} D=72 H={N_HEAD} F=2048 bfloat16, "
                      f"FDIFF_FUSED_INT8={level}",
             "samples_per_s": int8_main[level]["samples_per_s"],
+            "samples_per_s_runs": int8_main[level]["samples_per_s_runs"],
+            "bf16_samples_per_s_runs": int8_main[level]["bf16_samples_per_s_runs"],
             "rel_l2_vs_bf16_samples": int8_main[level]["rel_l2_vs_bf16"],
             "trajectory": {k: int8_traj[level][k] for k in ("with_kernel_codes",
                                                              "with_own_codes")},

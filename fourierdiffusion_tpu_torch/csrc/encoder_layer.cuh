@@ -3,10 +3,8 @@
 //   csrc/encoder_layer_tc.cuh    B1 (sampling), B3 and B4's recompute (training):
 //                                the weights' layout, the dropout mask hash,
 //                                the rounding helpers and warp sums;
-//   csrc/fused_encoder_int8.cu   B7 and B8 (int8 sampling): those, and the
-//                                CUDA-core product matmul, layer_norm_rows and
-//                                kv_proj_kernel (K|V to a device workspace where
-//                                a chain's K|V do not fit in shared memory);
+//   csrc/fused_encoder_int8.cu   B7 and B8 (int8 sampling), through
+//                                encoder_layer_tc.cuh;
 //   csrc/flash_attention.cu      B2, B5, B6: the mask hash and rounding helpers.
 //
 // Dropout masks: keep/(1-rate) from a murmur3 finalizer of the position,
@@ -33,9 +31,6 @@
 
 namespace fdiff {
 
-constexpr int kThreads = 288;   // 9 warps; FFN2 at D=72 is 288 items
-constexpr int kTM = 32;         // query rows per CTA
-constexpr int kRM = 8;          // rows per thread in the products
 constexpr float kLnEps = 1e-5f;
 constexpr float kScoreClamp = 60.0f;
 constexpr int kMaxSmem = 232448;  // 227 KB opt-in limit on sm_90
@@ -137,86 +132,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// C[r, n] = epi(r, n, sum_k A[r, k] * B[k, n]) for r < M, n < N.
-// A: fp32 in shared memory, row stride lda (multiple of 4), readable for
-// rows up to round_up(M, kRM). B: global (in, out) weights, row stride ldb.
-// K is a multiple of 4.
-template <typename W, typename Epi>
-__device__ __forceinline__ void matmul(const float* __restrict__ A, int lda, int M,
-                                       const W* __restrict__ B, int ldb, int N, int K,
-                                       Epi epi) {
-  const int groups = (M + kRM - 1) / kRM;
-  for (int item = threadIdx.x; item < groups * N; item += blockDim.x) {
-    const int n = item % N;
-    const int r0 = (item / N) * kRM;
-    float acc[kRM];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) acc[i] = 0.0f;
-    const W* b = B + n;
-    for (int k = 0; k < K; k += 4) {
-      const float w0 = to_f(__ldg(b + (k + 0) * ldb));
-      const float w1 = to_f(__ldg(b + (k + 1) * ldb));
-      const float w2 = to_f(__ldg(b + (k + 2) * ldb));
-      const float w3 = to_f(__ldg(b + (k + 3) * ldb));
-#pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(A + (r0 + i) * lda + k);
-        acc[i] = fmaf(a.x, w0, acc[i]);
-        acc[i] = fmaf(a.y, w1, acc[i]);
-        acc[i] = fmaf(a.z, w2, acc[i]);
-        acc[i] = fmaf(a.w, w3, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-      if (r0 + i < M) epi(r0 + i, n, acc[i]);
-  }
-}
-
-// In-place LayerNorm of `rows` rows of width D (row stride D), one warp
-// per row, fp32 statistics, result rounded to T.
-template <typename T>
-__device__ __forceinline__ void layer_norm_rows(float* x, int rows, int D,
-                                                const float* __restrict__ scale,
-                                                const float* __restrict__ bias) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += blockDim.x / 32) {
-    float* row = x + r * D;
-    float s = 0.0f;
-    for (int c = lane; c < D; c += 32) s += row[c];
-    const float mean = warp_sum(s) / D;
-    float v = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mean;
-      v += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(v) / D + kLnEps);
-    for (int c = lane; c < D; c += 32)
-      row[c] = round_to<T>((row[c] - mean) * inv * scale[c] + bias[c]);
-  }
-}
-
-// K|V of this tile's rows of chain b, computed with matmul and rounded to T,
-// into kv_ws (B, L, 2D), for a layer whose chain's K|V do not fit in shared
-// memory. Each (tile, chain) writes its own rows, so no two CTAs write one
-// element.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-kv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w_qkv,
-               const float* __restrict__ b_qkv, float* __restrict__ kv_ws, int L, int D) {
-  extern __shared__ __align__(16) float smem[];  // kTM x D rows of x
-  const int b = blockIdx.y, row0 = blockIdx.x * kTM;
-  const int rows = min(kTM, L - row0);
-  const T* xb = x + ((size_t)b * L + row0) * D;
-  for (int i = threadIdx.x; i < kTM * D; i += blockDim.x)
-    smem[i] = i < rows * D ? to_f(xb[i]) : 0.0f;
-  __syncthreads();
-  float* kv = kv_ws + ((size_t)b * L + row0) * 2 * D;
-  matmul(smem, D, rows, w_qkv + D, 3 * D, 2 * D, D, [&](int r, int n, float acc) {
-    kv[r * 2 * D + n] = round_to<T>(acc + b_qkv[D + n]);
-  });
 }
 
 }  // namespace fdiff

@@ -113,9 +113,10 @@ struct TailWs {
 struct TailSchedule {
   long long units;
   int chunks;
+  __host__ __device__ TailSchedule(int N, int F, int tm, int fc)
+      : units((long long)((N + tm - 1) / tm) * ((F + fc - 1) / fc)), chunks((F + fc - 1) / fc) {}
   __host__ __device__ TailSchedule(int N, int F, const TailPlan& p)
-      : units((long long)((N + p.tm - 1) / p.tm) * ((F + p.fc - 1) / p.fc)),
-        chunks((F + p.fc - 1) / p.fc) {}
+      : TailSchedule(N, F, p.tm, p.fc) {}
   __host__ __device__ long long begin(int k, int G) const { return (long long)k * units / G; }
   // the CTA whose range holds unit u
   __host__ __device__ int cta_of(long long u, int G) const {

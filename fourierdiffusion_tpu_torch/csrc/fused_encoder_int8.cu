@@ -1,71 +1,134 @@
-// One whole post-LN transformer encoder layer with W8A8 int8 products in one
-// kernel launch, for the opt-in int8 sampling path on Hopper (sm_90a).
+// The post-LN transformer encoder layer with W8A8 int8 products, for the
+// opt-in int8 sampling path on Hopper (sm_90a), in four launches over the
+// B*L rows of the batch, every int8 product on the tensor cores
+// (mma_tile.cuh's mma_s8: mma.sync.m16n8k32 s8 x s8 -> s32).
 //
 // Replaces two TPU kernels of fourierdiffusion_tpu/ops/fused_encoder.py:
-//   _encoder_layer_kernel_int8 (B7, FDIFF_FUSED_INT8=1):
-//     encoder_layer_int8_kernel<T, false, *>: attention and LN1 with the
-//     sampling layer's (B1's) rounding points, but x1 stays fp32; then the
-//     W8A8 FFN (_ffn_int8).
-//   _encoder_layer_kernel_int8_attn (B8, FDIFF_FUSED_INT8=2):
-//     encoder_layer_int8_kernel<T, true, *>: the QKV, PV and out-projection
-//     products in int8 too (_attention_ln1_int8); the S product stays in the
-//     activation dtype. Then the same FFN.
+//   _encoder_layer_kernel_int8 (B7, FDIFF_FUSED_INT8=1): the sampling
+//     layer's (B1's) attention with x1 kept in fp32, then the W8A8 FFN
+//     (_ffn_int8). Launches:
+//       1. qkv = round_T(x W_qkv + b_qkv): B1's tile product (gemm_kernel);
+//       2. B1's attention_fwd_kernel: O = round_T(round_T(P) V);
+//       3. int8_tail_kernel<T, false, *>;
+//       4. int8_finish_kernel.
+//   _encoder_layer_kernel_int8_attn (B8, FDIFF_FUSED_INT8=2): the QKV, PV
+//     and out-projection products in int8 too (_attention_ln1_int8); S in
+//     the activation dtype. Launches:
+//       1. qkv_int8_kernel: x quantized per token, qkv_f = int32(qx . Wqkv_q)
+//          * (w_s * s_x) + b in fp32; q and k rounded to T, V kept fp32;
+//       2. attention_int8_kernel: S = q k^T on mma.sync (bf16, or 3xTF32 in
+//          fp32), the softmax's row statistics in a first pass over the key
+//          blocks, then P's codes per (head, query) and O = int32(qP . qV) *
+//          (s_v * s_p) in fp32, V quantized per (chain, column) over the L
+//          keys;
+//       3. int8_tail_kernel<T, true, *>: O quantized per token, the out
+//          projection in int8, then B7's FFN;
+//       4. int8_finish_kernel.
+//
+// The tail (launch 3) runs B1's persistent TailSchedule over (row tile of
+// 32 rows, or 16 where D > 128; hidden chunk of kChunk = 512 units, the TPU
+// kernel's _INT8_FFN_CHUNK). Per segment (a CTA's run of chunks of one row
+// tile): the out projection (B7: in T, as B1's tail; B8: by mma_s8 on O's
+// codes), the residual with x in fp32 and LN1, giving x1 in fp32 (written
+// once per row, by the segment that holds chunk 0); x1 quantized per token;
+// then per chunk: W1's 512 rows by mma_s8, dequantized, + b1, ReLU, every
+// warp's row maxima reduced through shared memory into the chunk's absmax
+// per token before any code of h is formed; h's codes to shared memory;
+// W2's 512 columns by mma_s8 (two warps per output column, each half of
+// the chunk, their int32 sums added exactly), dequantized with w2_s * s_h,
+// and the chunk's partial to a slot of its own (part, chunks x B*L x D).
+// The finish (launch 4, a warp per row) adds the partials in chunk order,
+// f = ((p0 + p1) + p2) + ..., as JAX's f = f + ..., then + b2, the residual
+// x1 + f and LN2, rounded to T. Weights stream through a ring of shared-
+// memory slots by cp.async: B7's W_out k-tiles (in T) or B8's W_out codes,
+// then per chunk W1's 512 rows and W2's 512 columns in tiles of wt (the
+// plan's: the ring's depth and tile width are chosen in ops/
+// fused_encoder.py int8_layer_plan).
 //
 // Quantization (ops/fused_encoder.py quantize_along, bit for bit): over a
 // slice, scale = max(absmax, 1e-12) * fp32(1/127) and
 // code = clamp(rint(v * (1/scale)), -127, 127), the reciprocal correctly
 // rounded and the rounding half to even. Weights carry one fp32 scale per
-// output row (packed once); activations are quantized on the fly:
-//   B7/B8 FFN: x1 per token (over D); for each hidden chunk of kChunk = 512
-//     units (the TPU kernel's _INT8_FFN_CHUNK; the last may be shorter)
-//     h = relu(int32(W1q_c . qx) * (w1_s * s_x) + b1) is quantized per
-//     (chunk, token), and f += int32(W2q_c . qh) * (w2_s * s_h).
-//   B8 attention: x per token; qkv_f = int32(Wqkv_q . qx) * (w_s * s_x) + b
-//     in fp32; q and k rounded to T; V quantized per (chain, column) over
-//     the chain's L keys; P (fp32, unrounded) per (head, query) over the
-//     keys; O = int32(qP . qV) * (s_v * s_p) quantized per token over D.
-// Integer products are exact (__dp4a, int32 sums: |sum| <= K * 127^2, 8.3 M
-// at K=512), so the kernel and the plain version differ only where their
-// fp32 inputs to a quantization differ. Dequantization multiplies and adds
-// with __fmul_rn/__fadd_rn in the TPU kernel's order (no fused multiply-add).
-// The rest follows B1: fp32 LayerNorm statistics (eps 1e-5), exact softmax
-// in fp32 and the max-free one in bf16, y rounded to T.
+// output row (packed once, (out, in) row-major: the B operand's [n][k]
+// layout as it is); activations are quantized on the fly. Integer sums are
+// exact (int32: |sum| <= K * 127^2, 8.3 M at K = 512, and so is their
+// conversion to fp32), so the tiling of an int8 product is free and the
+// kernel and the plain version differ only where their fp32 inputs to a
+// quantization differ. Dequantization computes float(acc) * (w_s * s_x) + b
+// with __fmul_rn/__fadd_rn in the TPU kernel's order (no fused
+// multiply-add). The rest follows B1: fp32 LayerNorm statistics (eps
+// 1e-5), the exact softmax in fp32 and the max-free one in bf16.
+//
+// P's scale needs P's absmax per row before any code: it is the value at
+// the row's largest score, so the first pass's statistics give it: 1 / l
+// in the exact form (exp(0) = 1), exp(clamp(s_max)) * (1 / l) in the
+// max-free one. The second pass forms the codes from registers. P . V runs
+// on mma_s8 with the keys of each 32-key block permuted so that the S
+// accumulator's layout is the s8 A fragment: thread t holds keys 8j + 2t,
+// 8j + 2t + 1 of the n8 tiles j = 0..3, which become k = 4t .. 4t + 3 (j =
+// 0, 1) and 16 + 4t .. (j = 2, 3); V's codes are staged per column
+// (keys contiguous) in the same order, so P's codes never go through
+// shared memory. Keys at or past L have zero P and V codes.
 //
 // Probe: where the caller passes code buffers (int8, null to skip), the
-// kernel also writes the codes of every quantization site: x (B, L, D; B8),
-// v (B, L, D; B8, by the first row tile of each chain), p (B, H, L, L; B8),
-// o (B, L, D; B8), x1 (B, L, D) and h (B, L, F). chip_smoke.py locates with
-// them every code that differs from the plain version's.
+// kernels also write the codes of every quantization site: x (B, L, D; B8),
+// v (B, L, D; B8, by the first query tile of each head), p (B, H, L, L;
+// B8), o (B, L, D; B8), x1 (B, L, D) and h (B, L, F). chip_smoke.py locates
+// with them every code that differs from the plain version's.
 //
-// Layout: activations (B, L, D) with exactly L rows. B7's attention weights
-// are B1's ((in, out) in T); every int8 matrix is (out, in) row-major, so a
-// thread reads 8 codes of one contraction as one 64-bit word; the
-// contractions (D, the chunk, the keys padded with zero codes to a multiple
-// of 8) are multiples of 8.
-//
-// Bound: at the flagship shape (L 100, D 72, F 2048, H 12) the FFN's int8
-// products are 59 M of the layer's 66 M multiply-adds per chain, and the
-// weights (0.33 MB of codes and scales) are shared by all chains, so the
-// layer is bound by operations. This first version runs the int8 products
-// on the CUDA cores' __dp4a (no int8 tensor-core mma or wgmma yet) and the
-// rest on the CUDA cores (encoder_layer.cuh's matmul): one CTA per (32-row
-// tile, chain) keeps
-// its rows, the chain's K|V (and for B8 V's codes) and one FFN chunk (h in
-// fp32, then its codes: 80 KB) in shared memory. Where that plan does not fit
-// (at D=72 from L=192 for B7 and L=161 for B8; at D=128 from L=79 and 67), a
-// first launch writes each chain's K|V (B8: K rounded, V in fp32) to a
-// (B, L, 2D) device workspace (kv_proj_kernel for B7), and every CTA reads the whole
-// chain's V from there for its scales. No two CTAs write one element.
+// Bound: at the flagship shape (B 32, L 100, D 72, F 2048, H 12) the FFN's
+// int8 products are 59 M of the layer's 66 M multiply-adds per chain and
+// the weights (0.33 MB of codes and scales) are shared by all chains, so
+// the layer is bound by operations, at the int8 tensor-core rate. The plan
+// (Int8Plan) is computed by the Python wrapper (ops/fused_encoder.py:
+// int8_plan) and passed in.
 
-#include "encoder_layer.cuh"
+#include <type_traits>
+
+#include "encoder_layer_tc.cuh"
+
+// The int8 layer's plan, as ops/fused_encoder.py's Int8Plan passes it.
+// Strides of code tiles in bytes, of T or fp32 tiles in elements; offsets
+// and sizes in bytes. (Outside the anonymous namespace: the exported
+// function takes it.)
+struct Int8Plan {
+  // B8's attention (attention_int8_kernel), as B2's AttnFwdPlan
+  int kdh;         // head width of the instance: dh padded to S's k step, doubled
+  int warps;       // per CTA: one per 16 query rows, at most 8
+  int q_tiles;     // CTAs per head: tiles of 128 query rows
+  int key_blocks;  // blocks of 64 keys
+  int sk;          // row stride (elements of T) of a staged K block
+  int sv;          // row stride (floats) of a staged V block
+  int stage;       // bytes of a stage of the ring: a K block, then a V block
+  int attn_bytes;  // two stages, V's codes and scales
+  int qkv_bytes;   // B8's QKV (qkv_int8_kernel)
+  // the tail (int8_tail_kernel)
+  int tm;     // rows per tile: 32 (D <= 128) or 16
+  int kd;     // D rounded up to the k step of T (B7's out projection)
+  int kq;     // D rounded up to 32 (the int8 contractions over D)
+  int sa;     // B7: stride of the O tile (T); B8: of O's codes
+  int sq;     // stride of a tile of codes over D (x1, W1's rows, B8's W_out)
+  int sh;     // stride of h's codes (a chunk)
+  int swo;    // B7: stride of a W_out k-tile (T, [kOutKT][D])
+  int wt;     // W1 rows / W2 columns per weight tile: 128 or 256
+  int sw2;    // stride of a W2 tile (codes, [D][wt])
+  int slot;   // bytes of a ring slot
+  int slots;  // weight tiles in the ring: 2 or 3
+  int off_a, off_pre, off_q, off_h, off_sc, off_par, off_ring, bytes;
+};
 
 namespace {
 
 using namespace fdiff;
 
-constexpr int kChunk = 512;                         // FFN hidden chunk (numerics)
-constexpr float kInv127 = (float)(1.0 / 127.0);     // fp32(1/127), as JAX's constant
+constexpr int kChunk = 512;    // FFN hidden chunk (numerics: h's scales are per chunk)
+constexpr int kQuarter = 128;  // W1 rows / W2 columns of a chunk per step of its products
+constexpr int kOutKT = 32;     // B7: k-rows of a W_out tile
+constexpr float kInv127 = (float)(1.0 / 127.0);  // fp32(1/127), as JAX's constant
 constexpr float kAbsFloor = 1e-12f;
+constexpr int kQkvTile = 64, kQkvThreads = 256;  // B8's QKV: 64 x 64 per CTA, 8 warps
+constexpr int kKeyBlock = 64, kWarpRows = 16, kMmaWarps = 8, kTileRows = 128;
+constexpr int kSVq = kKeyBlock + 16;  // stride of V's codes ([column][key], keys permuted)
 
 // Weights: B7 uses w_qkv/w_out in T ((in, out)); B8 uses the int8 ones.
 template <typename T>
@@ -96,407 +159,789 @@ __device__ __forceinline__ float dequant(int acc, float ws, float sx, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(ws, sx)), b);
 }
 
-// Quantize `rows` rows of n fp32 values (row stride lds floats) to codes
-// (row stride ldq bytes), one warp per row; the row's scale to scale[r]; the
-// codes also to probe row r (stride ldp) where probe is not null.
-__device__ __forceinline__ void quantize_rows(const float* src, int lds, int rows, int n,
-                                              int8_t* dst, int ldq, float* scale,
-                                              int8_t* probe, size_t ldp) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += blockDim.x / 32) {
-    const float* row = src + r * lds;
+__device__ __forceinline__ uint32_t pack_codes(int8_t a, int8_t b, int8_t c, int8_t d) {
+  return (uint32_t)(uint8_t)a | (uint32_t)(uint8_t)b << 8 | (uint32_t)(uint8_t)c << 16 |
+         (uint32_t)(uint8_t)d << 24;
+}
+
+// Waits until at most slots - 1 (slots 2 or 3) of this thread's cp.async
+// groups are pending.
+__device__ __forceinline__ void cp_async_wait_ring(int slots) {
+  if (slots == 3)
+    tc::cp_async_wait<2>();
+  else
+    tc::cp_async_wait<1>();
+}
+
+// Quantizes R rows of n values that one warp holds at once (row k's column
+// lane + 32 j in v[k][j], 0 past n), their reductions interleaved: the
+// codes of row k to dst + k * row_step * ldq over [0, kq) (kq <= 32 KC),
+// its scale to scale[k * row_step], the codes also to probe(k) where that
+// is not null.
+template <int R, int KC, typename ProbeRow>
+__device__ __forceinline__ void quantize_rows(const float (&v)[R][KC], int n, int kq,
+                                              int8_t* dst, int ldq, int row_step, float* scale,
+                                              ProbeRow probe) {
+  const int lane = threadIdx.x & 31;
+  float inv[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
     float m = 0.0f;
-    for (int c = lane; c < n; c += 32) m = fmaxf(m, fabsf(row[c]));
-    const float s = quant_scale(warp_max(m));
-    const float inv = __frcp_rn(s);
-    for (int c = lane; c < n; c += 32) {
-      const int8_t q = quant_code(row[c], inv);
-      dst[r * ldq + c] = q;
-      if (probe != nullptr) probe[r * ldp + c] = q;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) m = fmaxf(m, fabsf(v[k][j]));
+    inv[k] = m;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const float s = quant_scale(warp_max(inv[k]));
+    if (lane == 0) scale[k * row_step] = s;
+    inv[k] = __frcp_rn(s);
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    int8_t* pr = probe(k);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const int c = lane + 32 * j;
+      if (c >= kq) break;
+      const int8_t q = c < n ? quant_code(v[k][j], inv[k]) : 0;
+      dst[k * row_step * ldq + c] = q;
+      if (pr != nullptr && c < n) pr[c] = q;
     }
-    if (lane == 0) scale[r] = s;
   }
 }
 
-// C[r, n] = epi(r, n, sum_k A[r, k] * B[n, k]) in int32 for r < M, n < N.
-// A: codes in shared memory, row stride lda bytes, readable (zero) for rows
-// up to round_up(M, kRM). B: global codes (N, K) row-major, row stride ldb
-// bytes. K, lda and ldb are multiples of 8, A and B 8-byte aligned.
-template <typename Epi>
-__device__ __forceinline__ void imatmul(const int8_t* __restrict__ A, int lda, int M,
-                                        const int8_t* __restrict__ B, int ldb, int N, int K,
-                                        Epi epi) {
-  const int groups = (M + kRM - 1) / kRM;
-  for (int item = threadIdx.x; item < groups * N; item += blockDim.x) {
-    const int n = item % N;
-    const int r0 = (item / N) * kRM;
-    int acc[kRM];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) acc[i] = 0;
-    const int2* b = reinterpret_cast<const int2*>(B + (size_t)n * ldb);
-    for (int k = 0; k < K / 8; ++k) {
-      const int2 w = __ldg(b + k);
-#pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        const int2 a = *reinterpret_cast<const int2*>(A + (r0 + i) * lda + 8 * k);
-        acc[i] = __dp4a(a.x, w.x, acc[i]);
-        acc[i] = __dp4a(a.y, w.y, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-      if (r0 + i < M) epi(r0 + i, n, acc[i]);
-  }
-}
+// ---- B8 launch 1: the int8 QKV product --------------------------------------------
 
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-// Shared-memory plan, in floats (every buffer starts on 16 bytes).
-struct SmemI8 {
-  int lp8, region, kvs;
-  int off_kv, off_xs, off_q, off_o, off_x1, off_qa, off_sc;
-  int off_sxall, off_sv, off_qvt, off_qp, total;
-  __host__ __device__ SmemI8(int L, int D, bool attn8, bool kv_in_smem) {
-    lp8 = round_up(L, kRM);
-    int r = 0;
-    if (kv_in_smem) r = attn8 ? lp8 * D / 4 : lp8 * D;  // whole-chain x: codes or fp32
-    if (kTM * L > r) r = kTM * L;                         // one head's scores
-    if (kTM * kChunk + kTM * kChunk / 4 > r) r = kTM * kChunk + kTM * kChunk / 4;  // h, qh
-    region = r;
-    kvs = 2 * D + 1;
-    off_kv = region;                                      // K | V, L x kvs
-    off_xs = kv_in_smem ? round_up(off_kv + L * kvs, 4) : region;  // own rows of x
-    off_q = off_xs + kTM * D;                             // q, later the FFN2 sum
-    off_o = off_q + kTM * D;                              // attention output
-    off_x1 = off_o + kTM * D;                             // pre-LN1, then x1
-    off_qa = off_x1 + kTM * D;                            // kTM x D codes (x, O or x1)
-    off_sc = off_qa + kTM * D / 4;                        // 4 x kTM row scales
-    off_sxall = off_sc + 4 * kTM;                         // B8: x scales of every row
-    off_sv = off_sxall + (attn8 && kv_in_smem ? lp8 : 0); // B8: V scales, D
-    off_qvt = off_sv + (attn8 ? round_up(D, 4) : 0);      // B8: V codes, D x lp8
-    off_qp = off_qvt + (attn8 ? D * lp8 / 4 : 0);         // B8: P codes, kTM x lp8
-    total = off_qp + (attn8 ? kTM * lp8 / 4 : 0);
-  }
-};
-
-template <typename T, bool kAttn8, bool kKvGlobal>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_int8_kernel(const T* __restrict__ x, const Int8Weights<T> w,
-                          T* __restrict__ out, const float* kv_ws, const Probe probe,
-                          int L, int D, int H, int F) {
-  constexpr bool kFast = sizeof(T) == 2;
-  extern __shared__ __align__(16) float smem[];
-  const SmemI8 lay(L, D, kAttn8, !kKvGlobal);
-  float* xall = smem;                               // B7, phases 1-2
-  int8_t* qxall = reinterpret_cast<int8_t*>(smem);  // B8, phases 1-2
-  float* ph = smem;                                 // scores; FFN hidden chunk
-  int8_t* qh = reinterpret_cast<int8_t*>(smem + kTM * kChunk);
-  const int kvs = kKvGlobal ? 2 * D : lay.kvs;
-  const float* kv = kKvGlobal ? kv_ws + (size_t)blockIdx.y * L * 2 * D : smem + lay.off_kv;
-  float* kv_s = smem + lay.off_kv;                  // writable K|V (shared plan)
-  float* xs = smem + lay.off_xs;
-  float* q = smem + lay.off_q;
-  float* fsum = q;
-  float* o = smem + lay.off_o;
-  float* x1 = smem + lay.off_x1;
-  int8_t* qa = reinterpret_cast<int8_t*>(smem + lay.off_qa);
-  float* s_a = smem + lay.off_sc;                   // scales of qa's rows
-  float* s_h = s_a + kTM;
-  float* s_p = s_h + kTM;
-  float* sxall = smem + lay.off_sxall;
-  float* s_v = smem + lay.off_sv;
-  int8_t* qvt = reinterpret_cast<int8_t*>(smem + lay.off_qvt);
-  int8_t* qp = reinterpret_cast<int8_t*>(smem + lay.off_qp);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kTM;
-  const int rows = min(kTM, L - row0);
-  const int dh = D / H;
-  const int lp8 = lay.lp8;
-  const T* xb = x + (size_t)b * L * D;
-  const size_t tok0 = (size_t)b * L + row0;         // first token of this tile
-
-  // Phase 1: zero shared memory (padding rows and codes stay 0), load x.
-  for (int i = tid; i < lay.total; i += blockDim.x) smem[i] = 0.0f;
-  __syncthreads();
-  if constexpr (!kKvGlobal && !kAttn8)
-    for (int i = tid; i < L * D; i += blockDim.x) xall[i] = to_f(xb[i]);
-  for (int i = tid; i < rows * D; i += blockDim.x) xs[i] = to_f(xb[row0 * D + i]);
-  __syncthreads();
-
-  // Phase 2: q of this tile's rows; K, V of every row (kKvGlobal: written by
-  // the first launch).
-  if constexpr (kAttn8) {
-    // x per token: every row into qxall (shared plan), else this tile's rows.
-    int8_t* px = probe.x == nullptr ? nullptr : probe.x + tok0 * D;
-    if constexpr (!kKvGlobal) {
-      for (int r = warp; r < L; r += n_warps) {
-        const T* row = xb + (size_t)r * D;
-        float m = 0.0f;
-        for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(to_f(row[c])));
-        const float s = quant_scale(warp_max(m));
-        const float inv = __frcp_rn(s);
-        for (int c = lane; c < D; c += 32) {
-          const int8_t code = quant_code(to_f(row[c]), inv);
-          qxall[r * D + c] = code;
-          if (px != nullptr && r >= row0 && r < row0 + rows) px[(r - row0) * D + c] = code;
-        }
-        if (lane == 0) sxall[r] = s;
-      }
-    } else {
-      quantize_rows(xs, D, rows, D, qa, D, s_a, px, D);
-    }
-    __syncthreads();
-    const int8_t* qxs = kKvGlobal ? qa : qxall + row0 * D;
-    const float* sxs = kKvGlobal ? s_a : sxall + row0;
-    if constexpr (!kKvGlobal)
-      imatmul(qxall, D, L, w.w_qkv_q + (size_t)D * D, D, 2 * D, D, [&](int r, int n, int acc) {
-        const float v = dequant(acc, w.w_qkv_s[D + n], sxall[r], w.b_qkv[D + n]);
-        kv_s[r * kvs + n] = n < D ? round_to<T>(v) : v;
-      });
-    imatmul(qxs, D, rows, w.w_qkv_q, D, D, D, [&](int r, int n, int acc) {
-      q[r * D + n] = round_to<T>(dequant(acc, w.w_qkv_s[n], sxs[r], w.b_qkv[n]));
-    });
-    __syncthreads();
-    // V's codes per (chain, column) over the L keys, transposed: qvt[c][j].
-    for (int c = warp; c < D; c += n_warps) {
-      const float* vc = kv + D + c;
-      float m = 0.0f;
-      for (int j = lane; j < L; j += 32) m = fmaxf(m, fabsf(vc[(size_t)j * kvs]));
-      const float s = quant_scale(warp_max(m));
-      const float inv = __frcp_rn(s);
-      for (int j = lane; j < L; j += 32) {
-        const int8_t code = quant_code(vc[(size_t)j * kvs], inv);
-        qvt[c * lp8 + j] = code;
-        if (probe.v != nullptr && blockIdx.x == 0) probe.v[((size_t)b * L + j) * D + c] = code;
-      }
-      if (lane == 0) s_v[c] = s;
-    }
-  } else {
-    if constexpr (!kKvGlobal)
-      matmul(xall, D, L, w.w_qkv + D, 3 * D, 2 * D, D, [&](int r, int n, float acc) {
-        kv_s[r * kvs + n] = round_to<T>(acc + w.b_qkv[D + n]);
-      });
-    matmul(xs, D, rows, w.w_qkv, 3 * D, D, D, [&](int r, int n, float acc) {
-      q[r * D + n] = round_to<T>(acc + w.b_qkv[n]);
-    });
-  }
-  __syncthreads();
-
-  // Phase 3: attention, one head at a time.
-  for (int h = 0; h < H; ++h) {
-    const int c0 = h * dh;
-    for (int item = tid; item < rows * L; item += blockDim.x) {
-      const int i = item / L, j = item % L;
-      const float* qi = q + i * D + c0;
-      const float* kj = kv + (size_t)j * kvs + c0;
-      float s = 0.0f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qi[d], kj[d], s);
-      ph[i * L + j] = s;
-    }
-    __syncthreads();
-    for (int i = warp; i < rows; i += n_warps) {
-      float* srow = ph + i * L;
-      float scale;
-      if (kFast) {
-        float sum = 0.0f;
-        for (int j = lane; j < L; j += 32) {
-          const float e = __expf(fminf(fmaxf(srow[j], -kScoreClamp), kScoreClamp));
-          srow[j] = e;
-          sum += e;
-        }
-        const float inv = __fdividef(1.0f, warp_sum(sum));
-        for (int j = lane; j < L; j += 32)
-          srow[j] = kAttn8 ? srow[j] * inv : round_to<T>(srow[j] * inv);
-      } else {
-        float m = -FLT_MAX;
-        for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-        m = warp_max(m);
-        float sum = 0.0f;
-        for (int j = lane; j < L; j += 32) {
-          const float e = expf(srow[j] - m);
-          srow[j] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        for (int j = lane; j < L; j += 32) srow[j] = round_to<T>(srow[j] / sum);
-      }
-      if constexpr (kAttn8) {  // P per (head, query) over the keys
-        float m = 0.0f;
-        for (int j = lane; j < L; j += 32) m = fmaxf(m, fabsf(srow[j]));
-        scale = quant_scale(warp_max(m));
-        const float inv = __frcp_rn(scale);
-        int8_t* pp = probe.p == nullptr
-                         ? nullptr
-                         : probe.p + (((size_t)b * H + h) * L + row0 + i) * L;
-        for (int j = lane; j < L; j += 32) {
-          const int8_t code = quant_code(srow[j], inv);
-          qp[i * lp8 + j] = code;
-          if (pp != nullptr) pp[j] = code;
-        }
-        if (lane == 0) s_p[i] = scale;
-      }
-    }
-    __syncthreads();
-    if constexpr (kAttn8) {
-      for (int item = tid; item < rows * dh; item += blockDim.x) {
-        const int i = item / dh, c = c0 + item % dh;
-        const int2* pi = reinterpret_cast<const int2*>(qp + i * lp8);
-        const int2* vc = reinterpret_cast<const int2*>(qvt + c * lp8);
-        int acc = 0;
-        for (int k = 0; k < lp8 / 8; ++k) {
-          const int2 a = pi[k], v = vc[k];
-          acc = __dp4a(a.x, v.x, acc);
-          acc = __dp4a(a.y, v.y, acc);
-        }
-        o[i * D + c] = __fmul_rn(__int2float_rn(acc), __fmul_rn(s_v[c], s_p[i]));
-      }
-    } else {
-      for (int item = tid; item < rows * dh; item += blockDim.x) {
-        const int i = item / dh, d = item % dh;
-        const float* pi = ph + i * L;
-        const float* vj = kv + D + c0 + d;
-        float acc = 0.0f;
-        for (int j = 0; j < L; ++j) acc = fmaf(pi[j], vj[(size_t)j * kvs], acc);
-        o[i * D + c0 + d] = round_to<T>(acc);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Phase 4: out projection, residual, LN1 in fp32 (x1 is not rounded).
-  if constexpr (kAttn8) {
-    quantize_rows(o, D, rows, D, qa, D, s_a,
-                  probe.o == nullptr ? nullptr : probe.o + tok0 * D, D);
-    __syncthreads();
-    imatmul(qa, D, rows, w.w_out_q, D, D, D, [&](int r, int n, int acc) {
-      x1[r * D + n] = __fadd_rn(xs[r * D + n], dequant(acc, w.w_out_s[n], s_a[r], w.b_out[n]));
-    });
-  } else {
-    matmul(o, D, rows, w.w_out, D, D, D, [&](int r, int n, float acc) {
-      x1[r * D + n] = xs[r * D + n] + (acc + w.b_out[n]);
-    });
-  }
-  for (int i = tid; i < kTM * D; i += blockDim.x) fsum[i] = 0.0f;
-  __syncthreads();
-  layer_norm_rows<float>(x1, rows, D, w.ln1_s, w.ln1_b);
-  __syncthreads();
-
-  // Phase 5: the W8A8 FFN, d_ff in chunks of kChunk.
-  quantize_rows(x1, D, rows, D, qa, D, s_a,
-                probe.x1 == nullptr ? nullptr : probe.x1 + tok0 * D, D);
-  __syncthreads();
-  for (int c = 0; c < F; c += kChunk) {
-    const int fc = min(kChunk, F - c);
-    imatmul(qa, D, rows, w.w1_q + (size_t)c * D, D, fc, D, [&](int r, int n, int acc) {
-      ph[r * kChunk + n] = fmaxf(dequant(acc, w.w1_s[c + n], s_a[r], w.b1[c + n]), 0.0f);
-    });
-    __syncthreads();
-    quantize_rows(ph, kChunk, rows, fc, qh, kChunk, s_h,
-                  probe.h == nullptr ? nullptr : probe.h + tok0 * F + c, F);
-    __syncthreads();
-    imatmul(qh, kChunk, rows, w.w2_q + c, F, D, fc, [&](int r, int n, int acc) {
-      fsum[r * D + n] =
-          __fadd_rn(fsum[r * D + n], __fmul_rn(__int2float_rn(acc), __fmul_rn(w.w2_s[n], s_h[r])));
-    });
-    __syncthreads();
-  }
-
-  // Phase 6: residual, LN2, store.
-  for (int i = tid; i < rows * D; i += blockDim.x)
-    x1[i] = __fadd_rn(x1[i], __fadd_rn(fsum[i], w.b2[i % D]));
-  __syncthreads();
-  layer_norm_rows<T>(x1, rows, D, w.ln2_s, w.ln2_b);
-  __syncthreads();
-  T* ob = out + tok0 * D;
-  for (int i = tid; i < rows * D; i += blockDim.x) ob[i] = from_f<T>(x1[i]);
-}
-
-// B8's first launch where K|V live in device memory: this tile's rows of
-// chain b quantized per token, then K (rounded to T) and V (fp32) into kv_ws
-// (B, L, 2D), with phase 2's products and rounding. Each (tile, chain) writes
-// its own rows.
+// grid (ceil(N / 64), ceil(3D / 64)); 8 warps of 16 x 32. The CTA's 64 rows
+// of x, staged by cp.async, are quantized per token (by the CTAs of the
+// first column tile also to the probe), its 64 rows of W_qkv's codes staged
+// meanwhile.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-kv_proj_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_qkv_q,
-                    const float* __restrict__ w_qkv_s, const float* __restrict__ b_qkv,
-                    float* __restrict__ kv_ws, int L, int D) {
-  extern __shared__ __align__(16) float smem[];  // kTM x D fp32, codes, scales
-  float* xs = smem;
-  int8_t* qx = reinterpret_cast<int8_t*>(smem + kTM * D);
-  float* sx = smem + kTM * D + kTM * D / 4;
-  const int b = blockIdx.y, row0 = blockIdx.x * kTM;
-  const int rows = min(kTM, L - row0);
-  const T* xb = x + ((size_t)b * L + row0) * D;
-  for (int i = threadIdx.x; i < kTM * D + kTM * D / 4 + kTM; i += blockDim.x) smem[i] = 0.0f;
+__global__ void __launch_bounds__(kQkvThreads)
+qkv_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
+                const float* __restrict__ w_s, const float* __restrict__ b,
+                T* __restrict__ qk, float* __restrict__ v, int8_t* probe_x, int N, int D,
+                Int8Plan p) {
+  extern __shared__ __align__(16) unsigned char qkv_smem[];
+  int8_t* sA = reinterpret_cast<int8_t*>(qkv_smem);      // 64 x sq: x's codes
+  int8_t* sB = sA + kQkvTile * p.sq;                      // 64 x sq: W_qkv's rows
+  float* sS = reinterpret_cast<float*>(sB + kQkvTile * p.sq);  // x's scales
+  T* sX = reinterpret_cast<T*>(sS + kQkvTile);                 // 64 x D: x's rows
+  const int m0 = blockIdx.x * kQkvTile, n0 = blockIdx.y * kQkvTile;
+  const int warp = threadIdx.x >> 5;
+  tc::stage_tile<T, true>(sX, D, x, D, m0, kQkvTile, N, 0, D, D);
+  tc::cp_async_commit();
+  tc::stage_codes(sB, p.sq, w_q + (size_t)n0 * D, D, min(kQkvTile, 3 * D - n0), D);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) xs[i] = to_f(xb[i]);
+  {  // a warp holds rows warp, warp + 8, ... (zero past N)
+    constexpr int kWarps = kQkvThreads / 32, R = kQkvTile / kWarps;
+    const int lane = threadIdx.x & 31;
+    float xv[R][kTailMaxD / 32];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int j = 0; j < kTailMaxD / 32; ++j) {
+        const int c = lane + 32 * j;
+        xv[k][j] = c < D ? to_f(sX[(warp + kWarps * k) * D + c]) : 0.0f;
+      }
+    quantize_rows(xv, D, p.kq, sA + warp * p.sq, p.sq, kWarps, sS + warp, [&](int k) {
+      const int gr = m0 + warp + kWarps * k;
+      return probe_x != nullptr && blockIdx.y == 0 && gr < N ? probe_x + (size_t)gr * D
+                                                               : nullptr;
+    });
+  }
+  tc::cp_async_wait<0>();
   __syncthreads();
-  quantize_rows(xs, D, rows, D, qx, D, sx, nullptr, 0);
-  __syncthreads();
-  float* kv = kv_ws + ((size_t)b * L + row0) * 2 * D;
-  imatmul(qx, D, rows, w_qkv_q + (size_t)D * D, D, 2 * D, D, [&](int r, int n, int acc) {
-    const float v = dequant(acc, w_qkv_s[D + n], sx[r], b_qkv[D + n]);
-    kv[r * 2 * D + n] = n < D ? round_to<T>(v) : v;
+  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
+  int acc[1][4][4];
+  tc::zero(acc);
+  tc::warp_mma_s8<1, 4>(acc, sA, p.sq, wm, sB, p.sq, wn, 8, 4, p.kq);
+  tc::for_each_acc(acc, wm, wn, 8, 4, [&](int r, int n, int a) {
+    const int gr = m0 + r, gn = n0 + n;
+    if (gr >= N || gn >= 3 * D) return;
+    const float val = dequant(a, w_s[gn], sS[r], b[gn]);
+    if (gn < 2 * D)
+      qk[(size_t)gr * 2 * D + gn] = from_f<T>(val);
+    else
+      v[(size_t)gr * D + gn - 2 * D] = val;
   });
 }
 
-inline bool int8_kv_in_smem(bool attn8, int L, int D) {
-  return SmemI8(L, D, attn8, true).total * (int)sizeof(float) <= kMaxSmem;
+// ---- B8 launch 2: attention with int8 P . V ------------------------------------------
+
+// The ring of two stages: step s + 1 is staged while step s is used.
+template <typename Load>
+__device__ __forceinline__ unsigned char* ring_begin(unsigned char* ring, int stage, int s,
+                                                     int steps, Load load) {
+  if (s + 1 < steps) load(s + 1);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  return ring + (s % 2) * stage;
 }
 
-inline int int8_smem_bytes(bool attn8, int L, int D) {
-  return SmemI8(L, D, attn8, int8_kv_in_smem(attn8, L, D)).total * (int)sizeof(float);
+// Position in a 32-key block of V's codes of key kk of the block (the
+// permutation that makes the S accumulator the s8 A fragment).
+__device__ __forceinline__ int key_position(int kk) {
+  const int r = kk & 15;
+  return (kk & 16) + 4 * ((r & 7) >> 1) + 2 * (r >> 3) + (r & 1);
 }
 
-template <typename T, bool kAttn8, bool kKvGlobal>
-int launch_kernel(const void* x, const Int8Weights<T>& w, void* out, const float* kv,
-                  const Probe& probe, int B, int L, int D, int H, int F, cudaStream_t stream) {
-  const int bytes = int8_smem_bytes(kAttn8, L, D);
-  auto kernel = encoder_layer_int8_kernel<T, kAttn8, kKvGlobal>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kTM - 1) / kTM, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x), w, static_cast<T*>(out),
-                                            kv, probe, L, D, H, F);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Launches the layer over B chains (two launches where K|V go to kv_ws);
-// returns cudaGetLastError() after the last launch, or the error that
-// stopped it before.
+// grid (B * H, p.q_tiles); p.warps warps, a warp per 16 query rows. qk: (B*L,
+// 2D) q | k in T; v: (B*L, D) fp32; o: (B*L, D) fp32.
+template <typename T, int kDh>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+attention_int8_kernel(const T* __restrict__ qk, const float* __restrict__ v,
+                      float* __restrict__ o, int8_t* probe_v, int8_t* probe_p, int L, int D,
+                      int H, Int8Plan p) {
+  constexpr bool kF32 = sizeof(T) == 4;  // fp32: exact softmax; bf16: max-free
+  constexpr int KS = kDh / (kF32 ? 8 : 16);
+  constexpr int NO = kDh / 8;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  unsigned char* ring = attn_smem;
+  int8_t* sVq = reinterpret_cast<int8_t*>(attn_smem + 2 * p.stage);
+  float* sSv = reinterpret_cast<float*>(sVq + kDh * kSVq);  // V's scales
+  float* sIv = sSv + kDh;                                    // and their reciprocals
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int dh = D / H, c0 = h * dh;
+  const int nb = p.key_blocks, steps = 2 * nb;
+  const size_t row_base = (size_t)b * L;
+  const T* kb = qk + row_base * 2 * D + D + c0;
+  const float* vb = v + row_base * D + c0;
+  const int kbytes = kKeyBlock * p.sk * (int)sizeof(T);
+
+  // Step s stages key block s % nb: K in the first pass, K and V in the
+  // second (zero past L keys and dh columns).
+  auto load = [&](int s) {
+    unsigned char* st = ring + (s % 2) * p.stage;
+    const int j0 = (s % nb) * kKeyBlock;
+    tc::stage_tile<T, true>(reinterpret_cast<T*>(st), p.sk, kb, 2 * D, j0, kKeyBlock, L, 0, kDh,
+                            dh);
+    if (s >= nb)
+      tc::stage_tile<float, true>(reinterpret_cast<float*>(st + kbytes), p.sv, vb, D, j0,
+                                  kKeyBlock, L, 0, kDh, dh);
+  };
+  load(0);
+  tc::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_warps = blockDim.x >> 5;
+  // V's scales per (chain, column) over the chain's L keys: a warp per column
+  // (read from device memory while the first key block is staged).
+  for (int c = warp; c < kDh; c += n_warps) {
+    float m = 0.0f;
+    if (c < dh)
+      for (int j = lane; j < L; j += 32) m = fmaxf(m, fabsf(vb[(size_t)j * D + c]));
+    const float s = quant_scale(warp_max(m));
+    if (lane == 0) {
+      sSv[c] = s;
+      sIv[c] = __frcp_rn(s);
+    }
+  }
+
+  const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
+  const bool live = r0 < L;
+  const T* qb = qk + row_base * 2 * D + c0;
+  auto q_at = [&](int r, int c) {
+    return (r < L && c < dh) ? to_f(qb[(size_t)r * 2 * D + c]) : 0.0f;
+  };
+  uint32_t qa[KS][4], ql[kF32 ? KS : 1][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1);
+      if constexpr (kF32) {
+        tc::split_tf32(q_at(r, 8 * ks + t + 4 * (e >> 1)), qa[ks][e], ql[ks][e]);
+      } else {
+        const int c = 16 * ks + 2 * t + 8 * (e >> 1);
+        qa[ks][e] = pack_bf16(q_at(r, c), q_at(r, c + 1));
+      }
+    }
+
+  // S of the n8 tile at key n of the staged block (first key j0), in the
+  // accumulator layout; keys past L give -inf; the max-free form clamps.
+  auto scores = [&](const T* sK, int j0, int n, float (&c)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = 0.0f;
+    if (j0 + n < L) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bb[2];
+        if constexpr (kF32) {
+          const float* kr = reinterpret_cast<const float*>(sK) + (n + g) * p.sk + 8 * ks + t;
+          uint32_t bl[2];
+          tc::split_tf32(kr[0], bb[0], bl[0]);
+          tc::split_tf32(kr[4], bb[1], bl[1]);
+          tc::mma_tf32(c, ql[ks], bb);
+          tc::mma_tf32(c, qa[ks], bl);
+          tc::mma_tf32(c, qa[ks], bb);
+        } else {
+          const T* kr = sK + (n + g) * p.sk + 16 * ks + 2 * t;
+          bb[0] = *reinterpret_cast<const uint32_t*>(kr);
+          bb[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
+          tc::mma_bf16(c, qa[ks], bb);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = j0 + n + 2 * t + (e & 1) < L;
+      c[e] = !in ? -INFINITY : kF32 ? c[e] : fminf(fmaxf(c[e], -kScoreClamp), kScoreClamp);
+    }
+  };
+
+  // Pass 1, per row (g and g + 8): the running max and the rescaled sum of
+  // exp(s - max) (max-free: the max and the sum of exp(s)).
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
+  auto pass1 = [&](const T* sK, int j0) {
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) scores(sK, j0, 8 * j, sc[j]);
+    float mb[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mb[e >> 1] = fmaxf(mb[e >> 1], sc[j][e]);
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += __expf(sc[j][e]);
+      m[0] = mb[0];
+      m[1] = mb[1];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] *= expf(m[r] - mb[r]);
+        m[r] = mb[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+    }
+  };
+  // Then over the row's four threads, and P's scale per row: its absmax is
+  // its value at the largest score.
+  float inv[2], sp[2], ip[2];
+  auto row_stats = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off), mn = fmaxf(m[r], mo);
+        if constexpr (!kF32) {
+          l[r] += lo;
+        } else {
+          l[r] = l[r] * expf(m[r] - mn) + lo * expf(mo - mn);
+        }
+        m[r] = mn;
+      }
+      inv[r] = __fdividef(1.0f, l[r]);
+      sp[r] = quant_scale(kF32 ? 1.0f / l[r] : __expf(m[r]) * inv[r]);
+      ip[r] = __frcp_rn(sp[r]);
+    }
+  };
+
+  // Pass 2: S again, P = exp(s - max) / sum (max-free: exp(s) * inv), its
+  // codes, and acc += qP qV per 32-key half from the registers.
+  int acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0;
+  int8_t* pp = probe_p == nullptr ? nullptr : probe_p + (size_t)blockIdx.x * L * L;
+  auto pass2 = [&](const T* sK, int j0) {
+    int8_t qp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float pr[4];
+      scores(sK, j0, 8 * j, pr);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pv = kF32 ? expf(pr[e] - m[r]) / l[r] : __expf(pr[e]) * inv[r];
+        qp[j][e] = quant_code(pv, ip[r]);
+        const int row = r0 + g + 8 * r, key = j0 + 8 * j + 2 * t + (e & 1);
+        if (pp != nullptr && row < L && key < L) pp[(size_t)row * L + key] = qp[j][e];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (j0 + 32 * hh >= L) continue;
+      const int j = 4 * hh;
+      const uint32_t a[4] = {
+          pack_codes(qp[j][0], qp[j][1], qp[j + 1][0], qp[j + 1][1]),
+          pack_codes(qp[j][2], qp[j][3], qp[j + 1][2], qp[j + 1][3]),
+          pack_codes(qp[j + 2][0], qp[j + 2][1], qp[j + 3][0], qp[j + 3][1]),
+          pack_codes(qp[j + 2][2], qp[j + 2][3], qp[j + 3][2], qp[j + 3][3])};
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (8 * n >= dh) continue;
+        uint32_t bb[2];
+        tc::ldmatrix_x2(bb, sVq + (8 * n + (lane & 7)) * kSVq + 32 * hh + ((lane >> 3) & 1) * 16);
+        tc::mma_s8(acc[n], a, bb);
+      }
+    }
+  };
+
+  for (int s = 0; s < nb; ++s) {
+    const T* sK = reinterpret_cast<const T*>(ring_begin(ring, p.stage, s, steps, load));
+    if (live) pass1(sK, s * kKeyBlock);
+    __syncthreads();
+  }
+  if (live) row_stats();
+  for (int s = nb; s < steps; ++s) {
+    const unsigned char* st = ring_begin(ring, p.stage, s, steps, load);
+    const int j0 = (s - nb) * kKeyBlock;
+    // V's codes of the block, [column][key] with the keys permuted; zero
+    // past L keys and dh columns (V staged as 0 there).
+    const float* sV = reinterpret_cast<const float*>(st + kbytes);
+    for (int e = threadIdx.x; e < kDh * kKeyBlock; e += blockDim.x) {
+      const int c = e / kKeyBlock, kk = e - c * kKeyBlock;
+      const int8_t q = quant_code(sV[kk * p.sv + c], sIv[c]);
+      sVq[c * kSVq + (kk & 32) + key_position(kk)] = q;
+      if (probe_v != nullptr && blockIdx.y == 0 && c < dh && j0 + kk < L)
+        probe_v[(row_base + j0 + kk) * D + c0 + c] = q;
+    }
+    __syncthreads();
+    if (live) pass2(reinterpret_cast<const T*>(st), j0);
+    __syncthreads();
+  }
+  if (!live) return;
+
+  // O = acc * (s_v * s_p) in fp32: element e of tile n at (row g + 8 (e >>
+  // 1), column 8n + 2t + (e & 1)).
+  float* ob = o + row_base * D + c0;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+      if (r < L && c < dh)
+        ob[(size_t)r * D + c] =
+            __fmul_rn(__int2float_rn(acc[n][e]), __fmul_rn(sSv[c], sp[e >> 1]));
+    }
+}
+
+// ---- launch 3: the int8 tail -----------------------------------------------------------
+
+// CTA k takes its units of TailSchedule(N, F, tm, kChunk) (gridDim.x CTAs),
+// a segment at a time; see the file's comment. o: B7's O (N x D, T) or B8's
+// (N x D, fp32). kMT = tm / 16 m-tiles per warp. Warps: the out projection
+// and W1 split the output columns eight ways; W2 splits them four ways and
+// the chunk in two halves.
+template <typename T, bool kAttn8, int kMT>
+__global__ void __launch_bounds__(kTailThreads, 2)
+int8_tail_kernel(const T* __restrict__ x, const void* __restrict__ o_any,
+                 const Int8Weights<T> w, const Probe probe, int N, int D, int F, Int8Plan p,
+                 float* __restrict__ x1g, float* __restrict__ part) {
+  constexpr int kWarps = kTailThreads / 32;
+  constexpr int NTO = kMT == 1 ? 4 : 2;  // out projection: D <= 256 (kMT 1), 128 (kMT 2)
+  constexpr int NT2 = kMT == 1 ? 8 : 4;  // W2
+  constexpr int RPW = 2 * kMT;           // rows per warp in the row-wise stages
+  constexpr int KC = kTailMaxD / 32 / kMT;  // columns per lane there: D <= 32 KC
+  using Acc = std::conditional_t<kAttn8, int, float>;
+  extern __shared__ __align__(16) unsigned char tail_smem[];
+  T* sA = reinterpret_cast<T*>(tail_smem + p.off_a);              // B7: O in T
+  int8_t* sAq = reinterpret_cast<int8_t*>(tail_smem + p.off_a);   // B8: O's codes
+  float* sPre = reinterpret_cast<float*>(tail_smem + p.off_pre);  // pre-LN1, then x1
+  int* sRed = reinterpret_cast<int*>(tail_smem + p.off_pre);      // W2's second half-sums
+  int8_t* sQ = reinterpret_cast<int8_t*>(tail_smem + p.off_q);    // x1's codes
+  int8_t* sH = reinterpret_cast<int8_t*>(tail_smem + p.off_h);    // h's codes of a chunk
+  float* sMax = reinterpret_cast<float*>(tail_smem + p.off_sc);   // kWarps x tm row maxima
+  float* s_o = sMax + kWarps * p.tm;                              // row scales: O (B8),
+  float* s_x1 = s_o + p.tm;                                       // x1,
+  float* s_h = s_x1 + p.tm;                                       // h of the chunk
+  float* sLn1s = reinterpret_cast<float*>(tail_smem + p.off_par); // the vectors over D
+  float* sLn1b = sLn1s + D;
+  float* sBout = sLn1b + D;
+  float* sWos = sBout + D;  // B8: W_out's scales
+  float* sW2s = sWos + D;
+  unsigned char* ring = tail_smem + p.off_ring;
+  const T* o_t = static_cast<const T*>(o_any);
+  const float* o_f = static_cast<const float*>(o_any);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ntd = D / 8;
+  const int nact_o = max(0, (ntd - warp + kWarps - 1) / kWarps);
+  const int kh = warp >> 2, nw = warp & 3;
+  const int nact_2 = max(0, (ntd - nw + 3) / 4);
+  const int n_pro = kAttn8 ? 1 : (p.kd + kOutKT - 1) / kOutKT;
+  const int qpt = p.wt / kQuarter;          // steps of a product per weight tile
+  const int tpc = 2 * (kChunk / p.wt);      // weight tiles per chunk: W1's, then W2's
+  const TailSchedule sc(N, F, p.tm, kChunk);
+  const long long u_end = sc.begin(blockIdx.x + 1, gridDim.x);
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    sLn1s[c] = w.ln1_s[c];
+    sLn1b[c] = w.ln1_b[c];
+    sBout[c] = w.b_out[c];
+    sWos[c] = kAttn8 ? w.w_out_s[c] : 0.0f;
+    sW2s[c] = w.w2_s[c];
+  }
+
+  for (long long u = sc.begin(blockIdx.x, gridDim.x); u < u_end;) {
+    const int tile = (int)(u / sc.chunks);
+    const int c_lo = (int)(u - (long long)tile * sc.chunks);
+    const int c_hi = (int)min((long long)sc.chunks, u_end - (long long)tile * sc.chunks);
+    u = (long long)tile * sc.chunks + c_hi;
+    const int row0 = tile * p.tm, rows = min(p.tm, N - row0);
+    const int n_tiles = n_pro + (c_hi - c_lo) * tpc;
+    // Tile i of the segment's weight stream: W_out (B7: k-tile i; B8: all
+    // of W_out's codes), then per chunk W1's rows [c 512 + wt v, + wt)
+    // (v < tpc / 2) and W2's columns [c 512 + wt (v - tpc / 2), + wt).
+    auto stage = [&](int i) {
+      unsigned char* s = ring + (i % p.slots) * p.slot;
+      if (i < n_pro) {
+        if constexpr (kAttn8)
+          tc::stage_codes(reinterpret_cast<int8_t*>(s), p.sq, w.w_out_q, D, D, D);
+        else
+          tc::stage_tile<T, false>(reinterpret_cast<T*>(s), p.swo, w.w_out, D, 0, D, D,
+                                   i * kOutKT, kOutKT, D);
+        return;
+      }
+      const int q = i - n_pro, c = c_lo + q / tpc, v = q % tpc;
+      // rows of W1 past F and columns of W2 past F are not staged: their
+      // products are discarded (h is 0 there) or meet zero codes of h
+      const int f0 = c * kChunk + (v % (tpc / 2)) * p.wt;
+      if (v < tpc / 2)
+        tc::stage_codes(reinterpret_cast<int8_t*>(s), p.sq, w.w1_q + (size_t)f0 * D, D,
+                        min(p.wt, F - f0), D);
+      else
+        tc::stage_codes(reinterpret_cast<int8_t*>(s), p.sw2, w.w2_q + f0, F, D,
+                        min(p.wt, F - f0));
+    };
+    int it = 0;  // the stream's next tile
+    auto next = [&]() -> const unsigned char* {
+      __syncthreads();  // every warp is done with the slot staged next
+      if (it + p.slots - 1 < n_tiles) stage(it + p.slots - 1);
+      tc::cp_async_commit();
+      cp_async_wait_ring(p.slots);
+      __syncthreads();
+      return ring + (it++ % p.slots) * p.slot;
+    };
+
+    __syncthreads();  // the last segment is done with shared memory
+    // O's tile (B7: in T, the A operand; B8: fp32 in sPre, to be quantized)
+    if constexpr (kAttn8)
+      tc::stage_tile<float, true>(sPre, D, o_f, D, row0, p.tm, N, 0, D, D);
+    else
+      tc::stage_tile<T, true>(sA, p.sa, o_t, D, row0, p.tm, N, 0, p.kd, D);
+    tc::cp_async_commit();  // its own group: slots groups in flight below
+    for (int i = 0; i < p.slots - 1; ++i) {
+      if (i < n_tiles) stage(i);
+      tc::cp_async_commit();
+    }
+    // The out projection, the residual with x in fp32 (x read ahead).
+    {
+      float xr[kMT][NTO][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTO; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * i + g + 8 * (e >> 1), n = 8 * warp + 64 * j + 2 * t + (e & 1);
+            xr[i][j][e] = j < nact_o && r < rows ? to_f(x[(size_t)(row0 + r) * D + n]) : 0.0f;
+          }
+      if constexpr (kAttn8) {
+        // O per token over D: a warp holds rows warp, warp + 8, ...
+        cp_async_wait_ring(p.slots);
+        __syncthreads();
+        float v[RPW][KC];
+#pragma unroll
+        for (int k = 0; k < RPW; ++k)
+#pragma unroll
+          for (int j = 0; j < KC; ++j) {
+            const int c = lane + 32 * j;
+            v[k][j] = c < D ? sPre[(warp + kWarps * k) * D + c] : 0.0f;
+          }
+        quantize_rows(v, D, p.kq, sAq + warp * p.sa, p.sa, kWarps, s_o + warp, [&](int k) {
+          const int r = warp + kWarps * k;
+          return probe.o != nullptr && c_lo == 0 && r < rows ? probe.o + (size_t)(row0 + r) * D
+                                                             : nullptr;
+        });
+      }
+
+      Acc acc_o[kMT][NTO][4];
+      tc::zero(acc_o);
+      for (int i = 0; i < n_pro; ++i) {
+        const unsigned char* s = next();
+        if constexpr (kAttn8) {
+          tc::warp_mma_s8<kMT, NTO>(acc_o, sAq, p.sa, 0, reinterpret_cast<const int8_t*>(s),
+                                    p.sq, 8 * warp, 8 * kWarps, nact_o, p.kq);
+        } else {
+          const int kv = min(kOutKT, p.kd - i * kOutKT);
+          tc::warp_mma<T, kMT, NTO, true, false>(acc_o, sA + i * kOutKT, p.sa, 0,
+                                                 reinterpret_cast<const T*>(s), p.swo, 8 * warp,
+                                                 8 * kWarps, nact_o, 0, kv);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTO; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * i + g + 8 * (e >> 1), n = 8 * warp + 64 * j + 2 * t + (e & 1);
+            if (j >= nact_o || r >= rows) continue;
+            if constexpr (kAttn8)
+              sPre[r * D + n] =
+                  __fadd_rn(xr[i][j][e], dequant(acc_o[i][j][e], sWos[n], s_o[r], sBout[n]));
+            else
+              sPre[r * D + n] = xr[i][j][e] + (acc_o[i][j][e] + sBout[n]);
+          }
+    }
+    __syncthreads();
+    // LN1 in fp32 (x1, to device memory once per row), x1 per token: a warp
+    // holds rows warp, warp + 8, ... at once, its lane columns lane + 32 j.
+    {
+      float v[RPW][KC], mean[RPW], var[RPW];
+#pragma unroll
+      for (int k = 0; k < RPW; ++k) {
+        const int r = warp + kWarps * k;
+        mean[k] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const int c = lane + 32 * j;
+          v[k][j] = c < D && r < rows ? sPre[r * D + c] : 0.0f;
+          mean[k] += v[k][j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RPW; ++k) {
+        mean[k] = warp_sum(mean[k]) / D;
+        var[k] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const float d = v[k][j] - mean[k];
+          if (lane + 32 * j < D) var[k] += d * d;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RPW; ++k) {
+        const int r = warp + kWarps * k;
+        const float inv = rsqrtf(warp_sum(var[k]) / D + kLnEps);
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const int c = lane + 32 * j;
+          v[k][j] = c < D && r < rows ? (v[k][j] - mean[k]) * inv * sLn1s[c] + sLn1b[c] : 0.0f;
+          if (c < D && r < rows && c_lo == 0) x1g[(size_t)(row0 + r) * D + c] = v[k][j];
+        }
+      }
+      quantize_rows(v, D, p.kq, sQ + warp * p.sq, p.sq, kWarps, s_x1 + warp, [&](int k) {
+        const int r = warp + kWarps * k;
+        return probe.x1 != nullptr && c_lo == 0 && r < rows ? probe.x1 + (size_t)(row0 + r) * D
+                                                            : nullptr;
+      });
+    }
+
+    for (int c = c_lo; c < c_hi; ++c) {
+      // W1's chunk: this warp's n-tiles warp and warp + 8 of each 128 rows.
+      int acc1[4][kMT][2][4];
+      const int8_t* s1 = nullptr;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q % qpt == 0) s1 = reinterpret_cast<const int8_t*>(next());
+        tc::zero(acc1[q]);
+        tc::warp_mma_s8<kMT, 2>(acc1[q], sQ, p.sq, 0, s1 + (q % qpt) * kQuarter * p.sq, p.sq,
+                                8 * warp, 64, 2, p.kq);
+      }
+      // h = relu(dequant + b1) (0 past F), in place (as fp32 bits); the row
+      // maxima over this thread's units, then over the row's quad and the warps.
+      float mx[kMT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) mx[i][0] = mx[i][1] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int f = c * kChunk + q * kQuarter + 64 * j + 8 * warp + 2 * t + (e & 1);
+              const int r = 16 * i + g + 8 * (e >> 1);
+              const float hf = f < F ? fmaxf(dequant(acc1[q][i][j][e], w.w1_s[f], s_x1[r],
+                                                     w.b1[f]), 0.0f)
+                                     : 0.0f;
+              acc1[q][i][j][e] = __float_as_int(hf);
+              mx[i][e >> 1] = fmaxf(mx[i][e >> 1], hf);
+            }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v = mx[i][hh];
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+          if (t == 0) sMax[warp * p.tm + 16 * i + g + 8 * hh] = v;
+        }
+      __syncthreads();
+      // the chunk's scale per token from all 512 units; then h's codes
+      float ih[kMT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * i + g + 8 * hh;
+          float v = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kWarps; ++k) v = fmaxf(v, sMax[k * p.tm + r]);
+          const float s = quant_scale(v);
+          ih[i][hh] = __frcp_rn(s);
+          if (warp == 0 && t == 0) s_h[r] = s;
+        }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int n = q * kQuarter + 64 * j + 8 * warp + 2 * t + (e & 1);
+              const int r = 16 * i + g + 8 * (e >> 1);
+              const int8_t code = quant_code(__int_as_float(acc1[q][i][j][e]), ih[i][e >> 1]);
+              sH[r * p.sh + n] = code;
+              if (probe.h != nullptr && r < rows && c * kChunk + n < F)
+                probe.h[(size_t)(row0 + r) * F + c * kChunk + n] = code;
+            }
+
+      // W2's chunk: columns nw, nw + 4, ... over half kh of each 128 units.
+      int acc2[kMT][NT2][4];
+      tc::zero(acc2);
+      const int8_t* s2 = nullptr;
+#pragma unroll 1
+      for (int q = 0; q < 4; ++q) {
+        if (q % qpt == 0) s2 = reinterpret_cast<const int8_t*>(next());
+        tc::warp_mma_s8<kMT, NT2>(acc2, sH + q * kQuarter + kh * 64, p.sh, 0,
+                                  s2 + (q % qpt) * kQuarter + kh * 64, p.sw2, 8 * nw, 32, nact_2,
+                                  64);
+      }
+      // the chunk's partial: both halves' exact sums, dequantized once
+      if (kh == 1)
+        tc::for_each_acc(acc2, 0, 8 * nw, 32, nact_2,
+                         [&](int r, int n, int v) { sRed[r * D + n] = v; });
+      __syncthreads();
+      if (kh == 0) {
+        float* dst = part + ((size_t)c * N + row0) * D;
+        tc::for_each_acc(acc2, 0, 8 * nw, 32, nact_2, [&](int r, int n, int v) {
+          if (r < rows)
+            dst[(size_t)r * D + n] = __fmul_rn(__int2float_rn(v + sRed[r * D + n]),
+                                               __fmul_rn(sW2s[n], s_h[r]));
+        });
+      }
+    }
+  }
+}
+
+// ---- launch 4: the finish --------------------------------------------------------------
+
+// f = the row's chunk partials added in chunk order; LN2(x1 + (f + b2))
+// rounded to T. A warp per row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+int8_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
+                   const float* __restrict__ b2, const float* __restrict__ ln2_s,
+                   const float* __restrict__ ln2_b, T* __restrict__ out, int N, int D,
+                   int chunks) {
+  __shared__ float rows[8][kTailMaxD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = blockIdx.x * 8 + warp;
+  if (gr >= N) return;
+  float* row = rows[warp];
+  for (int c = lane; c < D; c += 32) {
+    float f = part[(size_t)gr * D + c];
+    for (int k = 1; k < chunks; ++k) f = __fadd_rn(f, part[((size_t)k * N + gr) * D + c]);
+    row[c] = __fadd_rn(x1[(size_t)gr * D + c], __fadd_rn(f, b2[c]));
+  }
+  __syncwarp();
+  ln2_row<T, false>(row, gr, 1, D, ln2_s, ln2_b, out, Dropout{0u, 0u, 1.0f, 1}, TailTrain{});
+}
+
+// ---- launching ---------------------------------------------------------------------------
+
+// B8's attention instance by the plan's head width.
+template <typename T>
+cudaError_t launch_attention_int8(const T* qk, const float* v, float* o, const Probe& pr, int B,
+                                  int L, int D, int H, const Int8Plan& p, cudaStream_t s) {
+  auto run = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.attn_bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(B * H, p.q_tiles), p.warps * 32, p.attn_bytes, s>>>(qk, v, o, pr.v, pr.p, L,
+                                                                       D, H, p);
+    return cudaGetLastError();
+  };
+  switch (p.kdh) {
+    case 8:
+      if constexpr (sizeof(T) == 4) return run(attention_int8_kernel<T, 8>);
+      break;
+    case 16: return run(attention_int8_kernel<T, 16>);
+    case 32: return run(attention_int8_kernel<T, 32>);
+    case 64: return run(attention_int8_kernel<T, 64>);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ws: qkv (B7: N x 3D in T; B8: N x 2D q | k in T), v (B8: N x D fp32), o
+// (N x D: B7 in T, B8 fp32), x1 (N x D fp32), part (chunks x N x D fp32).
 template <typename T, bool kAttn8>
-int launch_int8(const void* x, const Int8Weights<T>& w, void* out, void* kv_ws,
-                const Probe& probe, int B, int L, int D, int H, int F, cudaStream_t stream) {
-  if (D % 8 || F % 8 || D % H || int8_smem_bytes(kAttn8, L, D) > kMaxSmem)
+int launch_int8(const T* x, const Int8Weights<T>& w, T* out, void* const* ws, const Probe& pr,
+                const Int8Plan& p, int ctas, int B, int L, int D, int H, int F,
+                cudaStream_t s) {
+  const int N = B * L;
+  const TailSchedule sc(N, F, p.tm, kChunk);
+  if (N < 1 || D % 8 || F % 8 || D % H || D / H > (kAttn8 ? 64 : 384) ||
+      D > (p.tm == 16 ? kTailMaxD : kTailMaxD / 2) || (p.tm != 16 && p.tm != 32) ||
+      p.bytes > kMaxSmem || p.attn_bytes > kMaxSmem || (p.slots != 2 && p.slots != 3) ||
+      (p.wt != 128 && p.wt != 256) ||
+      ctas < 1 || ctas > sc.units || ws[0] == nullptr || ws[2] == nullptr ||
+      ws[3] == nullptr || ws[4] == nullptr || (kAttn8 && ws[1] == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (int8_kv_in_smem(kAttn8, L, D))
-    return launch_kernel<T, kAttn8, false>(x, w, out, nullptr, probe, B, L, D, H, F, stream);
-  float* kv = static_cast<float*>(kv_ws);
-  if (kv == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((L + kTM - 1) / kTM, B);
+  T* qkv = static_cast<T*>(ws[0]);
   cudaError_t err;
   if constexpr (kAttn8) {
-    const int bytes = (kTM * D + kTM * D / 4 + kTM) * (int)sizeof(float);
-    err = cudaFuncSetAttribute(kv_proj_int8_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    float* v = static_cast<float*>(ws[1]);
+    float* o = static_cast<float*>(ws[2]);
+    err = cudaFuncSetAttribute(qkv_int8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.qkv_bytes);
     if (err != cudaSuccess) return (int)err;
-    kv_proj_int8_kernel<T><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const T*>(x), w.w_qkv_q, w.w_qkv_s, w.b_qkv, kv, L, D);
+    const dim3 grid((N + kQkvTile - 1) / kQkvTile, (3 * D + kQkvTile - 1) / kQkvTile);
+    qkv_int8_kernel<T><<<grid, kQkvThreads, p.qkv_bytes, s>>>(x, w.w_qkv_q, w.w_qkv_s, w.b_qkv,
+                                                              qkv, v, pr.x, N, D, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = launch_attention_int8<T>(qkv, v, o, pr, B, L, D, H, p, s);
   } else {
-    const int bytes = kTM * D * (int)sizeof(float);
-    err = cudaFuncSetAttribute(kv_proj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    err = tc::gemm<T, true, false>(x, D, w.w_qkv, 3 * D, N, 3 * D, D,
+                                   tc::round_up(D, tc::kGemmBK), 1,
+                                   StoreBiasRounded<T>{qkv, w.b_qkv, 3 * D}, s);
     if (err != cudaSuccess) return (int)err;
-    kv_proj_kernel<T><<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x), w.w_qkv,
-                                                         w.b_qkv, kv, L, D);
+    err = launch_attention_fwd<T, false>(qkv, static_cast<T*>(ws[2]), B, L, D, H,
+                                         Dropout{0u, 0u, 1.0f, 1}, s);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_kernel<T, kAttn8, true>(x, w, out, kv, probe, B, L, D, H, F, stream);
+  auto tail = p.tm == 16 ? int8_tail_kernel<T, kAttn8, 1> : int8_tail_kernel<T, kAttn8, 2>;
+  err = cudaFuncSetAttribute(tail, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  float* x1 = static_cast<float*>(ws[3]);
+  float* part = static_cast<float*>(ws[4]);
+  tail<<<ctas, kTailThreads, p.bytes, s>>>(x, ws[2], w, pr, N, D, F, p, x1, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int8_finish_kernel<T><<<(N + 7) / 8, 256, 0, s>>>(part, x1, w.b2, w.ln2_s, w.ln2_b, out, N, D,
+                                                    sc.chunks);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -512,45 +957,37 @@ Int8Weights<T> int8_weights_of(const void* const* p) {
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs (attn8 0: B7, 1: B8).
-int fdiff_encoder_layer_int8_smem_bytes(int attn8, int L, int D) {
-  return int8_smem_bytes(attn8 != 0, L, D);
-}
-
-// Floats per chain of the K|V workspace the launch needs (0: none).
-int fdiff_encoder_layer_int8_kv_floats(int attn8, int L, int D) {
-  return int8_kv_in_smem(attn8 != 0, L, D) ? 0 : L * 2 * D;
-}
-
 // dtype_code 0: float32, 1: bfloat16; attn8 0: B7, 1: B8. w: 18 pointers in
 // the order of Int8Weights (w_qkv, w_qkv_q, w_qkv_s, b_qkv, w_out, w_out_q,
 // w_out_s, b_out, ln1_s, ln1_b, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_s,
 // ln2_b; B7 passes null for the int8 attention weights, B8 for w_qkv and
-// w_out). probe: 6 code buffers (x, v, p, o, x1, h), each may be null, or
-// probe itself null. kv_ws: B x fdiff_encoder_layer_int8_kv_floats floats
-// (null when that is 0). Returns cudaGetLastError() after the launch (0 on
+// w_out). ws: 5 workspaces (qkv, v, o, x1, part; see launch_int8; v null
+// for B7). probe: 6 code buffers (x, v, p, o, x1, h), each may be null, or
+// probe itself null. plan: ops/fused_encoder.py int8_plan; tail_ctas its
+// schedule's CTAs. Returns cudaGetLastError() after the last launch (0 on
 // success), or the error that stopped it before.
 int fdiff_encoder_layer_int8(int dtype_code, int attn8, const void* x, const void* const* w,
-                             void* out, void* kv_ws, void* const* probe, int B, int L, int D,
-                             int H, int F, void* stream) {
+                             void* out, void* const* ws, void* const* probe,
+                             const Int8Plan* plan, int tail_ctas, int B, int L, int D, int H,
+                             int F, void* stream) {
   Probe pr{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   if (probe != nullptr)
     pr = Probe{static_cast<int8_t*>(probe[0]), static_cast<int8_t*>(probe[1]),
                static_cast<int8_t*>(probe[2]), static_cast<int8_t*>(probe[3]),
                static_cast<int8_t*>(probe[4]), static_cast<int8_t*>(probe[5])};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0 && attn8 == 0)
-    return launch_int8<float, false>(x, int8_weights_of<float>(w), out, kv_ws, pr, B, L, D, H,
-                                     F, s);
-  if (dtype_code == 0 && attn8 == 1)
-    return launch_int8<float, true>(x, int8_weights_of<float>(w), out, kv_ws, pr, B, L, D, H,
-                                    F, s);
-  if (dtype_code == 1 && attn8 == 0)
-    return launch_int8<__nv_bfloat16, false>(x, int8_weights_of<__nv_bfloat16>(w), out, kv_ws,
-                                             pr, B, L, D, H, F, s);
-  if (dtype_code == 1 && attn8 == 1)
-    return launch_int8<__nv_bfloat16, true>(x, int8_weights_of<__nv_bfloat16>(w), out, kv_ws,
-                                            pr, B, L, D, H, F, s);
+  auto run = [&](auto* t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    const T* xt = static_cast<const T*>(x);
+    T* ot = static_cast<T*>(out);
+    if (attn8)
+      return launch_int8<T, true>(xt, int8_weights_of<T>(w), ot, ws, pr, *plan, tail_ctas, B, L,
+                                  D, H, F, s);
+    return launch_int8<T, false>(xt, int8_weights_of<T>(w), ot, ws, pr, *plan, tail_ctas, B, L,
+                                 D, H, F, s);
+  };
+  if (dtype_code == 0) return run(static_cast<float*>(nullptr));
+  if (dtype_code == 1) return run(static_cast<__nv_bfloat16*>(nullptr));
   return (int)cudaErrorInvalidValue;
 }
 

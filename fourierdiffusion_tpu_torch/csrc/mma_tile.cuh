@@ -1,12 +1,14 @@
 // Tensor-core tile products for Hopper (sm_90a), shared by the layer
 // kernels of encoder_layer_tc.cuh (the sampling layer B1, the training
 // forward B3 and B4's recompute of it), the training backward (B4,
-// fused_encoder_train.cu) and the attention forward and backward (B2, B5
+// fused_encoder_train.cu), the attention forward and backward (B2, B5
 // and B6-bwd, flash_attention.cu, which use the fragment helpers and
-// stage_tile).
+// stage_tile) and the W8A8 int8 sampling layers (B7, B8,
+// fused_encoder_int8.cu: the s8 form).
 //
 // Operands are staged in shared memory and multiplied by warp-level
-// mma.sync with fp32 accumulators in registers, in two forms:
+// mma.sync with fp32 accumulators in registers, in two forms, and with
+// int32 accumulators in a third:
 //
 //   bf16: mma.sync.m16n8k16 on bf16 operands (fragments loaded with
 //         ldmatrix), fp32 accumulation: the TPU kernels' "operands in the
@@ -18,6 +20,10 @@
 //         The dropped lo*lo term and lo's truncation leave about 2^-21 of
 //         |a||b| per product, close to fp32 FMA; one TF32 pass (2^-11)
 //         does not hold the fp32 gates.
+//   s8:   mma.sync.m16n8k32 on int8 codes, exact int32 sums (warp_mma_s8).
+//         Both operands are k-contiguous rows of bytes ([m][k] and [n][k],
+//         the packed (out, in) int8 weights as they are), loaded with
+//         ldmatrix; contractions are padded to 32 with zero codes.
 //
 // Shared-memory tiles hold an operand as element (r, k) of an R x K tile,
 // r the output row (A) or output column (B), in one of two layouts:
@@ -61,6 +67,12 @@ __host__ __device__ constexpr int tile_stride(int n, bool kmaj) {
   return (sizeof(T) == 4 && kmaj) ? (n + 3) / 8 * 8 + 4 : (n + 7) / 16 * 16 + 8;
 }
 
+// Row stride (bytes) of a shared tile of int8 codes whose rows hold n
+// codes: n padded to 32, plus 16 (S % 32 == 16), so the eight 16-byte rows
+// of an ldmatrix phase fall in distinct banks and every row stays 16-byte
+// aligned.
+__host__ __device__ constexpr int tile_stride_s8(int n) { return round_up(n, 32) + 16; }
+
 // ---- PTX wrappers -------------------------------------------------------------
 // The mma wrappers are plain asm (they only read and write registers);
 // copies and ldmatrix are volatile, in program order with the barriers.
@@ -78,6 +90,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 // .ca); bytes past src_bytes are written as zero.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 8 bytes from global to shared (.ca); bytes past src_bytes are written as zero.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -113,6 +130,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// int32 c += a (16 x 32 codes, row) * b (32 x 8 codes, col): exact sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -203,9 +236,10 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 }
 
 // Calls f(row, col, value) for every accumulator element of warp_mma's
-// tiles (row m0 + 16 i + ..., column n0 + j nstep + ...), j < nact.
-template <int MT, int NT, typename Fn>
-__device__ __forceinline__ void for_each_acc(const float (&acc)[MT][NT][4], int m0, int n0,
+// (or warp_mma_s8's) tiles (row m0 + 16 i + ..., column n0 + j nstep +
+// ...), j < nact.
+template <int MT, int NT, typename Acc, typename Fn>
+__device__ __forceinline__ void for_each_acc(const Acc (&acc)[MT][NT][4], int m0, int n0,
                                              int nstep, int nact, Fn f) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -216,6 +250,73 @@ __device__ __forceinline__ void for_each_acc(const float (&acc)[MT][NT][4], int 
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           f(m0 + 16 * i + g + (e >> 1) * 8, n0 + j * nstep + 2 * t + (e & 1), acc[i][j][e]);
+}
+
+// The s8 form of warp_mma: acc[i][j] += sum over k in [0, K) of
+// A(m0 + 16 i + ., k) B(n0 + j nstep + ., k) for i < MT, j < min(NT, nact),
+// in int32 (exact). A: [m][k] codes, row stride sa bytes; B: [n][k] codes,
+// row stride sb bytes; K a multiple of 32, strides tile_stride_s8's. A's
+// fragment (rows g, g + 8; k bytes 4t.. and 16 + 4t..) is four 8 x 16-byte
+// matrices of one ldmatrix.x4, B's (column g; the same k bytes) two of an
+// ldmatrix.x2.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma_s8(int (&acc)[MT][NT][4], const int8_t* __restrict__ sA,
+                                            int sa, int m0, const int8_t* __restrict__ sB, int sb,
+                                            int n0, int nstep, int nact, int K) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; k < K; k += 32) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldmatrix_x4(a[i], sA + (m0 + 16 * i + (lane & 15)) * sa + k + (lane >> 4) * 16);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nact) {
+        uint32_t b[2];
+        ldmatrix_x2(b, sB + (n0 + j * nstep + (lane & 7)) * sb + k + ((lane >> 3) & 1) * 16);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_s8(acc[i][j], a[i], b);
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(int (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+}
+
+// Copies rows [0, R) x bytes [0, K) of a global int8 matrix (element (r, k)
+// at g[r * ld + k]) into a shared tile of stride S bytes by cp.async, 16
+// bytes a copy where ld, K, S and g allow it, else 8 (ld and K multiples of
+// 8, g 8-byte aligned). Nothing is zero-filled: an s8 product reads
+// whatever lies past them, so the other operand must be zero there (codes
+// padded with zeros) or the results there discarded. All threads of the
+// block call it; each walks its copies without a division.
+__device__ __forceinline__ void stage_codes(int8_t* __restrict__ s, int S,
+                                            const int8_t* __restrict__ g, long ld, int R, int K) {
+  if (R <= 0 || K <= 0) return;
+  const bool v16 = ((ld | K | S) & 15) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const int V = v16 ? 16 : 8, per_row = K / V;
+  int r = threadIdx.x / per_row, k = (threadIdx.x - r * per_row) * V;
+  const int dr = blockDim.x / per_row, dk = (blockDim.x - dr * per_row) * V;
+  for (int c = threadIdx.x; c < R * per_row; c += blockDim.x) {
+    if (v16)
+      cp_async16(s + r * S + k, g + r * ld + k, 16);
+    else
+      cp_async8(s + r * S + k, g + r * ld + k, 8);
+    r += dr;
+    k += dk;
+    if (k >= K) {
+      k -= K;
+      ++r;
+    }
+  }
 }
 
 // ---- staging global tiles into shared memory ----------------------------------------

@@ -11,9 +11,11 @@ them); ``fused_encoder_layer`` runs the layer over activations
 * otherwise the fp32/bf16 layer (B1).
 
 On a CUDA tensor it launches the hand-written kernel (``csrc/fused_encoder.cu``
-for B1, ``csrc/fused_encoder_int8.cu`` for B7 and B8) and adds one to that
-kernel's count (``launches``, ``int8_launches``, ``int8_attn_launches``); on
-a CPU tensor it runs the plain PyTorch version of the same arithmetic.
+for B1, ``csrc/fused_encoder_int8.cu`` for B7 and B8: four CUDA launches
+each, every int8 product on the tensor cores, as ``int8_plan`` lays them
+out) and adds one to that kernel's count (``launches``, ``int8_launches``,
+``int8_attn_launches``); on a CPU tensor it runs the plain PyTorch version
+of the same arithmetic.
 
 Numerics of B1: products take operands in the activation dtype and
 accumulate in fp32; results are rounded to the activation dtype after
@@ -379,23 +381,12 @@ def _int8_library() -> ctypes.CDLL:
     lib = load_library("fused_encoder_int8")
     lib.fdiff_encoder_layer_int8.restype = ctypes.c_int
     lib.fdiff_encoder_layer_int8.argtypes = (
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.POINTER(Int8Plan)]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
-    for name in ("fdiff_encoder_layer_int8_smem_bytes", "fdiff_encoder_layer_int8_kv_floats"):
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.fdiff_error_string.restype = ctypes.c_char_p
     lib.fdiff_error_string.argtypes = [ctypes.c_int]
     return lib
-
-
-def kv_workspace(floats_per_chain: int, x: torch.Tensor) -> torch.Tensor | None:
-    """A (B, floats_per_chain) fp32 workspace for the chains' K|V on ``x``'s
-    device, or None where the layer keeps K|V in shared memory."""
-    if not floats_per_chain:
-        return None
-    return torch.empty(x.shape[0], floats_per_chain, device=x.device)
 
 
 def data_ptr(t: torch.Tensor | None) -> int | None:
@@ -476,6 +467,13 @@ def tail_ctas_per_sm(plan: dict[str, int]) -> int:
     return 2 if 2 * (plan["bytes"] + 1024) <= SM_SMEM else 1
 
 
+def _schedule(n_rows: int, tm: int, fc: int, d_ff: int, per_sm: int, sms: int) -> dict:
+    tiles, chunks = -(-n_rows // tm), -(-d_ff // fc)
+    ctas = min(sms * per_sm, tiles * chunks)
+    return {"tiles": tiles, "chunks": chunks, "units": tiles * chunks, "ctas": ctas,
+            "parts": tiles + ctas - 1}
+
+
 def tail_schedule(n_rows: int, d_model: int, d_ff: int, dtype: torch.dtype,
                   sms: int = SMS) -> dict[str, int]:
     """The fused tail's persistent schedule (``fdiff::TailSchedule``): its
@@ -484,10 +482,7 @@ def tail_schedule(n_rows: int, d_model: int, d_ff: int, dtype: torch.dtype,
     and ``parts`` f2 partials of a row tile each (row tiles + CTAs - 1)
     hold their segments' sums."""
     p = tail_plan(d_model, dtype)
-    tiles, chunks = -(-n_rows // p["tm"]), -(-d_ff // p["fc"])
-    ctas = min(sms * tail_ctas_per_sm(p), tiles * chunks)
-    return {"tiles": tiles, "chunks": chunks, "units": tiles * chunks, "ctas": ctas,
-            "parts": tiles + ctas - 1}
+    return _schedule(n_rows, p["tm"], p["fc"], d_ff, tail_ctas_per_sm(p), sms)
 
 
 def tail_segments(schedule: dict[str, int]) -> list[tuple[int, int, int, int, int]]:
@@ -538,6 +533,170 @@ def sample_plan(batch: int, max_len: int, d_model: int, n_head: int, d_ff: int,
     }
 
 
+# ---- launch plan of the int8 layers (B7, B8) ---------------------------------------------
+
+# (W1 rows / W2 columns per weight tile, weight tiles in the ring) of the
+# int8 tail, in order of preference: the first ran the tail fastest on an
+# H100 at the flagship's shape (scripts/int8_tail_sweep.py; PERF.md section
+# 6), the second keeps two CTAs per SM at D=128, the third at D 168-248
+INT8_TAIL_LAYOUTS = ((256, 2), (128, 3), (128, 2))
+INT8_OUT_KT = 32  # B7: k-rows of a W_out tile of the int8 tail
+TAIL_WARPS = 8
+QKV8_TILE = 64  # B8's QKV: 64 rows x 64 columns per CTA
+KEY_BLOCK, MAX_WARPS, WARP_ROWS, TILE_ROWS = 64, 8, 16, 128  # B8's attention, as B2's
+INT8_MAX_DH = 64  # B8's attention: the widest head of its instances
+
+
+class Int8Plan(ctypes.Structure):
+    """The int8 layer's plan as the kernels take it (``Int8Plan`` of
+    ``csrc/fused_encoder_int8.cu``): B8's attention (head width of the
+    instance, warps, query tiles, key blocks, the strides of a staged K and
+    V block, a stage's bytes, its shared memory), B8's QKV shared memory,
+    and the tail's rows per tile, D rounded to the k step of the dtype and to
+    32, the strides of its tiles, its ring's slot bytes and slots, the byte
+    offsets of its shared-memory regions and their total."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "kdh", "warps", "q_tiles", "key_blocks", "sk", "sv", "stage", "attn_bytes",
+        "qkv_bytes", "tm", "kd", "kq", "sa", "sq", "sh", "swo", "wt", "sw2", "slot", "slots",
+        "off_a", "off_pre", "off_q", "off_h", "off_sc", "off_par", "off_ring", "bytes")]
+
+
+def tile_stride_s8(n: int) -> int:
+    """Row stride (bytes) of a shared tile of int8 codes whose rows hold
+    ``n`` codes (``tc::tile_stride_s8``): n padded to 32, plus 16."""
+    return _round_up(n, 32) + 16
+
+
+def int8_tail_layout(d_model: int, dtype: torch.dtype, level: int, tm: int, wt: int,
+                     slots: int) -> dict[str, int]:
+    """The int8 tail's fields of ``Int8Plan`` for row tiles of ``tm`` rows,
+    weight tiles of ``wt`` W1 rows or W2 columns and ``slots`` of them in
+    the ring: tiles of codes padded to 32 (``tile_stride_s8``); a slot
+    holds the largest weight tile (B7: 32 k-rows of W_out in the dtype, B8:
+    W_out's codes; W1's or W2's tile); the regions (the O tile, the fp32
+    pre-LN1 rows, x1's codes, h's codes, row maxima and scales, five fp32
+    vectors over D, the ring) 16-byte aligned, and their total ``bytes``."""
+    size = torch.finfo(dtype).bits // 8
+    attn8 = level == 2
+    kd, kq = _round_up(d_model, 8 if size == 4 else 16), _round_up(d_model, 32)
+    sq, sh, sw2 = tile_stride_s8(d_model), tile_stride_s8(INT8_FFN_CHUNK), tile_stride_s8(wt)
+    sa = sq if attn8 else tile_stride(size, kd, True)
+    swo = 0 if attn8 else tile_stride(size, d_model, False)
+    out_tile = d_model * sq if attn8 else INT8_OUT_KT * swo * size
+    slot = _round_up(max(out_tile, wt * sq, d_model * sw2), 16)
+    p = {"tm": tm, "kd": kd, "kq": kq, "sa": sa, "sq": sq, "sh": sh, "swo": swo, "wt": wt,
+         "sw2": sw2, "slot": slot, "slots": slots}
+    regions = (("off_a", tm * sa * (1 if attn8 else size)), ("off_pre", tm * d_model * 4),
+               ("off_q", tm * sq), ("off_h", tm * sh), ("off_sc", (TAIL_WARPS + 3) * tm * 4),
+               ("off_par", 5 * d_model * 4), ("off_ring", slots * slot))
+    offset = 0
+    for name, nbytes in regions:
+        p[name] = offset
+        offset += _round_up(nbytes, 16)
+    p["bytes"] = offset
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def int8_layer_plan(max_len: int, d_model: int, n_head: int, dtype: torch.dtype,
+                    level: int, layout: tuple[int, int, int] | None = None) -> dict[str, int]:
+    """``Int8Plan``'s fields for B7 (``level`` 1) or B8 (2), for every chain
+    alike. The tail (``int8_tail_layout``): row tiles of 32 rows up to D =
+    128, else 16 (up to ``MAX_TAIL_D``); the first of ``INT8_TAIL_LAYOUTS``
+    whose shared memory fits twice on an SM, else the first that fits once;
+    or ``layout`` (rows per tile, weight-tile width, ring slots) where given.
+    B8's attention: B2's tiles
+    (``kdh`` the k step of S's mma, 8 in fp32 and 16 in bf16, doubled up to
+    cover dh; a warp per 16 query rows, at most 8; blocks of 64 keys in a
+    ring of two stages of a K block in the dtype and a V block in fp32), V's
+    codes of a block and the head's scales. B8's QKV: 64 rows of x and of
+    x's and W_qkv's codes. Raises ValueError where no plan serves the
+    shape."""
+    if d_model > MAX_TAIL_D or d_model % 8:
+        raise ValueError(f"the int8 layers take d_model up to {MAX_TAIL_D} and divisible by "
+                         f"8, got {d_model}")
+    size = torch.finfo(dtype).bits // 8
+    tm = 32 if d_model <= 128 else 16
+    if layout is None:
+        layouts = [int8_tail_layout(d_model, dtype, level, tm, wt, slots)
+                   for wt, slots in INT8_TAIL_LAYOUTS]
+        p = next((q for q in layouts if 2 * (q["bytes"] + 1024) <= SM_SMEM),
+                 next(q for q in layouts if q["bytes"] <= SMEM_LIMIT))
+    else:
+        p = int8_tail_layout(d_model, dtype, level, *layout)
+        if layout[0] not in (16, tm) or p["bytes"] > SMEM_LIMIT:
+            raise ValueError(f"the int8 tail takes {tm} or 16 rows a tile at D={d_model} and "
+                             f"{SMEM_LIMIT} bytes of shared memory; layout {layout} needs "
+                             f"{p['bytes']}")
+    p.update(dict.fromkeys(("kdh", "warps", "q_tiles", "key_blocks", "sk", "sv", "stage",
+                            "attn_bytes", "qkv_bytes"), 0))
+    if level == 2:
+        dh = d_model // n_head
+        if dh > INT8_MAX_DH:
+            raise ValueError(f"the int8 attention takes heads up to {INT8_MAX_DH} wide, got {dh}")
+        kdh = 8 if size == 4 else 16
+        while kdh < dh:
+            kdh *= 2
+        sk, sv = tile_stride(size, kdh, True), tile_stride(4, kdh, True)
+        stage = KEY_BLOCK * sk * size + KEY_BLOCK * sv * 4
+        p.update(kdh=kdh, warps=min(MAX_WARPS, -(-max_len // WARP_ROWS)),
+                 q_tiles=-(-max_len // TILE_ROWS), key_blocks=-(-max_len // KEY_BLOCK), sk=sk,
+                 sv=sv, stage=stage, attn_bytes=2 * stage + kdh * (KEY_BLOCK + 16) + 2 * kdh * 4,
+                 qkv_bytes=2 * QKV8_TILE * p["sq"] + QKV8_TILE * 4 + QKV8_TILE * d_model * size)
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def _int8_plan_struct(max_len: int, d_model: int, n_head: int, dtype: torch.dtype,
+                      level: int, layout: tuple[int, int, int] | None) -> Int8Plan:
+    return Int8Plan(**int8_layer_plan(max_len, d_model, n_head, dtype, level, layout))
+
+
+@functools.lru_cache(maxsize=64)
+def int8_plan(batch: int, max_len: int, d_model: int, n_head: int, d_ff: int,
+              dtype: torch.dtype, level: int, sms: int = SMS,
+              layout: tuple[int, int, int] | None = None) -> dict:
+    """B7's (``level`` 1) or B8's (2) launches, in order, each with its grid
+    and shared memory; the layer plan (``int8_layer_plan``, with the tail's
+    ``layout`` where given); the tail's
+    persistent schedule over (row tile, 512-unit chunk) units (``tail_
+    segments`` lists its segments), whose partials go to one slot per chunk;
+    and the device workspaces (elements and dtype) the wrapper allocates.
+    The tail runs as few CTAs as give none more units than the most that
+    SMs x ``tail_ctas_per_sm`` CTAs would.
+
+    B7: B1's QKV tile product and attention, the int8 tail, the finish. B8:
+    the int8 QKV product, the int8 attention, the int8 tail, the finish.
+    Cached: callers read it and do not change it."""
+    n, d3 = batch * max_len, 3 * d_model
+    size = torch.finfo(dtype).bits // 8
+    layer = int8_layer_plan(max_len, d_model, n_head, dtype, level, layout)
+    per_sm = 2 if 2 * (layer["bytes"] + 1024) <= SM_SMEM else 1
+    sched = _schedule(n, layer["tm"], INT8_FFN_CHUNK, d_ff, per_sm, sms)
+    # as few CTAs as keep the largest share: each takes ceil(U / G) units,
+    # so at the flagship's 4 chunks a tile no CTA straddles two row tiles
+    per_cta = -(-sched["units"] // sched["ctas"])
+    sched.update(ctas=-(-sched["units"] // per_cta), parts=sched["chunks"])
+    qkv_grid = (-(-n // QKV8_TILE), -(-d3 // QKV8_TILE))
+    if level == 2:
+        first = [("qkv_int8_kernel", qkv_grid, layer["qkv_bytes"]),
+                 ("attention_int8_kernel", (batch * n_head, layer["q_tiles"]),
+                  layer["attn_bytes"])]
+        ws = {"qkv": (n * 2 * d_model, dtype), "v": (n * d_model, torch.float32),
+              "o": (n * d_model, torch.float32)}
+    else:
+        first = [("gemm_kernel", (-(-n // GEMM_BM), -(-d3 // GEMM_BN)), gemm_smem_bytes(size)),
+                 ("attention_fwd_kernel", (-(-max_len // 128), n_head, batch), 0)]
+        ws = {"qkv": (n * d3, dtype), "v": None, "o": (n * d_model, dtype)}
+    ws.update(x1=(n * d_model, torch.float32),
+              part=(sched["chunks"] * n * d_model, torch.float32))
+    kernels = first + [("int8_tail_kernel", (sched["ctas"],), layer["bytes"]),
+                       ("int8_finish_kernel", (-(-n // 8),), 0)]
+    return {"layer": layer, "tail_schedule": sched, "tail_ctas_per_sm": per_sm,
+            "kernels": kernels, "workspaces": ws, "launches": len(kernels)}
+
+
 def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
     global launches
     b, l, d = x.shape
@@ -583,10 +742,14 @@ def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tor
 def launch_int8(
     x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int,
     probe: dict[str, torch.Tensor] | None = None,
+    layout: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
-    """Launch B7 or B8 (by the layer's keys) on CUDA tensors and add one to
-    its count. ``probe`` maps sites of ``PROBE_SITES`` to int8 buffers that
-    receive the kernel's codes (``int8_codes_buffers``)."""
+    """Launch B7 or B8 (by the layer's keys) on CUDA tensors, four CUDA
+    launches as ``int8_plan`` lays them out, and add one to its count.
+    ``probe`` maps sites of ``PROBE_SITES`` to int8 buffers that receive the
+    kernel's codes (``int8_codes_buffers``); ``layout`` replaces the plan's
+    choice of the tail's (rows per tile, weight-tile width, ring slots), as
+    ``scripts/int8_tail_sweep.py`` does to time the others."""
     global int8_launches, int8_attn_launches
     attn8 = layer_kind(layer) == "int8_attn"
     b, l, d = x.shape
@@ -595,25 +758,28 @@ def launch_int8(
         raise ValueError(f"int8 kernel needs d_model and d_ff divisible by 8, got {d}, {d_ff}")
     if b > 65535:
         raise ValueError(f"kernel takes at most 65535 chains per launch, got {b}")
-    ptrs = [layer[k] if k in layer else None for k in _INT8_ARGS]
-    if not all(t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
-               for t in [x, *ptrs]):
+    ptrs = [layer.get(k) for k in _INT8_ARGS]
+    addrs = [x.data_ptr()] + [None if t is None else t.data_ptr() for t in ptrs]
+    if not (all(t is None or t.is_contiguous() for t in [x, *ptrs])
+            and all(a is None or a % 16 == 0 for a in addrs)):
         raise ValueError("fused_encoder_layer needs contiguous, 16-byte aligned tensors")
+    level = 2 if attn8 else 1
+    plan = int8_plan(b, l, d, n_head, d_ff, x.dtype, level, sm_count(x.device), layout)
     lib = _int8_library()
-    smem = lib.fdiff_encoder_layer_int8_smem_bytes(int(attn8), l, d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory per block")
     out = torch.empty_like(x)
-    kv = kv_workspace(lib.fdiff_encoder_layer_int8_kv_floats(int(attn8), l, d), x)
-    weights = (ctypes.c_void_p * len(_INT8_ARGS))(*(data_ptr(t) for t in ptrs))
+    ws = {k: None if v is None else torch.empty(v[0], dtype=v[1], device=x.device)
+          for k, v in plan["workspaces"].items()}
+    weights = (ctypes.c_void_p * len(_INT8_ARGS))(*addrs[1:])
+    workspaces = (ctypes.c_void_p * 5)(*(data_ptr(ws[k]) for k in ("qkv", "v", "o", "x1", "part")))
     probes = None
     if probe is not None:
         probes = (ctypes.c_void_p * len(PROBE_SITES))(
             *(data_ptr(probe.get(site)) for site in PROBE_SITES))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fdiff_encoder_layer_int8(
-        DTYPES[x.dtype], int(attn8), x.data_ptr(), weights, out.data_ptr(), data_ptr(kv),
-        probes, b, l, d, n_head, d_ff, stream,
+        DTYPES[x.dtype], int(attn8), addrs[0], weights, out.data_ptr(), workspaces, probes,
+        ctypes.byref(_int8_plan_struct(l, d, n_head, x.dtype, level, layout)),
+        plan["tail_schedule"]["ctas"], b, l, d, n_head, d_ff, stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -741,6 +907,7 @@ __all__ = [
     "fused_encoder_layer_plain",
     "fused_encoder_layer_reference",
     "int8_codes_buffers",
+    "int8_plan",
     "launch_int8",
     "layer_kind",
     "locate_code_flips",

@@ -573,6 +573,45 @@ def test_int8_kernel_matches_plain(cuda, level, dtype, b, l, d, n_head, d_ff) ->
 
 
 @pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", [INT8_SHAPES[1], INT8_SHAPES[4]],
+                         ids=[INT8_IDS[1], INT8_IDS[4]])
+def test_int8_call_makes_the_plans_launches(cuda, level, dtype, b, l, d, n_head, d_ff) -> None:
+    """Each B7/B8 call makes exactly ``int8_plan``'s CUDA launches, of its
+    kernels and no other (``chip_smoke.device_us_by_kernel``: the kernels
+    the device ran, by ``torch.profiler``)."""
+    import chip_smoke
+
+    packed = _layer(d, n_head, d_ff, dtype, cuda, level)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    plan = fe.int8_plan(b, l, d, n_head, d_ff, dtype, level)
+    prof = chip_smoke.device_us_by_kernel(
+        lambda: fe.fused_encoder_layer(x, packed, n_head=n_head), calls=3,
+        launches=plan["launches"])
+    kernels = prof.us_by_kernel
+    assert prof.launches == prof.host_launches == plan["launches"], prof
+    assert len(kernels) == plan["launches"], kernels
+    for name, _, _ in plan["kernels"]:
+        assert any(name in k for k in kernels), (name, kernels)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_kernel_is_bit_identical_across_calls(cuda, level, dtype) -> None:
+    """Two B7/B8 calls on the same inputs give the same bits and the same
+    codes (every sum in one fixed order: exact int32 products, partials
+    added in chunk order, no atomics)."""
+    b, l, d, n_head, d_ff = INT8_SHAPES[0]
+    packed = _layer(d, n_head, d_ff, dtype, cuda, level)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(8)).to(cuda, dtype)
+    codes = [fe.int8_codes_buffers(x, packed, n_head) for _ in range(2)]
+    first, second = (fe.launch_int8(x, packed, n_head, probe=c) for c in codes)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(codes[0][k], codes[1][k]) for k in codes[0])
+
+
+@pytest.mark.parametrize("level", [1, 2])
 def test_int8_sampler_runs_every_layer_through_the_kernel(cuda, level, monkeypatch) -> None:
     from fourierdiffusion_tpu_torch.sampling import DiffusionSampler
     from fourierdiffusion_tpu_torch.schedulers import VEScheduler

@@ -302,3 +302,142 @@ def test_locate_code_flips_finds_none_against_itself() -> None:
         codes["x1"][0, 3, 5] += 1 if codes["x1"][0, 3, 5] < 127 else -1
         _, flips = fe.locate_code_flips(x, packed, N_HEAD, codes)
         assert flips["x1"]["flipped"] == 1 and flips["x1"]["max_step"] == 1
+
+
+# ---- the redesigned kernels' decompositions ---------------------------------------------
+
+
+def _ffn_int8_partials(x1f: torch.Tensor, layer: dict[str, torch.Tensor]) -> list[torch.Tensor]:
+    """The W8A8 FFN as the int8 tail computes it: each 512-unit chunk's
+    partial ``int32(W2q_c . qh_c) * (w2_s * s_h_c)`` on its own, as the tail
+    writes it to the chunk's slot."""
+    qx, s_x = fe._quantize_site("x1", x1f, -1)
+    out = []
+    for c0 in range(0, layer["w1_q"].shape[0], fe.INT8_FFN_CHUNK):
+        c1 = c0 + fe.INT8_FFN_CHUNK
+        h = torch.relu(fe._idot(qx, layer["w1_q"][c0:c1]) * (layer["w1_s"][c0:c1] * s_x)
+                       + layer["b1"][c0:c1])
+        qh, s_h = fe._quantize_site(f"h{c0}", h, -1)
+        out.append(fe._idot(qh, layer["w2_q"][:, c0:c1]) * (layer["w2_s"] * s_h))
+    return out
+
+
+def _ffn_int8_finish(partials: list[torch.Tensor], b2: torch.Tensor) -> torch.Tensor:
+    """The finish's sum of the chunks' partials: in chunk order, then + b2."""
+    f = partials[0]
+    for part in partials[1:]:
+        f = f + part
+    return f + b2
+
+
+def _key_positions() -> list[int]:
+    """Where B8's attention stages the V code of each key of a 32-key block:
+    key 8j + 2t + e of the S accumulator's n8 tile j (thread t, element e)
+    goes to k = 4t + 2j + e (j < 2) or 16 + 4t + 2(j - 2) + e, the k of the
+    s8 A fragment that holds it. A copy of ``key_position`` in
+    ``csrc/fused_encoder_int8.cu``: this checks the formula, and only the
+    card tests (``tests/test_torch_cuda.py``, B8 against its plain version)
+    check the kernel's own permutation."""
+    return [(kk & 16) + 4 * ((kk & 7) >> 1) + 2 * ((kk & 15) >> 3) + (kk & 1)
+            for kk in range(32)]
+
+
+
+@pytest.mark.parametrize("d_ff", [D_FF, 2048, 64])
+def test_chunk_partials_in_order_are_the_plain_ffn_bit_for_bit(d_ff: int) -> None:
+    """The int8 tail writes each 512-unit chunk's partial to a slot of its
+    own and the finish adds them in chunk order, then b2: bit for bit the
+    plain ``_ffn_int8``, and through it JAX's ``_ffn_int8`` (which starts from
+    zeros and adds the chunks in order), on the same codes."""
+    _, variables, model = jax_and_port_models(19, 1, dim_feedforward=d_ff)
+    packed = fe.pack_encoder_layer(model.backbone.layers[0], N_HEAD, torch.float32,
+                                   int8_ffn=True)
+    jp = jax_fe.pack_encoder_layer(variables["params"]["backbone"]["layers_0"], N_HEAD,
+                                   jnp.float32, int8_ffn=True)
+    x1f = np.random.default_rng(6).normal(size=(2, 19, D_MODEL)).astype(np.float32)
+    partials = _ffn_int8_partials(torch.from_numpy(x1f), packed)
+    assert len(partials) == -(-d_ff // fe.INT8_FFN_CHUNK)
+    ours = _ffn_int8_finish(partials, packed["b2"])
+    plain = fe._ffn_int8(torch.from_numpy(x1f), packed, fe._quantize_site)
+    np.testing.assert_array_equal(_bits(ours.numpy()), _bits(plain.numpy()))
+    rows = x1f.reshape(-1, D_MODEL)
+    ref = jax_fe._ffn_int8(jnp.asarray(rows.T), jp["w1_q"], jp["w1_s"], jp["b1"], jp["w2_q"],
+                           jp["w2_s"], jp["b2"], D_MODEL)
+    np.testing.assert_array_equal(_bits(ours.numpy().reshape(-1, D_MODEL)),
+                                  _bits(np.asarray(ref).T))
+
+
+def _score_rows(rng: np.random.Generator, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Random score rows (wide and narrow spreads, ties at the maximum, rows
+    beyond the bf16 form's clamp) and a mask of the keys below L of each
+    row (the rest as the kernel pads them: no weight)."""
+    s = rng.normal(size=(64, 100)).astype(np.float32) * rng.choice(
+        [0.1, 1.0, 8.0, 40.0], size=(64, 1)).astype(np.float32)
+    s[:4, :3] = s[:4, :1]  # ties at the maximum
+    s[4:8] += 70.0  # past the clamp
+    valid = np.arange(100)[None, :] < rng.integers(1, 101, size=(64, 1))
+    return torch.from_numpy(s), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_p_scale_from_the_first_pass_is_quantize_along_bit_for_bit(dtype) -> None:
+    """B8's attention takes P's scale per row from the first pass's
+    statistics, before any P exists: the absmax of a row of P is its value
+    at the row's largest score, 1 / l in the exact form (exp(0) = 1) and
+    exp(clamp(s_max)) * (1 / l) in the max-free bf16 form. Over random rows,
+    padded keys included, that scale is ``quantize_along(p, -1)``'s bit for
+    bit, P formed as the kernel forms it."""
+    s, valid = _score_rows(np.random.default_rng(8), dtype)
+    if dtype == torch.float32:
+        m = torch.where(valid, s, -torch.inf).amax(-1, keepdim=True)
+        e = torch.where(valid, torch.exp(s - m), 0.0)
+        l = e.sum(-1, keepdim=True)
+        p = e / l
+        absmax = 1.0 / l
+    else:
+        c = torch.where(valid, s.clamp(-fe.SCORE_CLAMP, fe.SCORE_CLAMP), -torch.inf)
+        e = torch.exp(c)
+        inv = 1.0 / e.sum(-1, keepdim=True)
+        p = e * inv
+        absmax = torch.exp(c.amax(-1, keepdim=True)) * inv
+    _, want = fe.quantize_along(p, -1)
+    got = absmax.clamp_min(1e-12) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    assert (p[~valid] == 0).all()
+
+
+def test_s8_key_permutation_keeps_the_integer_sums() -> None:
+    """B8's P . V: each thread packs the P codes it holds in the S
+    accumulator (keys 8j + 2t, 8j + 2t + 1 of the n8 tiles j, rows g and
+    g + 8) into the s8 A fragment as the kernel does, and V's codes are
+    staged per column at ``_key_positions``; read by the PTX fragment
+    layouts of m16n8k32 (A: rows g, g + 8, k = 4t.. and 16 + 4t..; B: column
+    g, the same k), the product is P . V over the unpermuted keys, exactly."""
+    rng = np.random.default_rng(9)
+    p = torch.from_numpy(rng.integers(-127, 128, size=(16, 32))).to(torch.int64)
+    v = torch.from_numpy(rng.integers(-127, 128, size=(32, 8))).to(torch.int64)
+    pos = _key_positions()
+    assert sorted(pos) == list(range(32))
+    a = torch.zeros(16, 32, dtype=torch.int64)
+    b = torch.zeros(32, 8, dtype=torch.int64)
+    vq = torch.zeros(8, 32, dtype=torch.int64)  # [column][position], as staged
+    for kk in range(32):
+        vq[:, pos[kk]] = v[kk]
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        acc_key = [[8 * j + 2 * t + (e & 1) for e in range(4)] for j in range(4)]  # S layout
+        acc_row = [g + 8 * (e >> 1) for e in range(4)]
+        # the kernel's pack_codes order: a0 = (j0 e0, j0 e1, j1 e0, j1 e1) rows g, a1 rows
+        # g + 8 (e2, e3), a2 and a3 the same for j = 2, 3
+        regs = [[(0, 0), (0, 1), (1, 0), (1, 1)], [(0, 2), (0, 3), (1, 2), (1, 3)],
+                [(2, 0), (2, 1), (3, 0), (3, 1)], [(2, 2), (2, 3), (3, 2), (3, 3)]]
+        for r, bytes_ in enumerate(regs):
+            row = g + 8 * (r & 1)
+            for byte, (j, e) in enumerate(bytes_):
+                assert acc_row[e] == row
+                a[row, 4 * t + 16 * (r >> 1) + byte] = p[row, acc_key[j][e]]
+        for half in range(2):
+            for byte in range(4):
+                k = 16 * half + 4 * t + byte
+                b[k, g] = vq[g, k]
+    assert torch.equal(a @ b, p @ v)

@@ -2,7 +2,8 @@
 ``sample_plan``, ``tail_plan``), B3 and B4 (``ops/fused_encoder_train.py``:
 ``train_fwd_plan``, ``train_bwd_plan``), B2 and B5/B6-bwd
 (``ops/flash_attention.py``: ``attention_fwd_plan``,
-``attention_bwd_plan``), and the fp32 product form they use, on the CPU.
+``attention_bwd_plan``), B7 and B8 (``ops/fused_encoder.py``:
+``int8_plan``), and the fp32 product form they use, on the CPU.
 
 The wrappers compute every plan and pass it to the kernels, so these
 checks hold what the kernels are given: at every (L, D, H, F) that
@@ -264,6 +265,153 @@ def test_wide_layers_take_the_wide_tail(dtype, d_model) -> None:
     assert plan["launches"] == 20 and plan["struct"].tail.wide == 1
     # the wide tail's workspace in B4: pre in dx1, x1, h (N x F)
     assert plan["x1"] + 51 * d_model <= plan["xhat1"] and plan["h"] + 51 * 512 <= plan["dh"]
+
+
+# ---- the int8 layers B7 and B8 -----------------------------------------------------------
+
+INT8_WIDTHS = [(72, 12, 2048), (128, 8, 2048), (128, 8, 512), (24, 4, 64), (72, 12, 1040)]
+INT8_LENGTHS = (24, 100, 187, 365)
+INT8_CASES = list(itertools.product(INT8_WIDTHS, (1, 8, 32), INT8_LENGTHS))
+INT8_IDS = [f"D{d}-F{f}-B{b}-L{l}" for (d, _, f), b, l in INT8_CASES]
+
+
+def check_int8_layer_plan(layer: dict[str, int], d_model: int, size: int, level: int) -> None:
+    """Shared memory within the opt-in limit; the tail's regions in order,
+    16-byte aligned and apart; every tile of codes with a bank-spreading
+    stride (a multiple of 16 bytes, 16 past a multiple of 32) and room for D
+    padded to 32; a ring slot that holds each weight tile of the stream."""
+    assert layer["bytes"] <= fe.SMEM_LIMIT
+    assert layer["tm"] == (32 if d_model <= 128 else 16)
+    attn8 = level == 2
+    regions = [("off_a", layer["tm"] * layer["sa"] * (1 if attn8 else size)),
+               ("off_pre", layer["tm"] * d_model * 4), ("off_q", layer["tm"] * layer["sq"]),
+               ("off_h", layer["tm"] * layer["sh"]), ("off_sc", 11 * layer["tm"] * 4),
+               ("off_par", 5 * d_model * 4), ("off_ring", layer["slots"] * layer["slot"])]
+    end = 0
+    for name, nbytes in regions:
+        assert layer[name] >= end and layer[name] % 16 == 0, name
+        end = layer[name] + nbytes
+    assert end <= layer["bytes"]
+    assert layer["kq"] == -(-d_model // 32) * 32 and layer["kd"] >= d_model
+    for stride in (layer["sq"], layer["sh"], layer["sw2"]):
+        assert stride % 32 == 16
+    assert layer["sq"] >= layer["kq"] and layer["sh"] >= fe.INT8_FFN_CHUNK
+    assert (layer["wt"], layer["slots"]) in fe.INT8_TAIL_LAYOUTS and layer["sw2"] >= layer["wt"]
+    tiles = [layer["wt"] * layer["sq"], d_model * layer["sw2"],
+             d_model * layer["sq"] if attn8 else fe.INT8_OUT_KT * layer["swo"] * size]
+    assert layer["slot"] >= max(tiles) and layer["slot"] % 16 == 0
+    if attn8:
+        assert layer["sa"] == layer["sq"]
+        assert layer["attn_bytes"] <= fe.SMEM_LIMIT and layer["qkv_bytes"] <= fe.SMEM_LIMIT
+    else:
+        assert layer["sa"] >= layer["kd"] and layer["swo"] >= d_model
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("widths,b,l", INT8_CASES, ids=INT8_IDS)
+def test_int8_plan_fits_and_covers_every_chunk(level, dtype, widths, b, l) -> None:
+    """B7/B8's plan at every (L, D) the int8 kernels served before their
+    redesign: it fits shared memory, its tail covers every (row tile,
+    512-unit chunk) exactly once with one partial slot per chunk (B*L x D
+    floats each, so the finish adds them in chunk order), B8's attention
+    covers every query row and key, and a call makes four CUDA launches."""
+    d, h, f = widths
+    size = torch.finfo(dtype).bits // 8
+    plan = fe.int8_plan(b, l, d, h, f, dtype, level)
+    layer, sched, n = plan["layer"], plan["tail_schedule"], b * l
+    check_int8_layer_plan(layer, d, size, level)
+    assert sched["chunks"] == -(-f // fe.INT8_FFN_CHUNK) == sched["parts"]
+    assert sched["tiles"] == len(fe.row_tiles(n, layer["tm"]))
+    assert 1 <= sched["ctas"] <= min(plan["tail_ctas_per_sm"] * fe.SMS, sched["units"])
+    cap = min(plan["tail_ctas_per_sm"] * fe.SMS, sched["units"])
+    assert -(-sched["units"] // sched["ctas"]) == -(-sched["units"] // cap)
+    seen = torch.zeros(sched["tiles"], sched["chunks"], dtype=torch.int64)
+    for _, tile, c_lo, c_hi, _ in fe.tail_segments(sched):
+        seen[tile, c_lo:c_hi] += 1
+    assert bool((seen == 1).all())
+    ws = plan["workspaces"]
+    assert ws["part"] == (sched["chunks"] * n * d, torch.float32)
+    assert ws["x1"] == (n * d, torch.float32)
+    names = [k for k, _, _ in plan["kernels"]]
+    assert plan["launches"] == len(names) == 4
+    assert names[2:] == ["int8_tail_kernel", "int8_finish_kernel"]
+    assert plan["kernels"][2][1] == (sched["ctas"],) and plan["kernels"][3][1] == (-(-n // 8),)
+    if level == 2:
+        assert names[:2] == ["qkv_int8_kernel", "attention_int8_kernel"]
+        assert ws["qkv"] == (n * 2 * d, dtype) and ws["o"] == (n * d, torch.float32)
+        assert ws["v"] == (n * d, torch.float32)
+        assert layer["kdh"] >= d // h and layer["kdh"] % (8 if size == 4 else 16) == 0
+        assert layer["q_tiles"] * 128 >= l and layer["key_blocks"] * 64 >= l
+        assert layer["warps"] == min(8, -(-l // 16))
+        qkv_grid = plan["kernels"][0][1]
+        assert qkv_grid[0] * 64 >= n and qkv_grid[1] * 64 >= 3 * d
+        assert plan["kernels"][1][1] == (b * h, layer["q_tiles"])
+    else:
+        assert names[:2] == ["gemm_kernel", "attention_fwd_kernel"]
+        assert ws["qkv"] == (n * 3 * d, dtype) and ws["o"] == (n * d, dtype)
+        assert ws["v"] is None
+
+
+def test_int8_flagship_plan_keeps_two_ctas_per_sm() -> None:
+    """At the flagship's sampling shape (B=32, L=100, D=72, F=2048) the int8
+    tail's shared memory fits twice on an SM, as B1's does; its 400 (row
+    tile, chunk) units need two a CTA on 264 CTAs, so 200 CTAs take two
+    each, both of one row tile: one out projection and LN1 per CTA. So it
+    does at D=128."""
+    for dtype, level, d in itertools.product((torch.float32, torch.bfloat16), (1, 2), (72, 128)):
+        plan = fe.int8_plan(32, 100, d, 8 if d == 128 else 12, 2048, dtype, level)
+        sched = plan["tail_schedule"]
+        assert plan["tail_ctas_per_sm"] == 2, (dtype, level, d)
+        assert (sched["units"], sched["ctas"]) == (400, 200)
+        segments = fe.tail_segments(sched)
+        assert len(segments) == 200 and all(c_hi - c_lo == 2 for _, _, c_lo, c_hi, _ in segments)
+
+
+@pytest.mark.parametrize("layout,d_model,n_head", [((256, 2), 72, 12), ((128, 3), 128, 8),
+                                                    ((128, 2), 192, 4)])
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_int8_plan_takes_each_tail_layout_where_it_keeps_two_ctas(
+        layout, d_model, n_head, level, dtype) -> None:
+    """Each of ``INT8_TAIL_LAYOUTS`` is the first whose shared memory fits
+    twice on an SM at some width: 256-wide tiles at D=72, 128-wide in a ring
+    of three at D=128, of two at D=192, where those before it fit once."""
+    plan = fe.int8_plan(32, 100, d_model, n_head, 2048, dtype, level)
+    assert (plan["layer"]["wt"], plan["layer"]["slots"]) == layout
+    assert plan["tail_ctas_per_sm"] == 2
+    for earlier in fe.INT8_TAIL_LAYOUTS[:fe.INT8_TAIL_LAYOUTS.index(layout)]:
+        tail = fe.int8_tail_layout(d_model, dtype, level, plan["layer"]["tm"], *earlier)
+        assert 2 * (tail["bytes"] + 1024) > fe.SM_SMEM
+
+
+@pytest.mark.parametrize("layout", [(16, 128, 2), (16, 256, 3), (32, 128, 3), (32, 256, 2)])
+def test_int8_plan_takes_a_given_tail_layout(layout) -> None:
+    """A layout given to the plan (as ``scripts/int8_tail_sweep.py`` gives
+    it) replaces its choice, and its tail still covers every (row tile,
+    chunk) once; one that does not fit shared memory is refused."""
+    plan = fe.int8_plan(8, 100, 72, 12, 2048, torch.bfloat16, 2, layout=layout)
+    layer, sched = plan["layer"], plan["tail_schedule"]
+    assert (layer["tm"], layer["wt"], layer["slots"]) == layout
+    assert layer["bytes"] == fe.int8_tail_layout(72, torch.bfloat16, 2, *layout)["bytes"]
+    assert layer["bytes"] <= fe.SMEM_LIMIT and layer["attn_bytes"] > 0
+    seen = torch.zeros(sched["tiles"], sched["chunks"], dtype=torch.int64)
+    for _, tile, c_lo, c_hi, _ in fe.tail_segments(sched):
+        seen[tile, c_lo:c_hi] += 1
+    assert sched["tiles"] == len(fe.row_tiles(800, layout[0])) and bool((seen == 1).all())
+    with pytest.raises(ValueError):  # more shared memory than a CTA may take
+        fe.int8_plan(8, 100, 256, 8, 2048, torch.float32, 1, layout=(16, 256, 8))
+    with pytest.raises(ValueError):  # 32-row tiles hold up to 128 columns
+        fe.int8_plan(8, 100, 192, 8, 2048, torch.float32, 1, layout=(32, 128, 2))
+
+
+@pytest.mark.parametrize("d_model,n_head,level", [(264, 8, 1), (20, 4, 1), (72, 1, 2)])
+def test_int8_plan_refuses_what_no_kernel_serves(d_model, n_head, level) -> None:
+    """Wider than the tail's register tiles (256), a width not divisible by
+    8, or (B8) heads wider than its attention's 64: a ValueError, never a
+    launch."""
+    with pytest.raises(ValueError):
+        fe.int8_plan(2, 19, d_model, n_head, 512, torch.float32, level)
 
 
 # ---- the fp32 product form -------------------------------------------------------------
