@@ -76,9 +76,10 @@ Phases, each printed with its seconds as it ends:
    438 (dh 6 and 64: longer than a kernel that stages the whole head takes),
    against its plain version (bf16: to B2_BF16_ULPS ulps of the largest
    output), with its time, its plain version's and SDPA's.
-10. unfused attention kernels: B6-fwd (dropout 0.1) against its plain
-   version at (64, 12, 100, 6) and (8, 12, 365, 6), fp32, with the masks
-   bit for bit, and B2's fp32 time on the same heads beside SDPA's; B5 and
+10. unfused attention kernels: B6-fwd (dropout 0.1; B2's kernel with the
+   keep factors) against its plain version at (64, 12, 100, 6), (8, 12,
+   365, 6) and (1, 8, 2048, 16), fp32, with the masks bit for bit, and B2's
+   fp32 time on the same heads beside SDPA's; B5 and
    B6-bwd (two launches on the tensor cores each) there and at (8, 8, 187,
    16), (1, 8, 896, 16), (1, 12, 3616, 6) and (1, 2, 438, 64) against their
    plain versions (B5 also against autograd of the plain forward), launch
@@ -127,6 +128,21 @@ Phases, each printed with its seconds as it ends:
    chains, bf16, the same weights: B1 K x 2 x 10 launches for each draw of
    the batch (the first and each redraw the guard makes, from
    ``last_resample_stats``); its samples/s.
+16. sample quality: the trained flagship sampled as its reference run was
+   (K=1000, Euler-Maruyama, seed 42; 5000 samples in batches of 1000
+   chains, scored also over the first 1000, results.yaml's count) in fp32
+   and bf16 through B1 and in bf16 with
+   ``FDIFF_FUSED_INT8=1`` (B7) and ``=2`` (B8), every layer of every step
+   through the kernel; each run un-standardised with the training
+   statistics and taken back to time (``idft``), as the JAX sampling CLI
+   does, and scored by the port's ``MetricCollection`` on the card against
+   the synthetic training series (seed 42): sliced (1000 directions) and
+   marginal W2 in time and frequency, baselines, spectral density; the
+   divergence census. Every ``*_mean`` is printed beside the same key of
+   ``results.yaml`` and ``results_cross_our_sampler.yaml``, with the int8
+   runs' ratio to the bf16 run. Gates: the four W2 means below their
+   ``_dummy`` baselines in every run, and within 1.5x of ``results.yaml``
+   over the 5000 samples in fp32 and bf16 (QUALITY_DRAWN says why 5000).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -165,10 +181,17 @@ from fourierdiffusion_tpu_torch.ops import _build, fourier
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
-from fourierdiffusion_tpu_torch.sampling import DiffusionSampler, reverse_diffusion
+from fourierdiffusion_tpu_torch.sampling import (
+    DiffusionSampler,
+    MarginalWasserstein,
+    MetricCollection,
+    SlicedWasserstein,
+    reverse_diffusion,
+)
 from fourierdiffusion_tpu_torch.schedulers import VPScheduler
 from fourierdiffusion_tpu_torch.training import Trainer
 from fourierdiffusion_tpu_torch.training.trainer import SEED_MAX
+from fourierdiffusion_tpu_torch.utils.census import census_fields
 from fourierdiffusion_tpu_torch.utils.weights import load_reference_state_dict
 
 REPO = Path(__file__).resolve().parent
@@ -302,6 +325,11 @@ ATTN_TOL = 1e-4
 # >= 775); and the long heads phase 9 checks B2 at.
 BWD_SHAPES = tuple((b, N_HEAD, l, 72 // N_HEAD) for b, l in ATTN_SHAPES) + (
     (8, 8, 187, 16), (1, 8, 896, 16), (1, 12, 3616, 6), (1, 2, 438, 64))
+# B6-fwd (B2's kernel with the keep factors) at ATTN_SHAPES' heads and at
+# L=2048, dh 16, a length its earlier body (the whole head staged in shared
+# memory) refused from L=1608 at that width.
+DROPOUT_FWD_SHAPES = tuple((b, N_HEAD, l, 72 // N_HEAD) for b, l in ATTN_SHAPES) + (
+    (1, 8, 2048, 16),)
 BWD_FUNCTIONS = ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")
 BWD_LAUNCHES = len(BWD_FUNCTIONS)  # CUDA launches per B5 or B6-bwd call
 # Launch 1's row statistics (max, sum, D = dO . O) against
@@ -365,6 +393,45 @@ INT8_EXACT_SITES = ("x", "v")
 PC_STEPS, PC_CORRECTOR_STEPS, PC_SNR = 250, 1, 0.16
 # configs/sampler/default.yaml of the JAX package recommends 8.0.
 DIVERGENCE_THRESHOLD = 8.0
+
+# Phase 16, sample quality: the flagship sampled as its reference run was
+# (runs_reference/ref-freq42-e200/run_config.yaml: K=1000, seed 42) in
+# batches of QUALITY_BATCH chains, and scored as the JAX package's sampling
+# CLI scores it (scripts/cross_sample_reference_weights.py: 1000 directions,
+# seed 42, baselines and the spectral density, against the synthetic
+# training series of seed 42), over all QUALITY_DRAWN samples of a run and
+# over its first QUALITY_SAMPLES (the reference's 1000, results.yaml's n).
+# Every run draws the same normal stream, so the int8 runs' ratios to the
+# bf16 run are paired.
+QUALITY_SAMPLES = QUALITY_BATCH = 1000
+QUALITY_SEED, QUALITY_DIRECTIONS = 42, 1000
+# Why 5000. At 1000 samples one far chain decides these metrics: this
+# weights' draws hold about one chain in 5000 whose largest |x| in time
+# reaches 7.6 (the bulk stays below 4), and the seed-42 stream puts one in
+# its first 1000, which lifts the time sliced W2 mean to 1.61x
+# results.yaml; 20 random 1000-subsets of a 10,000-sample draw of the port
+# read 0.0956 +- 0.0199 (0.0767 to 0.1220), of the JAX package's draw
+# 0.0802 +- 0.0025 (scripts/sample_quality_compare.py, PERF.md section 6).
+# Without its two far chains the port's 10,000 agree with the JAX
+# package's to 3.3 % on every gated key. At 5000 samples the seed-42
+# stream reads at most 1.15x results.yaml, and both far chains of 10,000
+# put in one subset of 5000 at most 1.30x (1.49x at 3000).
+QUALITY_DRAWN = 5000
+# (name, compute dtype, FDIFF_FUSED_INT8) of each run, and the runs gated.
+QUALITY_RUNS = (("float32", torch.float32, 0), ("bfloat16", torch.bfloat16, 0),
+                ("int8-1", torch.bfloat16, 1), ("int8-2", torch.bfloat16, 2))
+QUALITY_GATED = ("float32", "bfloat16")
+# The gated keys. Each must lie below its _dummy baseline (the mean sample)
+# in every run, over all its samples and over its first QUALITY_SAMPLES,
+# and, over all the samples of a gated run, within QUALITY_REF_FACTOR of
+# the reference sampler's own value in REFERENCE_RESULTS: that leaves room
+# for the estimator's spread above and still catches a wrong sampler,
+# whose samples land near the dummy's distance (4.7x to 9.4x these values).
+QUALITY_KEYS = tuple(f"{d}_{m}_wasserstein_mean" for d in ("time", "freq")
+                     for m in ("sliced", "marginal"))
+QUALITY_REF_FACTOR = 1.5
+REFERENCE_RESULTS = WEIGHTS.parent / "results.yaml"
+CROSS_RESULTS = WEIGHTS.parent / "results_cross_our_sampler.yaml"
 
 
 # torch.profiler now and then drops one kernel, or all of them, from a
@@ -1301,17 +1368,16 @@ def sdpa_backend(q, k, v, dropout_p: float) -> str:
         return f"unknown ({type(e).__name__}: {e})"
 
 
-def check_attention_kernels(b: int, l: int) -> dict:
-    """B6-fwd on random fp32 (b, 12, l, 6) heads against its plain version,
+def check_attention_kernels(b: int, h: int, l: int, dh: int) -> dict:
+    """B6-fwd on random fp32 (b, h, l, dh) heads against its plain version,
     the masks bit for bit, its time, bound and yardstick, and B2's time on
     the same heads beside SDPA's."""
-    dh = 72 // N_HEAD
     g = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = (torch.randn((b, N_HEAD, l, dh), generator=g, device="cuda") for _ in range(3))
+    q, k, v = (torch.randn((b, h, l, dh), generator=g, device="cuda") for _ in range(3))
     seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
-    shape = f"B={b} H={N_HEAD} L={l} dh={dh}"
-    kernel_keep = fa.attention_keep_cuda(b, N_HEAD, l, seed, DROPOUT)
-    if not torch.equal(kernel_keep, fa.attention_keep(b, N_HEAD, l, seed, DROPOUT, "cuda")):
+    shape = f"B={b} H={h} L={l} dh={dh}"
+    kernel_keep = fa.attention_keep_cuda(b, h, l, seed, DROPOUT)
+    if not torch.equal(kernel_keep, fa.attention_keep(b, h, l, seed, DROPOUT, "cuda")):
         raise AssertionError(f"B6 {shape}: the masks of the kernel and plain differ")
     with torch.no_grad():
         b6f = fa._launch_fwd(q, k, v, seed, DROPOUT)
@@ -1334,7 +1400,7 @@ def check_attention_kernels(b: int, l: int) -> dict:
                                                                       dropout_p=DROPOUT)),
         )
     r["B6-fwd"]["bound_ms"], r["B6-fwd"]["bound_by"] = bound(
-        4 * b * N_HEAD * l * l * dh, 4 * q.numel() * 4 + 8, torch.float32)
+        4 * b * h * l * l * dh, 4 * q.numel() * 4 + 8, torch.float32)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     r["sdpa_backend"] = {"no dropout": sdpa_backend(qg, kg, vg, 0.0),
                          f"dropout {DROPOUT}": sdpa_backend(qg, kg, vg, DROPOUT)}
@@ -1914,6 +1980,125 @@ def run_pc_main_path() -> dict:
             "resample_stats": stats}
 
 
+def read_scalars(path: Path) -> dict[str, float]:
+    """The top-level ``key: number`` lines of a results.yaml file (the
+    card's machine has no YAML reader; lists and nested maps are skipped)."""
+    out = {}
+    for line in path.read_text().splitlines():
+        m = re.fullmatch(r"([a-z_0-9]+): (-?[0-9.]+(?:e[-+]?[0-9]+)?)", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def quality_metrics(dm: SyntheticDatamodule, device: str = "cuda") -> MetricCollection:
+    """The JAX package's metric collection against the synthetic training
+    series, on ``device``."""
+    return MetricCollection(
+        metric_factories=[
+            lambda o: SlicedWasserstein(o, random_seed=QUALITY_SEED,
+                                        num_directions=QUALITY_DIRECTIONS,
+                                        save_all_distances=True, device=device),
+            lambda o: MarginalWasserstein(o, random_seed=QUALITY_SEED, save_all_distances=True,
+                                          device=device),
+        ],
+        original_samples=dm.X_train, include_baselines=True, include_spectral_density=True,
+        device=device,
+    )
+
+
+def run_quality(name: str, dtype: torch.dtype, level: int, dm: SyntheticDatamodule,
+                metrics: MetricCollection) -> dict:
+    """One phase-16 run: QUALITY_DRAWN series from the trained flagship
+    (K=1000 EM steps, every layer through B1, or B7/B8 at ``level``), turned
+    back into the data's scale (the training statistics, then ``idft``) as
+    the JAX sampling CLI does, their census, and their metrics over all of
+    them and over the first QUALITY_SAMPLES."""
+    with environ("FDIFF_FUSED_INT8", str(level)):
+        sampler = DiffusionSampler(
+            load_flagship(dtype, "cuda"), VPScheduler(fourier_noise_scaling=True),
+            max_len=MAX_LEN, n_channels=N_CHANNELS, sample_batch_size=QUALITY_BATCH,
+            method="em", device="cuda",
+        )
+        g = torch.Generator(device="cuda").manual_seed(QUALITY_SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = sampler.sample(QUALITY_DRAWN, num_diffusion_steps=SAMPLE_STEPS, generator=g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    kernel = INT8_NAMES[level] if level else "B1"
+    expected = {k: 0 for k in counts}
+    expected[kernel] = SAMPLE_STEPS * N_LAYERS * -(-QUALITY_DRAWN // QUALITY_BATCH)
+    if counts != expected:
+        raise AssertionError(f"quality {name}: launches {counts}, expected {expected}")
+    mean, std = (t.to("cuda") for t in dm.feature_mean_and_std)
+    series = fourier.idft(out.float() * std + mean)
+    if tuple(series.shape) != (QUALITY_DRAWN, MAX_LEN, N_CHANNELS) or not torch.isfinite(
+            series).all():
+        raise AssertionError(f"quality {name}: samples wrong or not finite")
+    t1 = time.perf_counter()
+    scores = {n: metrics(series[:n]) for n in (QUALITY_DRAWN, QUALITY_SAMPLES)}
+    metric_s = time.perf_counter() - t1
+    census = census_fields(series.cpu().numpy(), guard_active=False,
+                           num_samples=QUALITY_DRAWN, num_diffusion_steps=SAMPLE_STEPS,
+                           method="em", sampling_seed=QUALITY_SEED)
+    absmax = series.abs().flatten(1).amax(1)
+    return {"seconds": seconds, "metric_seconds": metric_s, "launches": counts[kernel],
+            "kernel": kernel,
+            "results": {n: {k: v for k, v in r.items() if not k.endswith("_all")}
+                        for n, r in scores.items()},
+            "census": {**{k: census[k] for k in ("divergence_census_count",
+                                                 "divergence_census_max_absmax")},
+                       "chains_absmax_above_4": int((absmax > 4).sum()),
+                       "first_above_4": [int(i) for i in torch.nonzero(absmax > 4)[:20, 0]]}}
+
+
+def check_quality() -> dict:
+    """Phase 16: every QUALITY_RUNS run scored over QUALITY_DRAWN and over
+    its first QUALITY_SAMPLES samples; each key of QUALITY_KEYS below its
+    _dummy baseline in every run at both counts and within
+    QUALITY_REF_FACTOR of the reference's results.yaml over all the samples
+    of the gated runs; every *_mean printed beside results.yaml's and
+    results_cross_our_sampler.yaml's, and the int8 runs' ratio to the bf16
+    run at both counts."""
+    reference, cross = read_scalars(REFERENCE_RESULTS), read_scalars(CROSS_RESULTS)
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        dm = synthetic_data(root)
+        metrics = quality_metrics(dm)
+        for name, dtype, level in QUALITY_RUNS:
+            runs[name] = run_quality(name, dtype, level, dm, metrics)
+            r = runs[name]
+            print(f"  {name}: {QUALITY_DRAWN} samples x {SAMPLE_STEPS} steps in "
+                  f"{r['seconds']:.3f} s ({r['kernel']} launches {r['launches']}), metrics "
+                  f"{r['metric_seconds']:.3f} s; census {json.dumps(r['census'])}", flush=True)
+    failures = []
+    for name, r in runs.items():
+        for n, key in itertools.product((QUALITY_DRAWN, QUALITY_SAMPLES), QUALITY_KEYS):
+            got, dummy = r["results"][n][key], r["results"][n][f"{key}_dummy"]
+            if not got < dummy:
+                failures.append(f"{name} n={n} {key} {got} not below its dummy {dummy}")
+        for key in QUALITY_KEYS:
+            got = r["results"][QUALITY_DRAWN][key]
+            if name in QUALITY_GATED and not got <= QUALITY_REF_FACTOR * reference[key]:
+                failures.append(f"{name} {key} {got} above {QUALITY_REF_FACTOR} x the "
+                                f"reference's {reference[key]}")
+    for n in (QUALITY_DRAWN, QUALITY_SAMPLES):
+        bf16 = runs["bfloat16"]["results"][n]
+        for key in sorted(k for k in bf16 if k.endswith("_mean")):
+            cells = "  ".join(f"{name} {r['results'][n][key]:.6f}" for name, r in runs.items())
+            ratios = "  ".join(f"{name}/bf16 {r['results'][n][key] / bf16[key]:.4f}"
+                               for name, r in runs.items() if name.startswith("int8"))
+            print(f"  n={n} {key}: {cells}  | results.yaml {reference.get(key, math.nan):.6f}"
+                  f"  cross {cross.get(key, math.nan):.6f}  | {ratios}", flush=True)
+    if failures:
+        raise AssertionError("sample quality: " + "; ".join(failures))
+    return {"runs": runs, "reference": {k: reference[k] for k in QUALITY_KEYS},
+            "cross": {k: cross[k] for k in QUALITY_KEYS}}
+
+
 def step_rates(dm: SyntheticDatamodule) -> dict:
     """Train steps per second through the kernels and through the plain
     versions (``Trainer(plain=True)``), on the same RATE_STEPS batches after
@@ -2024,10 +2209,11 @@ def main() -> int:
         phase("9 long sequences and wide layers", t0)
 
         t0 = time.perf_counter()
-        attn_kernels = {f"B={b} L={l}": check_attention_kernels(b, l) for b, l in ATTN_SHAPES}
+        attn_kernels = {f"B={b} H={h} L={l} dh={dh}": check_attention_kernels(b, h, l, dh)
+                        for b, h, l, dh in DROPOUT_FWD_SHAPES}
         attn_bwd = {f"B={b} H={h} L={l} dh={dh}": check_attention_bwd(b, h, l, dh)
                     for b, h, l, dh in BWD_SHAPES}
-        attn_main = {**attn_kernels[f"B={TRAIN_BATCH} L={MAX_LEN}"],
+        attn_main = {**attn_kernels[f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD}"],
                      **attn_bwd[f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD}"]}
         phase("10 unfused attention kernels vs plain", t0)
 
@@ -2069,6 +2255,10 @@ def main() -> int:
     pc = run_pc_main_path()
     phase("15 pc main path", t0)
 
+    t0 = time.perf_counter()
+    quality = check_quality()
+    phase("16 sample quality", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -2108,8 +2298,7 @@ def main() -> int:
         "bfloat16": {**attention[torch.bfloat16], "replaces": FLASH_FAST_REPLACES},
         "sass": {k: v for k, v in sass.items() if k.startswith("flash_attention: ")},
         "checked_shapes": {**attn_shapes,
-                           **{f"float32 {k} H={N_HEAD} dh={72 // N_HEAD}": a["B2"]
-                              for k, a in attn_kernels.items()}},
+                           **{f"float32 {k}": a["B2"] for k, a in attn_kernels.items()}},
     })
     for key, name, replaces, count in (
         ("fwd", "fused_encoder_layer_train_fwd", TRAIN_FWD_REPLACES, "B3"),
@@ -2142,7 +2331,8 @@ def main() -> int:
     ):
         r = attn_main[key]
         checked = attn_kernels if key == "B6-fwd" else attn_bwd
-        extra = {} if key == "B6-fwd" else {
+        extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh>"]} if (
+            key == "B6-fwd") else {
             "functions": [f"{f}<{str(key == 'B6-bwd').lower()}, kDh>" for f in BWD_FUNCTIONS],
             "launches_per_call": r["launches_per_call"],
             "device_us_by_kernel": r["device_us_by_kernel"],
@@ -2192,6 +2382,7 @@ def main() -> int:
                                for k, c in by_shape.items()},
         })
     print(f"pc: {json.dumps(pc)}", flush=True)
+    print(f"quality: {json.dumps(quality)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)

@@ -18,11 +18,11 @@
 //   B6 _dropout_fwd_kernel / _dropout_bwd_kernel: the same with the keep
 //     factors (keep / (1 - rate)) multiplied into P before P v, and into dP
 //     and P^T in the backward.
-// attention_fwd_mma_kernel<T, kFast, kDh> serves B2 (fp32, bf16 and the fast
-// bf16 form); attention_dropout_fwd_kernel serves B6-fwd; the two launches
-// attention_bwd_dq_mma_kernel<kDrop, kDh> and attention_bwd_dkv_mma_kernel<
-// kDrop, kDh> serve B5 (kDrop false: every keep factor is the constant 1)
-// and B6-bwd. The training kernels are fp32 only.
+// attention_fwd_mma_kernel<T, kFast, kDrop, kDh> serves B2 (kDrop false:
+// fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true, fp32); the two
+// launches attention_bwd_dq_mma_kernel<kDrop, kDh> and
+// attention_bwd_dkv_mma_kernel<kDrop, kDh> serve B5 (kDrop false: every keep
+// factor is the constant 1) and B6-bwd. The training kernels are fp32 only.
 //
 // Dropout masks: the TPU kernels' interpret-mode _keep_scale. Head h of
 // chain b is keyed by tag = seed + b*131071 + g0 (uint32), where g0 = h - h %
@@ -33,9 +33,9 @@
 // The hash is encoder_layer.cuh's. The seed is read from device memory, so
 // drawing it costs the host no synchronisation.
 //
-// The TPU kernels pad L to 128 lanes and mask keys at or past L; B2, B5
-// and B6-bwd pad to blocks of 64 and give a padded key (or query row) no
-// weight; B6-fwd takes exactly L keys, so nothing is masked there.
+// The TPU kernels pad L to 128 lanes and mask keys at or past L; the
+// kernels here pad to blocks of 64 and give a padded key (or query row) no
+// weight.
 //
 // Bound: at the flagship's training shape (B 64, H 12, L 100, dh 6) the
 // forward does 4 B H L^2 dh = 184 MFLOP against 4 x 1.8 MB of q, k, v, o in
@@ -64,12 +64,13 @@
 // keys of an n8 tile are permuted so that the accumulator layout is the
 // A-operand layout, and V's rows are read in the same permutation). At these
 // head widths recomputing S costs one small mma per key tile. The launch's
-// plan (AttnFwdPlan) is computed by the Python wrapper and passed in. The
-// old forward (one row per warp, a shuffle sum per output) stays only for
-// B6-fwd: it stages the head's K and V in shared memory as fp32; each warp
-// takes query rows in turn, keeps the row of scores in shared memory,
-// reduces its max and sum with shuffles, and forms the dh outputs of the row
-// as warp sums over the keys.
+// plan (AttnFwdPlan) is computed by the Python wrapper and passed in.
+// B6-fwd is the kDrop instance of the same kernel, in fp32 on B2's fp32
+// plan: the first pass does not change (the row max and sum do not depend
+// on the mask), and the second multiplies each normalised P entry by its
+// keep factor, hashed per (i, j) as B6-bwd's launches hash it, before P v:
+// JAX's rounding points (softmax, then keep, then P v). Its shared memory,
+// like B2's, does not grow with L, so every length runs.
 //
 // B5/B6-bwd's design: JAX's _bwd_core, dq = dS k scale, dk = dS^T q scale,
 // dv = P_used^T dO with dS = P o (dP o keep - D), as two launches on B2's
@@ -135,12 +136,7 @@ namespace {
 
 using fdiff::from_f;
 using fdiff::to_f;
-using fdiff::warp_max;
-using fdiff::warp_sum;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDh = 64;
 constexpr float kScoreClamp = 60.0f;
 constexpr int kMaxSmem = fdiff::kMaxSmem;
 
@@ -258,12 +254,14 @@ __device__ __forceinline__ void acc_times_block(float (&acc)[NO][4], const float
 // B2 over (B, H, L, dh) tensors: grid (B * H, p.q_tiles); blockDim p.warps
 // warps. kFast: the max-free bf16 form; `scale` (rounded to bf16 by the
 // caller) then scales q as it is loaded, rounded to bf16, in place of S.
-template <typename T, bool kFast, int kDh>
+// kDrop (B6-fwd, fp32): P o keep before P v, with the mask of `drop`.
+template <typename T, bool kFast, bool kDrop, int kDh>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int L, int dh,
-                         float scale, AttnFwdPlan p) {
+                         const T* __restrict__ v, T* __restrict__ o, int H, int L, int dh,
+                         float scale, AttnDropout drop, AttnFwdPlan p) {
   constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(!kDrop || (kF32 && !kFast), "dropout runs in the exact fp32 form only");
   constexpr int KS = kDh / (kF32 ? 8 : 16);  // k steps of q k^T
   constexpr int NO = kDh / 8;                 // n8 tiles of O
   extern __shared__ __align__(16) unsigned char fwd_smem[];
@@ -287,6 +285,7 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
   const bool live = r0 < L;  // a warp past L still stages and waits at the barriers
   const T* qb = q + base;
+  const HeadMask mask = head_mask<kDrop>(drop, blockIdx.x / H, blockIdx.x % H);
 
   // This warp's q rows as A fragments, kept for both passes. fp32: element
   // e of a fragment is (row g + 8 (e & 1), column t + 4 (e >> 1)); bf16:
@@ -397,8 +396,9 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  // Pass 2: S again, P = exp(s - max) / sum (fast: exp(s) * inv), rounded to
-  // T, and O += P V from the accumulator registers.
+  // Pass 2: S again, P = exp(s - max) / sum (fast: exp(s) * inv), with
+  // dropout times keep, rounded to T, and O += P V from the accumulator
+  // registers.
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -413,6 +413,8 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         pr[j][e] = kFast ? __expf(pr[j][e]) * inv[r] : expf(pr[j][e] - m[r]) / l[r];
+        if constexpr (kDrop)
+          pr[j][e] *= keep<kDrop>(mask, r0 + g + 8 * r, j0 + 8 * j + 2 * t + (e & 1));
       }
     }
     if constexpr (kF32) {
@@ -466,91 +468,44 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, bool kFast, int kDh>
+template <typename T, bool kFast, bool kDrop, int kDh>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
-                   int dh, float scale, const AttnFwdPlan& p, cudaStream_t stream) {
+                   int dh, float scale, const AttnDropout& drop, const AttnFwdPlan& p,
+                   cudaStream_t stream) {
   if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
+      (p.q_tiles - 1) * kTileRows + p.warps * kWarpRows < L || p.key_blocks * kKeyBlock < L ||
       p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride ||
       p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  auto kernel = attention_fwd_mma_kernel<T, kFast, kDh>;
+  auto kernel = attention_fwd_mma_kernel<T, kFast, kDrop, kDh>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          p.bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(B * H, p.q_tiles), p.warps * 32, p.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), L, dh, scale, p);
+      static_cast<T*>(o), H, L, dh, scale, drop, p);
   return (int)cudaGetLastError();
 }
 
-// B2's exact forms (fp32; bf16 with dh >= 16), the instance by the plan's
-// head width.
-template <typename T>
+// B2's exact forms (fp32; bf16 with dh >= 16) and B6-fwd (kDrop, fp32),
+// the instance by the plan's head width.
+template <typename T, bool kDrop>
 int launch_fwd_exact(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
-                     int dh, float scale, const AttnFwdPlan& p, cudaStream_t s) {
+                     int dh, float scale, const AttnDropout& drop, const AttnFwdPlan& p,
+                     cudaStream_t s) {
   switch (p.kdh) {
     case 8:
       if constexpr (sizeof(T) == 4)
-        return launch_fwd_mma<T, false, 8>(q, k, v, o, B, H, L, dh, scale, p, s);
+        return launch_fwd_mma<T, false, kDrop, 8>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
       break;
-    case 16: return launch_fwd_mma<T, false, 16>(q, k, v, o, B, H, L, dh, scale, p, s);
-    case 32: return launch_fwd_mma<T, false, 32>(q, k, v, o, B, H, L, dh, scale, p, s);
-    case 64: return launch_fwd_mma<T, false, 64>(q, k, v, o, B, H, L, dh, scale, p, s);
+    case 16:
+      return launch_fwd_mma<T, false, kDrop, 16>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+    case 32:
+      return launch_fwd_mma<T, false, kDrop, 32>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+    case 64:
+      return launch_fwd_mma<T, false, kDrop, 64>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// ---- B6-fwd: the attention forward with dropout ------------------------------------------
-
-// fp32; P o keep before P v.
-__global__ void __launch_bounds__(kThreads)
-attention_dropout_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, float* __restrict__ o, int H, int L,
-                             int dh, float scale, AttnDropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // L x dh
-  float* vs = ks + L * dh;                // L x dh
-  float* rows = vs + L * dh;              // kWarps x L scores
-  float* qs = rows + kWarps * L;          // kWarps x kMaxDh query rows
-  const size_t base = (size_t)blockIdx.x * L * dh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const HeadMask mask = head_mask<true>(drop, blockIdx.x / H, blockIdx.x % H);
-  for (int e = threadIdx.x; e < L * dh; e += blockDim.x) {
-    ks[e] = k[base + e];
-    vs[e] = v[base + e];
-  }
-  __syncthreads();
-  float* srow = rows + warp * L;
-  float* qr = qs + warp * kMaxDh;
-  for (int i = warp; i < L; i += kWarps) {
-    for (int d = lane; d < dh; d += 32) qr[d] = q[base + (size_t)i * dh + d];
-    __syncwarp();
-    float m = -FLT_MAX;
-    for (int j = lane; j < L; j += 32) {
-      float s = 0.0f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qr[d], ks[j * dh + d], s);
-      s *= scale;
-      m = fmaxf(m, s);
-      srow[j] = s;
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) srow[j] = srow[j] / sum * keep<true>(mask, i, j);
-    __syncwarp();
-    for (int d = 0; d < dh; ++d) {
-      float acc = 0.0f;
-      for (int j = lane; j < L; j += 32) acc = fmaf(srow[j], vs[j * dh + d], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) o[base + (size_t)i * dh + d] = acc;
-    }
-    __syncwarp();
-  }
 }
 
 // ---- B5 and B6-bwd: the attention backward on mma.sync tiles ------------------------------
@@ -850,20 +805,6 @@ __global__ void attention_masks_kernel(float* __restrict__ out, int B, int H, in
   }
 }
 
-int launch_dropout_fwd(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int L, int dh, float scale, const AttnDropout& drop,
-                       cudaStream_t stream) {
-  const int bytes = (2 * L * dh + kWarps * (L + kMaxDh)) * (int)sizeof(float);
-  if (bytes > kMaxSmem || dh > kMaxDh) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_dropout_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attention_dropout_fwd_kernel<<<B * H, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, L, dh, scale, drop);
-  return (int)cudaGetLastError();
-}
-
 // B5 (kDrop false) or B6-bwd at the instance's head width: launch 1, then
 // launch 2 on the same stream.
 template <bool kDrop, int kDh>
@@ -920,28 +861,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 extern "C" {
 
 // variant 0: fp32 exact; 1: bf16 exact (dh >= 16); 2: bf16 max-free (q
-// pre-scaled). plan: B2's launch (ops/flash_attention.py: attention_fwd_plan;
-// unused with dropout). seed: null for no dropout, else one int64 in device
-// memory (variant 0 only); thr, keep_scale and group as in AttnDropout. B
-// chains of H heads of (L, dh). Returns cudaGetLastError() after the launch
-// (0 on success), or the error that stopped it before.
+// pre-scaled). plan: the launch (ops/flash_attention.py: attention_fwd_plan,
+// in fp32 with dropout). seed: null for no dropout (B2), else one int64 in
+// device memory (B6-fwd, variant 0 only); thr, keep_scale and group as in
+// AttnDropout. B chains of H heads of (L, dh). Returns cudaGetLastError()
+// after the launch (0 on success), or the error that stopped it before.
 int fdiff_attention_fwd(int variant, const void* q, const void* k, const void* v, void* o,
                         int B, int H, int L, int dh, float scale, const AttnFwdPlan* plan,
                         const void* seed, unsigned int thr, float keep_scale, int group,
                         void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (seed != nullptr) {
-    if (variant != 0 || group < 1) return (int)cudaErrorInvalidValue;
-    const AttnDropout drop{static_cast<const long long*>(seed), thr, keep_scale, group};
-    return launch_dropout_fwd(q, k, v, o, B, H, L, dh, scale, drop, s);
-  }
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const AttnFwdPlan& p = *plan;
-  if (variant == 0) return launch_fwd_exact<float>(q, k, v, o, B, H, L, dh, scale, p, s);
+  const AttnDropout drop{static_cast<const long long*>(seed), thr, keep_scale, group};
+  if (seed != nullptr) {
+    if (variant != 0 || group < 1) return (int)cudaErrorInvalidValue;
+    return launch_fwd_exact<float, true>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+  }
+  if (variant == 0)
+    return launch_fwd_exact<float, false>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
   if (variant == 1)
-    return launch_fwd_exact<__nv_bfloat16>(q, k, v, o, B, H, L, dh, scale, p, s);
+    return launch_fwd_exact<__nv_bfloat16, false>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
   if (variant == 2 && dh < 16 && p.kdh == 16)
-    return launch_fwd_mma<__nv_bfloat16, true, 16>(q, k, v, o, B, H, L, dh, scale, p, s);
+    return launch_fwd_mma<__nv_bfloat16, true, false, 16>(q, k, v, o, B, H, L, dh, scale, drop,
+                                                          p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,9 +6,10 @@ A split is one CPU tensor; the trainer moves it to its device once and
 draws batches by index. With ``fourier_transform`` the split goes through
 ``dft`` first, and the mean and std (ddof 1) are taken in the diffusion
 domain from a reference split: the validation split uses the training
-statistics. ``SyntheticDatamodule`` generates its series with numpy from
-the seed and caches them as CSV, as the JAX package does, so both packages
-read the same numbers. The ECG, MIMIC-III, NASDAQ, NASA and US-droughts
+statistics, and ``feature_mean_and_std`` (the training split's) turns
+standardised samples back into the data's scale. ``SyntheticDatamodule``
+generates its series with numpy from the seed and caches them as CSV, as
+the JAX package does, so both packages read the same numbers. The ECG, MIMIC-III, NASDAQ, NASA and US-droughts
 datamodules are not ported yet.
 """
 
@@ -120,6 +121,15 @@ class Datamodule(ABC):
             X_ref=self.X_train,
         )
 
+    def test_arrays(self) -> DiffusionArrays:
+        """Test split in the diffusion domain, not standardised."""
+        if self.X_test is None:
+            raise RuntimeError("call setup() first")
+        return make_diffusion_arrays(
+            self.X_test, self.y_test, fourier_transform=self.fourier_transform,
+            standardize=False,
+        )
+
     @property
     def steps_per_epoch(self) -> int:
         if self.X_train is None:
@@ -135,6 +145,13 @@ class Datamodule(ABC):
             "max_len": int(self.X_train.shape[1]),
             "steps_per_epoch": self.steps_per_epoch,
         }
+
+    @property
+    def feature_mean_and_std(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training split's mean and std (ddof 1) per (position,
+        channel) in the diffusion domain."""
+        split = self.train_arrays()
+        return split.feature_mean, split.feature_std
 
 
 class SyntheticDatamodule(Datamodule):

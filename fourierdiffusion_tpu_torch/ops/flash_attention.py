@@ -16,7 +16,8 @@ differentiable (``FlashAttention``):
 
 ``flash_attention_dropout(q, k, v, seed, rate)`` (``FlashAttentionDropout``)
 is the same with dropout on the normalised attention weights: the kernels
-B6-fwd and B6-bwd (``dropout_fwd_launches``, ``dropout_bwd_launches``), or
+B6-fwd (B2's kernel with the keep factors, on B2's fp32 plan) and B6-bwd
+(``dropout_fwd_launches``, ``dropout_bwd_launches``), or
 ``flash_attention_dropout_reference`` and ``..._bwd_reference``. Its mask is
 ``attention_keep``: the TPU kernels' interpret-mode hash at tag
 ``seed + chain*131071 + g0`` (uint32), g0 the first head of the head group
@@ -247,9 +248,9 @@ class AttnFwdPlan(ctypes.Structure):
 @functools.lru_cache(maxsize=64)
 def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
     """B2's launch at length ``max_len`` and head width ``dh`` in ``dtype``
-    (for every chain and head alike): the head width of the instance
-    (``kdh``: the mma's k step, 8 in fp32 and 16 in bf16, doubled up to
-    cover dh), the warps of a CTA (one per 16 query rows of the first tile,
+    (for every chain and head alike; B6-fwd takes the fp32 one): the head
+    width of the instance (``kdh``: the mma's k step, 8 in fp32 and 16 in
+    bf16, doubled up to cover dh), the warps of a CTA (one per 16 query rows of the first tile,
     at most 8), the CTAs per head (tiles of 128 query rows), the key blocks
     of 64, the row stride of a staged K or V block, the elements of a stage
     of the ring (a block of K and one of V), the shared memory (FWD_STAGES
@@ -375,13 +376,11 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
         variant, scale = 2, _bf16_scale(dh)
     else:
         variant = 0 if q.dtype == torch.float32 else 1
-    plan = None if seed is not None else attention_fwd_plan(l, dh, q.dtype)["struct"]
-    lib = _library()
+    plan = attention_fwd_plan(l, dh, q.dtype)["struct"]
     out = torch.empty_like(q)
-    err = lib.fdiff_attention_fwd(
+    err = _library().fdiff_attention_fwd(
         variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, l, dh, scale, None if plan is None else ctypes.byref(plan),
-        *_dropout_args(q, seed, rate),
+        b, h, l, dh, scale, ctypes.byref(plan), *_dropout_args(q, seed, rate),
     )
     _raise_on(err, "attention forward")
     if seed is None:

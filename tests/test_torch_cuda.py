@@ -29,7 +29,8 @@ B1, B2, B3, B4 and B5/B6-bwd run on the tensor cores
 (``csrc/mma_tile.cuh``). B2 is checked at L 24 to 365 and dh 6 to 64, fp32
 and bf16, and up to L 3616 (in bf16 to 4 ulps of its largest output,
 ``B2_BF16_ULPS``); B5 and B6-bwd up to L 3616 and at dh 16 and 64, and two
-calls bit for bit; B3 at rate 0 and 0.1
+calls bit for bit; B6-fwd (B2's kernel with the keep factors) up to L
+3616 and at L 2048, dh 16; B3 at rate 0 and 0.1
 at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is checked
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
@@ -424,6 +425,32 @@ def test_attention_backward_repeats_bit_for_bit(cuda, rate, b, h, l, dh) -> None
         assert _rel(first[3][..., i], staged[3][..., i]) <= 1e-4, i
     for name, got, want in zip(("dq", "dk", "dv"), first, staged):
         assert _rel(got, want) <= 1e-3, name
+
+
+# B6-fwd, B2's kernel with the keep factors, at the flagship's heads,
+# USDroughts' L, L=2048 at dh 16 (its earlier body staged the whole head and
+# refused L > 1607 there) and the longest L B2 is checked at.
+DROPOUT_FWD_SHAPES = [(64, 12, 100, 6), (8, 12, 365, 6), (1, 8, 2048, 16), (1, 12, 3616, 6)]
+DROPOUT_FWD_IDS = ["L100", "L365", "L2048-dh16", "L3616"]
+
+
+@pytest.mark.parametrize("b,h,l,dh", DROPOUT_FWD_SHAPES, ids=DROPOUT_FWD_IDS)
+def test_dropout_forward_matches_plain_at_every_length(cuda, b, h, l, dh) -> None:
+    """B6-fwd against ``flash_attention_dropout_reference`` (fp32, 1e-4),
+    one launch per call, and its masks bit for bit those of the plain
+    version."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g).to(cuda) for _ in range(3))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda)
+    before = fa.dropout_fwd_launches
+    with torch.no_grad():
+        out = fa.flash_attention_dropout(q, k, v, seed, 0.1)
+    torch.cuda.synchronize()
+    assert fa.dropout_fwd_launches == before + 1
+    ref = fa.flash_attention_dropout_reference(q, k, v, seed, 0.1)
+    assert torch.isfinite(out).all() and (out - ref).abs().max().item() <= TOL[torch.float32]
+    assert torch.equal(fa.attention_keep_cuda(b, h, l, seed, 0.1, device=cuda),
+                       fa.attention_keep(b, h, l, seed, 0.1, device=cuda))
 
 
 @pytest.mark.parametrize("l,seed", [(100, 2**31 - 2), (365, 5)], ids=["L100", "L365"])

@@ -1,8 +1,8 @@
 """The launch plans of the tensor-core kernels B1 (``ops/fused_encoder.py``:
 ``sample_plan``, ``tail_plan``), B3 and B4 (``ops/fused_encoder_train.py``:
-``train_fwd_plan``, ``train_bwd_plan``), B2 and B5/B6-bwd
-(``ops/flash_attention.py``: ``attention_fwd_plan``,
-``attention_bwd_plan``), B7 and B8 (``ops/fused_encoder.py``:
+``train_fwd_plan``, ``train_bwd_plan``), B2, B6-fwd (B2's fp32 plan, up
+to L=3616) and B5/B6-bwd (``ops/flash_attention.py``:
+``attention_fwd_plan``, ``attention_bwd_plan``), B7 and B8 (``ops/fused_encoder.py``:
 ``int8_plan``), and the fp32 product form they use, on the CPU.
 
 The wrappers compute every plan and pass it to the kernels, so these
@@ -23,9 +23,10 @@ one TF32 pass leaves about 3e-4, which the fp32 gates (1e-4) do not admit.
 B3 runs B4's forward stage: the same tail plan, schedule and CTAs, so the
 two sum alike. B2's order of operations (two passes over key blocks of 64:
 the running max and rescaled sum, then P rounded to the input type before
-P V, the products as 3xTF32 in fp32) is emulated in plain torch and held
-against the JAX package's ``_fwd_kernel`` and ``_fast_fwd_kernel`` in
-interpret mode, with ``tests/test_torch_attention.py``'s tolerances: fp32
+P V, the products as 3xTF32 in fp32; B6-fwd: P times its keep factors
+before it is rounded) is emulated in plain torch and held against the JAX
+package's ``_fwd_kernel``, ``_fast_fwd_kernel`` and ``_dropout_fwd_kernel``
+in interpret mode, with ``tests/test_torch_attention.py``'s tolerances: fp32
 1e-5 absolute and relative (the same arithmetic in other sum orders; 3xTF32
 is within ~1e-6 of fp32, above), bf16 2**-5 absolute (one flipped bf16
 rounding of P or O moves an output by one bf16 ulp).
@@ -42,6 +43,7 @@ import pytest
 import torch
 
 from fourierdiffusion_tpu.ops.flash_attention import flash_attention as jax_flash
+from fourierdiffusion_tpu.ops.flash_attention import flash_attention_dropout as jax_flash_dropout
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
@@ -498,6 +500,69 @@ def test_attention_plan_covers_every_row_and_key(dtype, l) -> None:
             plan[k] for k, _ in fa.AttnFwdPlan._fields_]
 
 
+# ---- B6-fwd: B2's kernel with the keep factors, on B2's fp32 plan ---------------------------
+
+# Up to the longest L B2 is checked at on the card; 1607 was the longest L
+# at dh 16 of B6-fwd's earlier body, which staged the whole head.
+DROPOUT_LENGTHS = (19, 100, 365, 1607, 1608, 2048, 3616)
+
+
+class _PlanRecorder:
+    """Stands in for the built library: records the plan that
+    ``fdiff_attention_fwd`` is given and reports success."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple] = []
+
+    def fdiff_attention_fwd(self, variant, *args) -> int:
+        plan = args[9]._obj  # ctypes.byref(AttnFwdPlan)
+        self.calls.append((variant, {k: getattr(plan, k) for k, _ in plan._fields_}, args[10]))
+        return 0
+
+
+@pytest.mark.parametrize("l", [19, 365, 2048])
+def test_dropout_forward_launch_takes_b2_fp32_plan(l, monkeypatch) -> None:
+    """The B6-fwd wrapper hands the kernel B2's fp32 plan at the call's L
+    and dh (variant 0, the seed's pointer set), as B2's own launch gets it."""
+    recorder = _PlanRecorder()
+    monkeypatch.setattr(fa, "_library", lambda: recorder)
+    monkeypatch.setattr(fa, "_dropout_args", lambda q, seed, rate: [
+        None if seed is None else 1, 0, 1.0, 1, 0])
+    monkeypatch.setattr(fa, "launches", 0)
+    monkeypatch.setattr(fa, "dropout_fwd_launches", 0)
+    q = torch.zeros(1, 2, l, 6)
+    fa._launch_fwd(q, q, q, torch.tensor([5]), 0.1)
+    fa._launch_fwd(q, q, q)
+    (variant, plan, seed), (b2_variant, b2_plan, b2_seed) = recorder.calls
+    fp32 = fa.attention_fwd_plan(l, 6, torch.float32)
+    assert (variant, seed, b2_variant, b2_seed) == (0, 1, 0, None)
+    assert plan == b2_plan == {k: fp32[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert (fa.dropout_fwd_launches, fa.launches) == (1, 1)
+
+
+@pytest.mark.parametrize("dh", [6, 12, 16, 64])
+@pytest.mark.parametrize("l", DROPOUT_LENGTHS)
+def test_dropout_forward_plan_covers_every_length(l, dh) -> None:
+    """B6-fwd's plan, B2's in fp32, puts every query row in exactly one
+    warp's 16 rows and every key in one block of 64 up to L=3616, with
+    shared memory that does not grow with L (the earlier body's grew as
+    (2 L dh + 4 (L + 64)) fp32 values and passed 232,448 bytes from L=1608
+    at dh 16)."""
+    plan = fa.attention_fwd_plan(l, dh, torch.float32)
+    seen = torch.zeros(l, dtype=torch.int64)
+    for y in range(plan["q_tiles"]):
+        for w in range(plan["warps"]):
+            r0 = y * fa.TILE_ROWS + w * fa.WARP_ROWS
+            seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
+    assert bool((seen == 1).all())
+    assert (plan["key_blocks"] - 1) * fa.KEY_BLOCK < l <= plan["key_blocks"] * fa.KEY_BLOCK
+    assert plan["bytes"] == fa.attention_fwd_plan(19, dh, torch.float32)["bytes"]
+    assert plan["bytes"] <= fe.SMEM_LIMIT
+    if dh == 16:
+        whole_head = (2 * l * dh + 4 * (l + 64)) * 4
+        assert (whole_head <= fe.SMEM_LIMIT) == (l <= 1607)
+
+
 # ---- B5/B6-bwd: the attention backward's tiles ----------------------------------------------
 
 
@@ -545,13 +610,14 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (al @ bh + ah @ bl) + ah @ bh
 
 
-def b2_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def b2_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 keep: torch.Tensor | None = None) -> torch.Tensor:
     """B2's order of operations over (B, H, L, dh) heads: pass 1 over key
     blocks of 64 keeps each row's running max and its sum of exp(s - max),
     rescaled as the max grows (the fast form: the sum of exp(s), s clamped
     to +-60, q pre-scaled); pass 2 recomputes S block by block, forms P,
-    rounds it to the input type and adds P V. fp32 products as 3xTF32, bf16
-    products exact in fp32."""
+    multiplies it by ``keep`` (B6-fwd, fp32), rounds it to the input type
+    and adds P V. fp32 products as 3xTF32, bf16 products exact in fp32."""
     dtype, (l, dh) = q.dtype, q.shape[-2:]
     fast = fa._fast(q)
     scale = 1.0 / math.sqrt(dh)
@@ -578,6 +644,8 @@ def b2_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     for j0, j1 in blocks:
         s = scores(j0, j1)
         p = torch.exp(s) * (1.0 / total) if fast else torch.exp(s - m) / total
+        if keep is not None:
+            p = p * keep[..., j0:j1]
         out = out + mm(p.to(dtype).float(), vf[..., j0:j1, :])
     return out.to(dtype)
 
@@ -598,3 +666,18 @@ def test_attention_two_pass_order_matches_jax(dtype, dh, l) -> None:
                      .astype(jnp.float32))
     ours = b2_emulation(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)))
     np.testing.assert_allclose(ours.float().numpy(), ref, **B2_TOL[dtype])
+
+
+@pytest.mark.parametrize("dh", [6, 16])
+@pytest.mark.parametrize("l,seed", [(24, 3), (100, 2**31 - 2), (365, 99)])
+def test_dropout_forward_order_matches_jax(dh, l, seed) -> None:
+    """B6-fwd's order of operations (B2's two passes, P times the keep
+    factors after it is normalised, the products as 3xTF32) against JAX's
+    ``_dropout_fwd_kernel`` in interpret mode, at B2's fp32 tolerance."""
+    rng = np.random.default_rng(l * 10 + dh)
+    q, k, v = (rng.normal(size=(2, 12, l, dh)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jax_flash_dropout(*(jnp.asarray(a) for a in (q, k, v)),
+                                       jnp.asarray(seed, jnp.int32), 0.1))
+    keep = fa.attention_keep(2, 12, l, seed, 0.1)
+    ours = b2_emulation(*(torch.from_numpy(a) for a in (q, k, v)), keep)
+    np.testing.assert_allclose(ours.numpy(), ref, **B2_TOL[torch.float32])
