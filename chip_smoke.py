@@ -143,6 +143,25 @@ Phases, each printed with its seconds as it ends:
    runs' ratio to the bf16 run. Gates: the four W2 means below their
    ``_dummy`` baselines in every run, and within 1.5x of ``results.yaml``
    over the 5000 samples in fp32 and bf16 (QUALITY_DRAWN says why 5000).
+17. CLI path, in a temporary directory: (a) ``fdiff-torch-train``
+   (``cli.train.main``) on the flagship's training configuration as phase 8
+   has it, cut to 3 epochs, with ``last`` written every epoch and the
+   sampling callback on every 2 epochs (epochs 0 and 2; 64 chains, K=1000,
+   200 directions): ``train_config.yaml`` read back equal to the composed
+   config, ``metrics.jsonl`` with the JAX package's keys (3 epoch records,
+   2 callback records), one best checkpoint and ``last``, all losses
+   finite, B3 = B4 = steps x 10, B2 = 3 x 16 x 4 x 10 and B1 = 2 x 1000 x
+   10 launches; (b) the same configuration under a second run id, stopped
+   by an exception in epoch 2 (after epoch 1's ``last``), then
+   ``fdiff-torch-train resume=<id>``: its ``last`` params and EMA must
+   equal (a)'s (largest |difference| printed); (c) ``fdiff-torch-sample``
+   on a run directory assembled from the trained ``ref-freq42-e200``
+   weights (``save_checkpoint``, its ``run_config.yaml``'s validation loss),
+   1000 samples, K=1000, one batch, seed 42, fp32: the first 1000 chains of
+   phase 16's fp32 draw, so ``results.yaml``'s four gated W2 means must
+   equal phase 16's fp32 scores over its first 1000 exactly; B1 = 1000 x
+   10 launches, ``samples.npy`` (1000, 100, 1), the census fields present.
+   The seconds of each of (a)-(c).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -152,6 +171,7 @@ non-zero too when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -165,9 +185,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fourierdiffusion_tpu_torch.cli import sample as cli_sample
+from fourierdiffusion_tpu_torch.cli import train as cli_train
 from fourierdiffusion_tpu_torch.data import SyntheticDatamodule
 from fourierdiffusion_tpu_torch.losses import draw_loss_noise
 from fourierdiffusion_tpu_torch.models import ScoreModelConfig, ScoreTransformer
@@ -191,7 +214,10 @@ from fourierdiffusion_tpu_torch.sampling import (
 from fourierdiffusion_tpu_torch.schedulers import VPScheduler
 from fourierdiffusion_tpu_torch.training import Trainer
 from fourierdiffusion_tpu_torch.training.trainer import SEED_MAX
+from fourierdiffusion_tpu_torch.utils import yamlio
 from fourierdiffusion_tpu_torch.utils.census import census_fields
+from fourierdiffusion_tpu_torch.utils.checkpoint import save_checkpoint
+from fourierdiffusion_tpu_torch.utils.config import compose, save_config
 from fourierdiffusion_tpu_torch.utils.weights import load_reference_state_dict
 
 REPO = Path(__file__).resolve().parent
@@ -2033,8 +2059,7 @@ def run_quality(name: str, dtype: torch.dtype, level: int, dm: SyntheticDatamodu
     expected[kernel] = SAMPLE_STEPS * N_LAYERS * -(-QUALITY_DRAWN // QUALITY_BATCH)
     if counts != expected:
         raise AssertionError(f"quality {name}: launches {counts}, expected {expected}")
-    mean, std = (t.to("cuda") for t in dm.feature_mean_and_std)
-    series = fourier.idft(out.float() * std + mean)
+    series = dm.samples_to_data(out.float())
     if tuple(series.shape) != (QUALITY_DRAWN, MAX_LEN, N_CHANNELS) or not torch.isfinite(
             series).all():
         raise AssertionError(f"quality {name}: samples wrong or not finite")
@@ -2118,6 +2143,215 @@ def step_rates(dm: SyntheticDatamodule) -> dict:
     print(f"  train_step, {RATE_STEPS} steps each: {rates['kernel']:.3f} steps/s through "
           f"the kernels, {rates['plain']:.3f} steps/s through the plain versions", flush=True)
     return {"kernel_steps_per_s": rates["kernel"], "plain_steps_per_s": rates["plain"]}
+
+
+# Phase 17, the CLI path: the flagship's training configuration
+# (runs/4ffeaa7e/train_config.yaml) through fdiff-torch-train, cut to
+# CLI_EPOCHS epochs, with `last` written every epoch and the sampling
+# callback on every CLI_EVERY epochs (so at epochs 0 and 2: CLI_CALLBACKS
+# calls of CLI_CALLBACK_SAMPLES chains); the same run interrupted in the
+# epoch after CLI_RESUME_FROM and resumed; and fdiff-torch-sample on the
+# trained ref-freq42-e200 weights as phase 16 samples them in fp32.
+CLI_EPOCHS, CLI_EVERY, CLI_CALLBACKS = 3, 2, 2
+CLI_CALLBACK_SAMPLES, CLI_CALLBACK_DIRECTIONS = 64, 200
+CLI_RESUME_FROM = 1
+# The record keys of the JAX package's metrics.jsonl: an epoch's, and a
+# sampling callback's.
+JSONL_EPOCH_KEYS = ("_time", "_step", "train/loss", "val/loss", "lr", "epoch", "step",
+                    "steps_per_sec")
+JSONL_CALLBACK_KEYS = tuple(f"metrics/{d}_{m}_wasserstein_{s}" for d in ("time", "freq")
+                            for m in ("sliced", "marginal") for s in ("mean", "max"))
+# The largest absolute difference allowed between the resumed run's `last`
+# (params and EMA) and the uninterrupted run's: the same draws, the same
+# weights read back from the file, and kernels that repeat bit for bit
+# (phase 6), so none.
+RESUME_TOL = 0.0
+
+
+def cli_train_overrides(root: Path) -> list[str]:
+    """fdiff-torch-train's overrides for phase 17 (a) and (b)."""
+    sampling = "trainer.callbacks.sampling"
+    return [f"run_dir={root / 'runs'}", "datamodule=synthetic",
+            f"datamodule.data_dir={root / 'data'}", "fourier_transform=true",
+            "trainer.ema_decay=0.999", "trainer.save_last_every_n=1",
+            f"trainer.max_epochs={CLI_EPOCHS}", f"{sampling}.enabled=true",
+            f"{sampling}.every_n_epochs={CLI_EVERY}",
+            f"{sampling}.num_samples={CLI_CALLBACK_SAMPLES}",
+            f"{sampling}.num_diffusion_steps={SAMPLE_STEPS}",
+            f"{sampling}.num_directions={CLI_CALLBACK_DIRECTIONS}"]
+
+
+def run_cli(main_fn, argv: list[str]) -> str:
+    """``main_fn(argv)``, its standard output captured and returned."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    return out.getvalue()
+
+
+class Interrupt(Exception):
+    pass
+
+
+def interrupt_at(stop_epoch: int):
+    """A training callback that stops the run in ``stop_epoch``, after its
+    training and before its `last` is written."""
+    def callback(trainer, epoch, params, constants, metrics):
+        if epoch == stop_epoch:
+            raise Interrupt(f"stopped in epoch {epoch}")
+    return callback
+
+
+def max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def train_through_cli(root: Path) -> dict:
+    """(a): fdiff-torch-train on the flagship's training configuration; the
+    counts are read around ``main`` alone."""
+    overrides = cli_train_overrides(root)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stdout = run_cli(cli_train.main, overrides)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    run_id = re.search(r"^run_id=(\S+)$", stdout, re.M).group(1)
+    run_dir = root / "runs" / run_id
+    saved = yamlio.load(run_dir / "train_config.yaml")
+    if saved != compose("train", overrides):
+        raise AssertionError("cli train: train_config.yaml differs from the composed config")
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in records if "epoch" in r]
+    callbacks = [r for r in records if any(k.startswith("metrics/") for k in r)]
+    if len(epochs) != CLI_EPOCHS or [r["epoch"] for r in epochs] != list(range(CLI_EPOCHS)):
+        raise AssertionError(f"cli train: epoch records {epochs}")
+    for r in epochs:
+        if missing := set(JSONL_EPOCH_KEYS) - set(r):
+            raise AssertionError(f"cli train: epoch record lacks {sorted(missing)}")
+        if not (math.isfinite(r["train/loss"]) and math.isfinite(r["val/loss"])):
+            raise AssertionError(f"cli train: loss not finite: {r}")
+    if len(callbacks) != CLI_CALLBACKS or any(
+            set(JSONL_CALLBACK_KEYS) - set(r) for r in callbacks):
+        raise AssertionError(f"cli train: {len(callbacks)} callback records: {callbacks}")
+    best = sorted(p.name for p in (run_dir / "checkpoints").glob("epoch=*"))
+    if len(best) != 1 or not (run_dir / "checkpoints" / "last" / "train_state.pt").exists():
+        raise AssertionError(f"cli train: checkpoints {best}, last missing or present")
+    steps = CLI_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH)
+    val_batches = -(-TRAIN_SERIES // TRAIN_BATCH)
+    expected = {k: 0 for k in counts}
+    expected.update({"B3": steps * N_LAYERS, "B4": steps * N_LAYERS,
+                     "B2": CLI_EPOCHS * val_batches * VAL_DRAWS * N_LAYERS,
+                     "B1": CLI_CALLBACKS * SAMPLE_STEPS * N_LAYERS})
+    if counts != expected:
+        raise AssertionError(f"cli train: launches {counts}, expected {expected}")
+    print(f"  (a) fdiff-torch-train run_id={run_id}: {CLI_EPOCHS} epochs, {steps} steps in "
+          f"{seconds:.3f} s; checkpoints {best} + last; launches {counts}; losses "
+          f"{[(r['train/loss'], r['val/loss']) for r in epochs]}; callback time sliced W2 "
+          f"{[r['metrics/time_sliced_wasserstein_mean'] for r in callbacks]}", flush=True)
+    return {"seconds": seconds, "launches": counts, "run_id": run_id, "steps": steps,
+            "losses": [(r["train/loss"], r["val/loss"]) for r in epochs]}
+
+
+def resume_through_cli(root: Path, trained: dict) -> dict:
+    """(b): the same configuration under a second run id, interrupted in the
+    epoch after CLI_RESUME_FROM, then ``fdiff-torch-train resume=<id>``; its
+    `last` against (a)'s."""
+    t0 = time.perf_counter()
+    runner = cli_train.TrainingRunner(compose("train", cli_train_overrides(root)))
+    runner.trainer.callbacks = (interrupt_at(CLI_RESUME_FROM + 1),) + runner.trainer.callbacks
+    with contextlib.suppress(Interrupt):
+        runner.train()
+    last = runner.run_dir / "checkpoints" / "last"
+    saved_epoch = json.loads((last / "metadata.json").read_text())["epoch"]
+    if saved_epoch != CLI_RESUME_FROM:
+        raise AssertionError(f"cli resume: the interrupted run's last is epoch {saved_epoch}")
+    stdout = run_cli(cli_train.main, [f"resume={runner.run_id}", f"run_dir={root / 'runs'}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if f"run_id={runner.run_id}" not in stdout:
+        raise AssertionError(f"cli resume: printed {stdout!r}")
+    states = [torch.load(root / "runs" / rid / "checkpoints" / "last" / "train_state.pt",
+                         weights_only=True) for rid in (trained["run_id"], runner.run_id)]
+    diff = {k: max_diff(states[0][k], states[1][k]) for k in ("params", "ema_params")}
+    moments = {k: max_diff(states[0]["opt_state"][k], states[1]["opt_state"][k])
+               for k in ("mu", "nu")}
+    steps = [s["step"] for s in states]
+    print(f"  (b) interrupted after epoch {CLI_RESUME_FROM} and resumed (run_id="
+          f"{runner.run_id}) in {seconds:.3f} s: largest |difference| from (a)'s last: "
+          f"params {diff['params']!r}, EMA {diff['ema_params']!r}, AdamW moments "
+          f"{moments}; steps {steps}", flush=True)
+    if steps[0] != steps[1] or max(diff.values()) > RESUME_TOL:
+        raise AssertionError(f"cli resume: last differs from the uninterrupted run's: {diff}")
+    return {"seconds": seconds, "max_abs_diff": diff, "moments_max_abs_diff": moments}
+
+
+def sample_through_cli(root: Path, quality: dict) -> dict:
+    """(c): fdiff-torch-sample on a run directory assembled from the trained
+    ref-freq42-e200 weights, fp32, seed 42, one batch of QUALITY_SAMPLES: the
+    first QUALITY_SAMPLES chains of phase 16's fp32 draw, so results.yaml's
+    gated means must equal phase 16's over its first QUALITY_SAMPLES."""
+    run_id = WEIGHTS.parent.name
+    run_dir = root / "ref" / run_id
+    ref = yamlio.load(WEIGHTS.parent / "run_config.yaml")
+    flagship = load_flagship(torch.float32, "cpu")
+    save_checkpoint(run_dir / "checkpoints", epoch=int(ref["epochs"]) - 1,
+                    step=int(ref["epochs"]) * -(-TRAIN_SERIES // TRAIN_BATCH),
+                    val_loss=float(ref["best_val_loss"]),
+                    params=dict(flagship.named_parameters()),
+                    constants=dict(flagship.named_buffers()))
+    save_config(compose("train", cli_train_overrides(root)), run_dir / "train_config.yaml")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(cli_sample.main, [f"model_path={root / 'ref'}", f"model_id={run_id}",
+                              f"num_samples={QUALITY_SAMPLES}",
+                              f"num_diffusion_steps={SAMPLE_STEPS}",
+                              f"sampler.sample_batch_size={QUALITY_BATCH}",
+                              f"random_seed={QUALITY_SEED}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    results = yamlio.load(run_dir / "results.yaml")
+    samples = np.load(run_dir / "samples.npy")
+    phase16 = quality["runs"]["float32"]["results"][QUALITY_SAMPLES]
+    expected = {k: 0 for k in counts}
+    expected["B1"] = SAMPLE_STEPS * N_LAYERS
+    for key in sorted(k for k in results if k.endswith("_mean")):
+        print(f"  (c) {key}: results.yaml {results[key]!r}  phase 16 fp32 first "
+              f"{QUALITY_SAMPLES} {phase16.get(key, math.nan)!r}", flush=True)
+    census = {k: results.get(k) for k in ("divergence_census_count",
+                                          "divergence_census_max_absmax",
+                                          "divergence_census_protocol")}
+    print(f"  (c) fdiff-torch-sample: {QUALITY_SAMPLES} samples x {SAMPLE_STEPS} steps in "
+          f"{seconds:.3f} s, launches {counts}, samples.npy {samples.shape}, census "
+          f"{json.dumps(census)}", flush=True)
+    failures = [f"{k}: {results[k]!r} != {phase16[k]!r}" for k in QUALITY_KEYS
+                if results[k] != phase16[k]]
+    if counts != expected:
+        failures.append(f"launches {counts}, expected {expected}")
+    if samples.shape != (QUALITY_SAMPLES, MAX_LEN, N_CHANNELS) or not np.isfinite(samples).all():
+        failures.append(f"samples.npy {samples.shape}, or not finite")
+    if any(v is None for v in census.values()):
+        failures.append(f"census fields missing: {census}")
+    if failures:
+        raise AssertionError("cli sample: " + "; ".join(failures))
+    return {"seconds": seconds, "launches": counts,
+            "results": {k: results[k] for k in QUALITY_KEYS}, "census": census}
+
+
+def check_cli(quality: dict) -> dict:
+    """Phase 17: (a) train, (b) resume, (c) sample through the CLIs, in a
+    temporary directory; the seconds of each."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        trained = train_through_cli(root)
+        resumed = resume_through_cli(root, trained)
+        sampled = sample_through_cli(root, quality)
+    print(f"  seconds: (a) {trained['seconds']:.3f}, (b) {resumed['seconds']:.3f}, "
+          f"(c) {sampled['seconds']:.3f}", flush=True)
+    return {"train": trained, "resume": resumed, "sample": sampled}
 
 
 def main() -> int:
@@ -2259,6 +2493,10 @@ def main() -> int:
     quality = check_quality()
     phase("16 sample quality", t0)
 
+    t0 = time.perf_counter()
+    cli = check_cli(quality)
+    phase("17 CLI path", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -2381,8 +2619,16 @@ def main() -> int:
                                                      "bound_ms")}
                                for k, c in by_shape.items()},
         })
+    # The launches of phase 17's CLI path ((a) and (c); the CLIs run fp32).
+    cli_counts = {k: cli["train"]["launches"][k] + cli["sample"]["launches"][k]
+                  for k in cli["train"]["launches"]}
+    cli_names = {"fused_encoder_layer/float32": "B1", "flash_attention": "B2",
+                 "fused_encoder_layer_train_fwd": "B3", "fused_encoder_layer_train_bwd": "B4"}
+    for k in kernels:
+        k["launches_cli"] = cli_counts[cli_names[k["name"]]] if k["name"] in cli_names else 0
     print(f"pc: {json.dumps(pc)}", flush=True)
     print(f"quality: {json.dumps(quality)}", flush=True)
+    print(f"cli: {json.dumps(cli)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)

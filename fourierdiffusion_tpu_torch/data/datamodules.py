@@ -6,8 +6,8 @@ A split is one CPU tensor; the trainer moves it to its device once and
 draws batches by index. With ``fourier_transform`` the split goes through
 ``dft`` first, and the mean and std (ddof 1) are taken in the diffusion
 domain from a reference split: the validation split uses the training
-statistics, and ``feature_mean_and_std`` (the training split's) turns
-standardised samples back into the data's scale. ``SyntheticDatamodule``
+statistics, and ``samples_to_data`` turns samples back into the data's
+scale (``feature_mean_and_std``, the training split's) and domain. ``SyntheticDatamodule``
 generates its series with numpy from the seed and caches them as CSV, as
 the JAX package does, so both packages read the same numbers. The ECG, MIMIC-III, NASDAQ, NASA and US-droughts
 datamodules are not ported yet.
@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fourierdiffusion_tpu_torch.ops.fourier import dft
+from fourierdiffusion_tpu_torch.ops.fourier import dft, idft
 
 
 @dataclasses.dataclass
@@ -152,6 +152,17 @@ class Datamodule(ABC):
         channel) in the diffusion domain."""
         split = self.train_arrays()
         return split.feature_mean, split.feature_std
+
+    def samples_to_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Samples drawn in the diffusion domain, back in the data's scale
+        and domain: un-standardised with the training statistics where the
+        splits are standardised, then ``idft`` where they are in frequency."""
+        if self.standardize:
+            mean, std = self.feature_mean_and_std
+            x = x * std.to(x.device) + mean.to(x.device)
+        if self.fourier_transform:
+            x = idft(x)
+        return x
 
 
 class SyntheticDatamodule(Datamodule):

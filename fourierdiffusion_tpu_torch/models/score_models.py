@@ -92,19 +92,28 @@ class ScoreModelConfig:
     dropout_rate: float = 0.1
     dtype: str = "float32"
 
-    def build(self, n_channels: int, max_len: int) -> ScoreTransformer:
+    def build(self, n_channels: int, max_len: int, seed: int | None = None) -> ScoreTransformer:
+        """The network, its initial weights drawn from ``seed`` where given
+        without touching torch's global CPU generator (else from that
+        generator, as a plain constructor does)."""
         if self.model_type != "transformer":
-            raise ValueError(f"model_type {self.model_type!r} is not ported yet")
-        return ScoreTransformer(
-            n_channels=n_channels,
-            max_len=max_len,
-            d_model=self.d_model,
-            num_layers=self.num_layers,
-            n_head=self.n_head,
-            dim_feedforward=self.dim_feedforward,
-            dropout_rate=self.dropout_rate,
-            dtype=getattr(torch, self.dtype),
-        )
+            raise ValueError(
+                f"model_type {self.model_type!r} is not ported yet (ROADMAP.md queue A "
+                "item 7: ScoreMLP and ScoreLSTM)"
+            )
+        with torch.random.fork_rng(devices=[], enabled=seed is not None):
+            if seed is not None:
+                torch.default_generator.manual_seed(seed)
+            return ScoreTransformer(
+                n_channels=n_channels,
+                max_len=max_len,
+                d_model=self.d_model,
+                num_layers=self.num_layers,
+                n_head=self.n_head,
+                dim_feedforward=self.dim_feedforward,
+                dropout_rate=self.dropout_rate,
+                dtype=getattr(torch, self.dtype),
+            )
 
 
 __all__ = ["ScoreModelConfig", "ScoreTransformer"]

@@ -11,6 +11,12 @@ b2=0.999, eps=1e-8, weight_decay=0.01))`` written out in plain tensor code:
 * decoupled weight decay on every parameter, scaled by the learning rate;
 * the learning rate of update ``k`` (counted from 0) is ``schedule(k)``,
   so the first update has rate 0, as optax evaluates its schedule at count 0.
+
+``MultiSteps(inner, every_k)`` is optax's ``MultiSteps`` (gradient
+accumulation): the gradients of ``every_k`` micro-steps are averaged, as a
+running mean ``acc + (g - acc) / (mini_step + 1)``, and the inner clip and
+AdamW run once, on the ``every_k``-th micro-step, so the inner count (and
+with it the schedule) advances once per application.
 """
 
 from __future__ import annotations
@@ -97,6 +103,59 @@ class AdamW:
             dst.copy_(src)
 
 
+class MultiSteps:
+    """Gradient accumulation over ``every_k`` micro-steps (optax
+    ``MultiSteps`` with a constant ``every_k_schedule``). ``step(grads)``
+    returns whether the inner optimiser was applied. The accumulator and the
+    mini-step are part of ``state_dict``, so they persist across epochs, the
+    trainer's rollback snapshots and the ``last`` checkpoint."""
+
+    def __init__(self, inner: AdamW, every_k: int) -> None:
+        if every_k < 1:
+            raise ValueError(f"every_k must be at least 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for p in inner.params]
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> bool:
+        if len(grads) != len(self.acc):
+            raise ValueError(f"{len(grads)} gradients for {len(self.acc)} parameters")
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (self.mini_step + 1))
+        if self.mini_step < self.every_k - 1:
+            self.mini_step += 1
+            return False
+        self.inner.step(self.acc)
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+        return True
+
+    def state_dict(self) -> dict:
+        return {
+            "mini_step": self.mini_step,
+            "gradient_step": self.gradient_step,
+            "acc": [a.clone() for a in self.acc],
+            "inner": self.inner.state_dict(),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        for dst, src in zip(self.acc, state["acc"]):
+            dst.copy_(src)
+        self.inner.load_state_dict(state["inner"])
+
+
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
     """optax's rule: scale by ``max_norm / norm`` only where ``norm >= max_norm``."""
     norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
@@ -111,13 +170,20 @@ def make_optimizer(
     *,
     gradient_clip_val: float = 1.0,
     weight_decay: float = 0.01,
-) -> AdamW:
-    return AdamW(
+    accumulate_grad_batches: int = 1,
+) -> AdamW | MultiSteps:
+    """Clip + AdamW on the warmup-cosine schedule; with
+    ``accumulate_grad_batches`` above 1, wrapped in ``MultiSteps``."""
+    optimizer = AdamW(
         params,
         cosine_warmup_schedule(lr_max, num_training_steps),
         gradient_clip_val=gradient_clip_val,
         weight_decay=weight_decay,
     )
+    if accumulate_grad_batches > 1:
+        return MultiSteps(optimizer, accumulate_grad_batches)
+    return optimizer
 
 
-__all__ = ["AdamW", "clip_by_global_norm", "cosine_warmup_schedule", "make_optimizer"]
+__all__ = ["AdamW", "MultiSteps", "clip_by_global_norm", "cosine_warmup_schedule",
+           "make_optimizer"]

@@ -27,22 +27,37 @@
   perturbed random stream, at most ``spike_rollback_retries`` times;
 * each epoch's ``steps_per_sec`` is its steps over the seconds from the
   start of the epoch through validation and the guard, as in JAX;
-  ``train_seconds`` and ``val_seconds`` are the two parts.
+  ``train_seconds`` and ``val_seconds`` are the two parts;
+* after each epoch its record goes to ``metrics_writer`` (rollbacks too),
+  the ``callbacks`` are called with the eval weights, and the full training
+  state is written to ``save_last_dir/last`` every ``save_last_every_n``
+  epochs and at the final one; ``fit(resume_from=<last dir>)`` continues
+  from it;
+* ``accumulate_grad_batches`` averages the gradients of that many steps
+  before each optimiser update (``training/optim.py::MultiSteps``); the
+  step count and the EMA advance on every step, as in JAX;
+* ``perm_salt`` changes only the epoch order.
 
 Random draws come from ``torch.Generator``s seeded with ``seed``; they
 differ from ``jax.random``'s, so the parity tests hand the JAX draws in
-through ``loss_and_grads``/``train_step``. Checkpoints, resume, callbacks,
-the device mesh, gradient accumulation, bf16 training and the MLP and LSTM
-score networks are not ported.
+through ``loss_and_grads``/``train_step``. Each epoch's streams are set by
+``(seed, epoch, stream salt)`` and the validation draws by ``seed`` alone,
+so a run resumed from ``last`` continues bit for bit as the uninterrupted
+run would have (on the CPU; on the card as far as its kernels repeat). The
+device mesh, bf16 training and the MLP and LSTM score networks are not
+ported.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 import statistics
 import time
 from collections import deque
+from pathlib import Path
+from typing import Any, Mapping, Optional
 
 import torch
 
@@ -54,7 +69,14 @@ from fourierdiffusion_tpu_torch.models.attention import SEED_MAX
 from fourierdiffusion_tpu_torch.models.fused import fused_score_training_forward
 from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
-from fourierdiffusion_tpu_torch.training.optim import cosine_warmup_schedule, make_optimizer
+from fourierdiffusion_tpu_torch.training.optim import (
+    MultiSteps,
+    cosine_warmup_schedule,
+    make_optimizer,
+)
+from fourierdiffusion_tpu_torch.utils.checkpoint import restore_train_state, save_train_state
+
+logger = logging.getLogger(__name__)
 
 
 def use_fused_train() -> bool:
@@ -70,6 +92,10 @@ class Trainer:
     with the same seeds, masks and draws: a check of the kernels on the card
     (each training layer's plain version on the fused path, the attention's
     on the unfused path).
+
+    Callbacks are called after each epoch as ``cb(trainer, epoch, params,
+    constants, metrics)``: ``params`` the eval weights (the EMA where it is
+    on) and ``constants`` the buffers, both name -> tensor.
     """
 
     def __init__(
@@ -86,6 +112,12 @@ class Trainer:
         spike_rollback_factor: float = 2.5,
         spike_rollback_retries: int = 2,
         val_noise_draws: int = 4,
+        callbacks: tuple = (),
+        metrics_writer=None,
+        save_last_dir: Optional[Path] = None,
+        save_last_every_n: int = 1,
+        accumulate_grad_batches: int = 1,
+        perm_salt: int = 0,
         device: str | torch.device = "cuda",
         plain: bool = False,
     ) -> None:
@@ -103,6 +135,12 @@ class Trainer:
         self.spike_rollback_factor = float(spike_rollback_factor)
         self.spike_rollback_retries = int(spike_rollback_retries)
         self.val_noise_draws = max(1, int(val_noise_draws))
+        self.callbacks = tuple(callbacks)
+        self.metrics_writer = metrics_writer
+        self.save_last_dir = save_last_dir
+        self.save_last_every_n = max(1, int(save_last_every_n))
+        self.accumulate_grad_batches = int(accumulate_grad_batches)
+        self.perm_salt = int(perm_salt)
         self.plain = plain
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
@@ -119,6 +157,7 @@ class Trainer:
         self.optimizer = make_optimizer(
             self.params, self.lr_max, num_training_steps,
             gradient_clip_val=self.gradient_clip_val,
+            accumulate_grad_batches=self.accumulate_grad_batches,
         )
         self.step = 0
         self.ema = (
@@ -163,7 +202,8 @@ class Trainer:
         self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
         layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """Loss, gradients, clipped AdamW update and EMA; returns the loss."""
+        """Loss, gradients, clipped AdamW update (on every
+        ``accumulate_grad_batches``-th step) and EMA; returns the loss."""
         loss, grads = self.loss_and_grads(x, t, z, layer_seeds, generator=generator)
         self.optimizer.step(grads)
         if self.ema_decay > 0.0:
@@ -213,12 +253,68 @@ class Trainer:
         self.ema = {n: e.clone() for n, e in snap["ema"].items()}
         self.step = snap["step"]
 
+    # -- the full training state, for the ``last`` checkpoint --------------------------
+    def _named(self, tensors: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+        return dict(zip(self.names, tensors))
+
+    def _ordered(self, named: Mapping[str, torch.Tensor]) -> list[torch.Tensor]:
+        return [named[n] for n in self.names]
+
+    def train_state(self) -> dict[str, Any]:
+        """Params, buffers, EMA, optimiser state and step, name-keyed (the
+        layout of ``utils/checkpoint.py``)."""
+        opt = self.optimizer.state_dict()
+        accumulating = isinstance(self.optimizer, MultiSteps)
+        adam = opt["inner"] if accumulating else opt
+        adam = {"count": adam["count"], "mu": self._named(adam["mu"]),
+                "nu": self._named(adam["nu"])}
+        opt_state = {"mini_step": opt["mini_step"], "gradient_step": opt["gradient_step"],
+                     "acc": self._named(opt["acc"]), "inner": adam} if accumulating else adam
+        return {
+            "params": {n: p.detach() for n, p in zip(self.names, self.params)},
+            "constants": dict(self.model.named_buffers()),
+            "ema_params": dict(self.ema),
+            "opt_state": opt_state,
+            "step": self.step,
+        }
+
+    @torch.no_grad()
+    def load_train_state(self, state: Mapping[str, Any]) -> None:
+        """Put a ``train_state()`` back (after ``start``)."""
+        for p, src in zip(self.params, self._ordered(state["params"])):
+            p.copy_(src)
+        for name, buf in self.model.named_buffers():
+            buf.copy_(state["constants"][name])
+        opt = state["opt_state"]
+        accumulating = isinstance(self.optimizer, MultiSteps)
+        if accumulating != ("acc" in opt):
+            raise ValueError(
+                "the saved optimiser state and accumulate_grad_batches="
+                f"{self.accumulate_grad_batches} disagree"
+            )
+        adam = opt["inner"] if accumulating else opt
+        adam = {"count": adam["count"], "mu": self._ordered(adam["mu"]),
+                "nu": self._ordered(adam["nu"])}
+        self.optimizer.load_state_dict({
+            "mini_step": opt["mini_step"], "gradient_step": opt["gradient_step"],
+            "acc": self._ordered(opt["acc"]), "inner": adam} if accumulating else adam)
+        if self.ema_decay > 0.0:
+            if not state["ema_params"]:
+                raise ValueError("the saved state has no EMA, but ema_decay is on")
+            self.ema = {n: state["ema_params"][n].to(self.device).clone() for n in self.names}
+        self.step = int(state["step"])
+
     # -- fit ------------------------------------------------------------------------------
     @staticmethod
-    def epoch_permutation(n: int, batch_size: int, generator: torch.Generator) -> torch.Tensor:
-        """(steps, B) wrap-around permutation covering every sample."""
+    def epoch_permutation(n: int, batch_size: int, generator: torch.Generator,
+                          salt_seed: Optional[int] = None) -> torch.Tensor:
+        """(steps, B) wrap-around permutation covering every sample. With
+        ``salt_seed`` the order is permuted again by a generator of that
+        seed, and ``generator`` advances as it does without it."""
         steps = -(-n // batch_size)
         perm = torch.randperm(n, generator=generator)
+        if salt_seed is not None:
+            perm = perm[torch.randperm(n, generator=torch.Generator().manual_seed(salt_seed))]
         pad = steps * batch_size - n
         if pad:
             perm = torch.cat([perm, perm[:pad]])
@@ -233,14 +329,30 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def fit(self, datamodule: Datamodule) -> list[dict]:
-        """Train for ``max_epochs``; returns the per-epoch metrics."""
+    def _epoch_seed(self, epoch: int, stream_salt: int) -> int:
+        # Each epoch's streams are set by (seed, epoch, salt), so a rewound
+        # epoch under a new salt sees fresh draws, and a resumed run the
+        # draws it would have seen.
+        return self.seed + 1_000_003 * (epoch + 1) + 7_919 * stream_salt
+
+    def fit(self, datamodule: Datamodule, *, resume_from: Optional[Path] = None) -> list[dict]:
+        """Train for ``max_epochs``; returns the per-epoch metrics.
+
+        ``resume_from`` (a ``last`` directory) restores the whole training
+        state and continues at the epoch after the saved one.
+        """
         x_train = datamodule.train_arrays().standardized().to(self.device)
         x_val = datamodule.val_arrays().standardized().to(self.device)
         n, bsz = x_train.shape[0], datamodule.batch_size
         steps_per_epoch = datamodule.steps_per_epoch
-        self.start(steps_per_epoch * self.max_epochs)
+        # The schedule's length counts optimiser updates, not steps.
+        self.start(steps_per_epoch * self.max_epochs // self.accumulate_grad_batches)
         schedule = cosine_warmup_schedule(self.lr_max, self.num_training_steps)
+        start_epoch = 0
+        if resume_from is not None:
+            state, start_epoch = restore_train_state(resume_from)
+            self.load_train_state(state)
+            logger.info("Resumed training state from %s (epoch %d)", resume_from, start_epoch)
 
         host_gen = torch.Generator().manual_seed(self.seed)
         dev_gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -255,14 +367,13 @@ class Trainer:
         snapshots: deque = deque(maxlen=2)
         recent: deque = deque(maxlen=10)
         stream_salt = rollbacks_used = 0
-        epoch = 0
+        epoch = start_epoch
         while epoch < self.max_epochs:
-            # Each epoch's streams are set by (seed, epoch, salt), so a
-            # rewound epoch under a new salt sees fresh draws.
-            epoch_seed = self.seed + 1_000_003 * (epoch + 1) + 7_919 * stream_salt
+            epoch_seed = self._epoch_seed(epoch, stream_salt)
             host_gen.manual_seed(epoch_seed)
             dev_gen.manual_seed(epoch_seed + 1)
-            perm = self.epoch_permutation(n, bsz, host_gen).to(self.device)
+            salt_seed = epoch_seed + 104_729 * self.perm_salt if self.perm_salt else None
+            perm = self.epoch_permutation(n, bsz, host_gen, salt_seed).to(self.device)
             if guard_on:
                 snapshots.append((epoch, self._snapshot()))
             t0 = time.perf_counter()
@@ -302,10 +413,26 @@ class Trainer:
                     stream_salt += 1
                     rewind_epoch, snap = snapshots.popleft()
                     snapshots.clear()
+                    logger.warning(
+                        "loss spike at epoch %d (train/loss=%.4g vs recent median %.4g): "
+                        "rolling back to epoch %d with a perturbed random stream "
+                        "(rollback %d/%d)", epoch, train_loss, statistics.median(recent),
+                        rewind_epoch, rollbacks_used, self.spike_rollback_retries,
+                    )
+                    if self.metrics_writer is not None:
+                        self.metrics_writer.log(
+                            {"rollback_from_epoch": epoch, "rollback_to_epoch": rewind_epoch,
+                             "spike_train_loss": train_loss},
+                            step=int(snap["step"]),
+                        )
                     self._restore(snap)
                     history = [h for h in history if h["epoch"] < rewind_epoch]
                     epoch = rewind_epoch
                     continue
+                logger.warning(
+                    "loss spike at epoch %d persists after %d rollbacks; continuing "
+                    "without intervention", epoch, rollbacks_used,
+                )
             recent.append(train_loss)
             epoch_s = time.perf_counter() - t0
             metrics = {
@@ -321,6 +448,22 @@ class Trainer:
             if stream_salt:
                 metrics["stream_salt"] = stream_salt
             history.append(metrics)
+            if self.metrics_writer is not None:
+                self.metrics_writer.log(metrics, step=self.step)
+            if epoch % 10 == 0 or epoch + 1 == self.max_epochs:
+                logger.info(
+                    "epoch %d: train/loss=%.4f val/loss=%.4f lr=%.2e (%.2fs)",
+                    epoch, train_loss, val_loss, metrics["lr"], epoch_s,
+                )
+            if self.callbacks:
+                params = self.eval_params()
+                constants = dict(self.model.named_buffers())
+                for cb in self.callbacks:
+                    cb(self, epoch, params, constants, metrics)
+            if self.save_last_dir is not None and (
+                epoch % self.save_last_every_n == 0 or epoch + 1 == self.max_epochs
+            ):
+                save_train_state(self.save_last_dir, self.train_state(), epoch)
             epoch += 1
         self.history = history
         return history

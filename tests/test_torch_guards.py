@@ -54,7 +54,14 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 print("imported", len(names) + 2)
+print("modules", " ".join(names))
 """
+
+# Modules the import walk must reach (pkgutil walks only packages with an
+# ``__init__.py``): the entry points and the config, checkpoint and logging
+# utilities.
+WALKED = ("cli.train", "cli.sample", "utils.yamlio", "utils.config", "utils.instantiate",
+          "utils.logging", "utils.profiling", "utils.checkpoint", "training.callbacks")
 
 
 def _env() -> dict[str, str]:
@@ -71,6 +78,9 @@ def test_port_imports_nothing_of_jax() -> None:
     )
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+    walked = proc.stdout.split("modules", 1)[1].split()
+    missing = [m for m in WALKED if f"fourierdiffusion_tpu_torch.{m}" not in walked]
+    assert not missing, f"the import walk missed {missing}"
 
 
 def _source_files() -> list[Path]:
