@@ -162,6 +162,31 @@ Phases, each printed with its seconds as it ends:
    equal phase 16's fp32 scores over its first 1000 exactly; B1 = 1000 x
    10 launches, ``samples.npy`` (1000, 100, 1), the census fields present.
    The seconds of each of (a)-(c).
+18. datasets, MLP and LSTM, in a temporary directory: (a) raw files in each
+   dataset's real format written from seed 0 (``data/raw_formats.py``:
+   headerless MIT-BIH CSVs of 512 and 128 rows, 72 NASDAQ stocks besides a
+   late and a gappy one, 72 droughts counties with the real file's 18
+   feature columns and a weekly ``score``, 40 NASA charge cycles besides
+   one skipped by each rule), then each datamodule's ``prepare_data`` and
+   ``setup``: shapes (N, 187, 1), (N, 252, 5), (N, 251, 4), (N, 365, 13),
+   the series each keeps, finite values, and ``pandas`` never imported;
+   (b) ``fdiff-torch-train datamodule=ecg fourier_transform=true
+   standardize=true`` with the flagship's transformer (fp32, fused) for 2
+   epochs (B3 = B4 = steps x 10, B2 = epochs x validation batches x 4 x 10,
+   all losses finite), then ``fdiff-torch-sample`` on that run, 256
+   samples at K=250 in one batch (B1 = 250 x 10, ``samples.npy`` (256,
+   187, 1)); (c) one fused epoch each on NASDAQ, NASA and droughts (B3/B4
+   at L = 252, 251 and 365 with 5, 4 and 13 channels, the same gates); (d)
+   ``ref-lstm-freq42-e60`` and ``ref-lstm-time42-e60`` in run directories
+   assembled as in phase 17 (c), on the synthetic data of their seed,
+   through ``fdiff-torch-sample`` at their ``run_config.yaml``'s K (250)
+   and seed (42), 5000 samples in one batch: the four W2 means below their
+   ``_dummy`` baselines and within 1.5x of the run's ``results.yaml``, no
+   kernel launched (the LSTM runs on cuDNN); (e) ``fdiff-torch-train
+   score_model=mlp`` on phase 8's synthetic data for 2 epochs and
+   ``fdiff-torch-sample`` with 64 samples at K=100: finite losses and
+   samples, no kernel launched (the JAX package runs no Pallas kernel for
+   the MLP). The seconds of each of (a)-(e).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -191,7 +216,7 @@ import torch.nn.functional as F
 
 from fourierdiffusion_tpu_torch.cli import sample as cli_sample
 from fourierdiffusion_tpu_torch.cli import train as cli_train
-from fourierdiffusion_tpu_torch.data import SyntheticDatamodule
+from fourierdiffusion_tpu_torch.data import DATAMODULE_REGISTRY, SyntheticDatamodule, raw_formats
 from fourierdiffusion_tpu_torch.losses import draw_loss_noise
 from fourierdiffusion_tpu_torch.models import ScoreModelConfig, ScoreTransformer
 from fourierdiffusion_tpu_torch.models import fused as fused_models
@@ -2354,6 +2379,242 @@ def check_cli(quality: dict) -> dict:
     return {"train": trained, "resume": resumed, "sample": sampled}
 
 
+# Phase 18, the dataset-backed datamodules and the MLP and LSTM score
+# networks: raw files in each dataset's real format written from DATA_SEED
+# (data/raw_formats.py) into a temporary directory; (a) each datamodule's
+# prepare_data/setup on them, pandas never imported; (b) the flagship's
+# transformer through fdiff-torch-train on ECG for ECG_EPOCHS epochs and
+# fdiff-torch-sample on that run; (c) one fused epoch each on NASDAQ, NASA
+# (charge) and US droughts; (d) the reference's trained LSTM runs through
+# fdiff-torch-sample, scored over LSTM_SAMPLES samples (far chains decide
+# 1000-sample metrics, as QUALITY_DRAWN says); (e) the MLP trained and
+# sampled through the CLIs, no kernel launched.
+DATA_SEED = 0
+ECG_ROWS = (512, 128)  # MIT-BIH train and test rows; the first of each is read as a header
+NASDAQ_STOCKS = DROUGHTS_COUNTIES = 72  # besides NASDAQ's late and gappy stocks
+NASA_CYCLES = 40  # charge cycles, besides one skipped by each rule
+DATASETS = {"ecg": (187, 1), "nasdaq": (252, 5), "nasa": (251, 4), "usdroughts": (365, 13)}
+DATASET_SERIES = {"ecg": sum(ECG_ROWS) - 2, "nasdaq": NASDAQ_STOCKS,
+                  "nasa": NASA_CYCLES, "usdroughts": DROUGHTS_COUNTIES}
+ECG_EPOCHS, ECG_SAMPLES, ECG_STEPS = 2, 256, 250
+LSTM_RUNS = ("ref-lstm-freq42-e60", "ref-lstm-time42-e60")
+LSTM_SAMPLES = 5000
+MLP_EPOCHS, MLP_SAMPLES, MLP_STEPS = 2, 64, 100
+
+
+def write_raw_data(root: Path) -> None:
+    rng = np.random.default_rng(DATA_SEED)
+    raw_formats.write_mitbih(root, rng, *ECG_ROWS)
+    raw_formats.write_nasdaq(root, rng, NASDAQ_STOCKS)
+    raw_formats.write_droughts(root, rng, DROUGHTS_COUNTIES)
+    skipped = {"ends_at_the_cutoff.csv": np.arange(0.0, 5000.5, 5.0),
+               "gap_above_the_bin.csv": np.concatenate([np.arange(0.0, 2000.0, 5.0),
+                                                        np.arange(2010.5, 5100.0, 5.0)])}
+    raw_formats.write_nasa(root, rng, NASA_CYCLES, "charge", skipped)
+
+
+def check_datasets(root: Path) -> dict:
+    """(a): the raw files, then each datamodule's prepare_data and setup;
+    the shapes, the series kept, finite values, and no pandas."""
+    t0 = time.perf_counter()
+    write_raw_data(root / "data")
+    out = {"write_seconds": time.perf_counter() - t0}
+    failures = []
+    for name, shape in DATASETS.items():
+        t0 = time.perf_counter()
+        dm = DATAMODULE_REGISTRY[name](data_dir=root / "data", random_seed=42,
+                                       fourier_transform=True, standardize=True)
+        dm.prepare_data()
+        dm.setup()
+        seconds = time.perf_counter() - t0
+        sizes = (len(dm.X_train), len(dm.X_test))
+        want = DATASET_SERIES[name]
+        if (tuple(dm.X_train.shape[1:]), tuple(dm.X_test.shape[1:])) != (shape, shape):
+            failures.append(f"{name}: shapes {tuple(dm.X_train.shape)}, {tuple(dm.X_test.shape)}")
+        if sum(sizes) != want:
+            failures.append(f"{name}: {sizes} series, expected {want} in all")
+        if not (torch.isfinite(dm.X_train).all() and torch.isfinite(dm.X_test).all()):
+            failures.append(f"{name}: values not finite")
+        out[name] = {"seconds": seconds, "train": sizes[0], "test": sizes[1],
+                     "shape": list(dm.X_train.shape[1:])}
+        print(f"  (a) {name}: setup {seconds:.3f} s, train {tuple(dm.X_train.shape)}, test "
+              f"{tuple(dm.X_test.shape)}", flush=True)
+    out["pandas_imported"] = "pandas" in sys.modules
+    print(f"  (a) raw files written in {out['write_seconds']:.3f} s; pandas in sys.modules: "
+          f"{out['pandas_imported']}", flush=True)
+    if out["pandas_imported"]:
+        failures.append("pandas was imported")
+    if failures:
+        raise AssertionError("datasets: " + "; ".join(failures))
+    return out
+
+
+def dataset_overrides(root: Path, name: str) -> list[str]:
+    return [f"run_dir={root / 'runs'}", f"datamodule={name}",
+            f"datamodule.data_dir={root / 'data'}", "fourier_transform=true",
+            "standardize=true", "trainer.callbacks.sampling.enabled=false"]
+
+
+def train_with_cli(overrides: list[str], what: str, expected: dict | None = None) -> dict:
+    """fdiff-torch-train with ``overrides``: every epoch's losses finite and,
+    for the fused transformer, B3 = B4 = steps x 10 and B2 = epochs x
+    validation batches x VAL_DRAWS x 10, nothing else (``expected``: the
+    counts when given instead)."""
+    cfg = compose("train", overrides)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stdout = run_cli(cli_train.main, overrides)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    run_id = re.search(r"^run_id=(\S+)$", stdout, re.M).group(1)
+    run_dir = Path(cfg["run_dir"]) / run_id
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [(r["train/loss"], r["val/loss"]) for r in records if "epoch" in r]
+    epochs = int(cfg["trainer"]["max_epochs"])
+    if expected is None:
+        dm = DATAMODULE_REGISTRY[cfg["datamodule"]["name"]](
+            data_dir=cfg["datamodule"]["data_dir"], batch_size=cfg["datamodule"]["batch_size"])
+        dm.setup()
+        steps = epochs * dm.steps_per_epoch
+        val_batches = -(-len(dm.X_test) // dm.batch_size)
+        expected = {k: 0 for k in counts}
+        expected.update({"B3": steps * N_LAYERS, "B4": steps * N_LAYERS,
+                         "B2": epochs * val_batches * VAL_DRAWS * N_LAYERS})
+    print(f"  {what}: fdiff-torch-train {epochs} epoch(s) in {seconds:.3f} s, run_id={run_id}, "
+          f"launches {counts}, losses {losses}", flush=True)
+    failures = []
+    if len(losses) != epochs or not all(math.isfinite(v) for pair in losses for v in pair):
+        failures.append(f"losses {losses}")
+    if counts != expected:
+        failures.append(f"launches {counts}, expected {expected}")
+    if failures:
+        raise AssertionError(f"{what}: " + "; ".join(failures))
+    return {"seconds": seconds, "launches": counts, "losses": losses, "run_id": run_id,
+            "run_dir": str(run_dir)}
+
+
+def sample_with_cli(run_dir: Path, samples: int, steps: int, seed: int, what: str,
+                    expected: dict, shape: tuple) -> dict:
+    """fdiff-torch-sample on ``run_dir`` in one batch: ``samples.npy`` of
+    ``(samples, *shape)``, finite, the launches ``expected``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(cli_sample.main, [f"model_path={run_dir.parent}", f"model_id={run_dir.name}",
+                              f"num_samples={samples}", f"num_diffusion_steps={steps}",
+                              f"sampler.sample_batch_size={samples}", f"random_seed={seed}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    x = np.load(run_dir / "samples.npy")
+    print(f"  {what}: fdiff-torch-sample {samples} samples x {steps} steps in {seconds:.3f} s, "
+          f"launches {counts}, samples.npy {x.shape}", flush=True)
+    failures = []
+    if x.shape != (samples, *shape) or not np.isfinite(x).all():
+        failures.append(f"samples.npy {x.shape}, or not finite")
+    if counts != expected:
+        failures.append(f"launches {counts}, expected {expected}")
+    if failures:
+        raise AssertionError(f"{what}: " + "; ".join(failures))
+    return {"seconds": seconds, "launches": counts,
+            "results": yamlio.load(run_dir / "results.yaml")}
+
+
+def lstm_quality(root: Path) -> dict:
+    """(d): each reference LSTM run's weights in a run directory assembled as
+    phase 17 (c) does, on the synthetic data of its seed, sampled through
+    fdiff-torch-sample at its run_config.yaml's K and seed; the four W2
+    means below their _dummy baselines and within QUALITY_REF_FACTOR of its
+    results.yaml, no kernel launched (the LSTM runs on cuDNN)."""
+    out, failures = {}, []
+    for run in LSTM_RUNS:
+        ref_dir = REPO / "runs_reference" / run
+        ref = yamlio.load(ref_dir / "run_config.yaml")
+        overrides = [f"run_dir={root / 'lstm'}", "score_model=lstm", "datamodule=synthetic",
+                     f"datamodule.data_dir={root / 'data'}",
+                     f"fourier_transform={str(bool(ref['fourier_transform'])).lower()}",
+                     f"random_seed={ref['seed']}"]
+        model = load_reference_state_dict(
+            ScoreModelConfig(model_type="lstm").build(N_CHANNELS, MAX_LEN), ref_dir / "model.pt")
+        run_dir = root / "lstm" / run
+        # The time-domain run recorded no validation loss (.nan); the value
+        # only names the one checkpoint.
+        val_loss = float(ref["best_val_loss"])
+        save_checkpoint(run_dir / "checkpoints", epoch=int(ref["epochs"]) - 1, step=0,
+                        val_loss=val_loss if math.isfinite(val_loss) else 0.0,
+                        params=dict(model.named_parameters()),
+                        constants=dict(model.named_buffers()))
+        save_config(compose("train", overrides), run_dir / "train_config.yaml")
+        sampled = sample_with_cli(run_dir, LSTM_SAMPLES, int(ref["num_diffusion_steps"]),
+                                  int(ref["seed"]), f"(d) {run}",
+                                  {k: 0 for k in read_counts()}, (MAX_LEN, N_CHANNELS))
+        reference = read_scalars(ref_dir / "results.yaml")
+        results = sampled.pop("results")
+        rows = {}
+        for key in QUALITY_KEYS:
+            got, dummy = float(results[key]), float(results[f"{key}_dummy"])
+            rows[key] = {"port": got, "dummy": dummy, "results_yaml": reference[key],
+                         "ratio": got / reference[key]}
+            print(f"  (d) {run} {key}: {got:.6f} (dummy {dummy:.6f}); results.yaml "
+                  f"{reference[key]:.6f}, ratio {got / reference[key]:.4f}", flush=True)
+            if not got < dummy:
+                failures.append(f"{run} {key} {got} not below its dummy {dummy}")
+            if not got <= QUALITY_REF_FACTOR * reference[key]:
+                failures.append(f"{run} {key} {got} above {QUALITY_REF_FACTOR} x the "
+                                f"reference's {reference[key]}")
+        out[run] = {**sampled, "w2": rows,
+                    "census": {k: results.get(k) for k in ("divergence_census_count",
+                                                          "divergence_census_max_absmax")}}
+    if failures:
+        raise AssertionError("lstm quality: " + "; ".join(failures))
+    return out
+
+
+def check_datasets_and_networks() -> dict:
+    """Phase 18: (a)-(e) in a temporary directory; the seconds of each."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = check_datasets(root)
+        seconds = {"a": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        ecg = train_with_cli(dataset_overrides(root, "ecg") + [f"trainer.max_epochs={ECG_EPOCHS}"],
+                             "(b) ecg")
+        ecg_sample = sample_with_cli(
+            Path(ecg["run_dir"]), ECG_SAMPLES, ECG_STEPS, QUALITY_SEED, "(b) ecg",
+            {**{k: 0 for k in read_counts()}, "B1": ECG_STEPS * N_LAYERS}, DATASETS["ecg"])
+        ecg_sample.pop("results")
+        seconds["b"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        fused = {name: train_with_cli(dataset_overrides(root, name) + ["trainer.max_epochs=1"],
+                                      f"(c) {name}")
+                 for name in ("nasdaq", "nasa", "usdroughts")}
+        seconds["c"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        lstm = lstm_quality(root)
+        seconds["d"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        none = {k: 0 for k in read_counts()}
+        mlp = train_with_cli(
+            [f"run_dir={root / 'runs'}", "score_model=mlp", "datamodule=synthetic",
+             f"datamodule.data_dir={root / 'data'}", "fourier_transform=true",
+             "trainer.callbacks.sampling.enabled=false", f"trainer.max_epochs={MLP_EPOCHS}"],
+            "(e) mlp", expected=none)
+        mlp_sample = sample_with_cli(Path(mlp["run_dir"]), MLP_SAMPLES, MLP_STEPS, QUALITY_SEED,
+                                     "(e) mlp", none, (MAX_LEN, N_CHANNELS))
+        mlp_sample.pop("results")
+        seconds["e"] = time.perf_counter() - t0
+    print("  seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in seconds.items()), flush=True)
+    return {"seconds": seconds, "data": data, "ecg_train": ecg, "ecg_sample": ecg_sample,
+            "fused_epoch": fused, "lstm": lstm, "mlp_train": mlp, "mlp_sample": mlp_sample}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2497,6 +2758,10 @@ def main() -> int:
     cli = check_cli(quality)
     phase("17 CLI path", t0)
 
+    t0 = time.perf_counter()
+    datasets = check_datasets_and_networks()
+    phase("18 datasets, MLP and LSTM", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -2626,9 +2891,19 @@ def main() -> int:
                  "fused_encoder_layer_train_fwd": "B3", "fused_encoder_layer_train_bwd": "B4"}
     for k in kernels:
         k["launches_cli"] = cli_counts[cli_names[k["name"]]] if k["name"] in cli_names else 0
+    # The launches of phase 18's dataset paths ((b) ECG, (c) NASDAQ, NASA,
+    # droughts), by dataset.
+    by_dataset = {"ecg": {k: datasets["ecg_train"]["launches"][k]
+                          + datasets["ecg_sample"]["launches"][k]
+                          for k in datasets["ecg_train"]["launches"]},
+                  **{n: r["launches"] for n, r in datasets["fused_epoch"].items()}}
+    for k in kernels:
+        k["launches_datasets"] = {n: c[cli_names[k["name"]]] if k["name"] in cli_names else 0
+                                  for n, c in by_dataset.items()}
     print(f"pc: {json.dumps(pc)}", flush=True)
     print(f"quality: {json.dumps(quality)}", flush=True)
     print(f"cli: {json.dumps(cli)}", flush=True)
+    print(f"datasets: {json.dumps(datasets)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)

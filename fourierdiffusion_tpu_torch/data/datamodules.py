@@ -1,21 +1,29 @@
-"""Datamodules and the DFT/standardise-on-load contract (port of the
-``DiffusionArrays``, ``Datamodule``, ``SyntheticDatamodule`` and
-``DummyDatamodule`` parts of ``fourierdiffusion_tpu/data/datamodules.py``).
+"""Datamodules and the DFT/standardise-on-load contract (port of
+``fourierdiffusion_tpu/data/datamodules.py``).
 
 A split is one CPU tensor; the trainer moves it to its device once and
 draws batches by index. With ``fourier_transform`` the split goes through
 ``dft`` first, and the mean and std (ddof 1) are taken in the diffusion
 domain from a reference split: the validation split uses the training
 statistics, and ``samples_to_data`` turns samples back into the data's
-scale (``feature_mean_and_std``, the training split's) and domain. ``SyntheticDatamodule``
-generates its series with numpy from the seed and caches them as CSV, as
-the JAX package does, so both packages read the same numbers. The ECG, MIMIC-III, NASDAQ, NASA and US-droughts
-datamodules are not ported yet.
+scale (``feature_mean_and_std``, the training split's) and domain.
+
+``SyntheticDatamodule`` generates its series with numpy from the seed and
+caches them as CSV, as the JAX package does, so both packages read the
+same numbers. The dataset-backed datamodules read the raw files where the
+JAX package does, without pandas (``data/csvio.py``,
+``data/preprocessing.py``): ECG (MIT-BIH, L=187), NASDAQ (252 trading
+days, 5 features), NASA batteries (charge: 251 steps, 4 features;
+discharge: 134, 5), US droughts (365 days, 13 features) and MIMIC-III (24
+hours, the ``n_feats`` of highest variance; its HDF5 file needs pandas,
+its cached arrays do not). ``download_data`` fetches nothing: where the
+raw files are absent it names the dataset and the directory to put them in.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from abc import ABC, abstractmethod
 from pathlib import Path
 from typing import Optional
@@ -23,7 +31,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fourierdiffusion_tpu_torch.ops.fourier import dft, idft
+from fourierdiffusion_tpu_torch.data import preprocessing
+from fourierdiffusion_tpu_torch.data.csvio import read_csv
+from fourierdiffusion_tpu_torch.ops.fourier import (
+    dft,
+    idft,
+    localization_metrics,
+    smooth_frequency,
+)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -232,6 +249,230 @@ class SyntheticDatamodule(Datamodule):
         return "synthetic" if self.family == "sine" else f"synthetic_{self.family}"
 
 
+def _kaggle_download(dataset: str, path: Path) -> None:
+    """The port downloads nothing: the raw files go in ``path``."""
+    raise RuntimeError(
+        f"Dataset requires the kaggle API to download {dataset!r}. "
+        f"Install/authenticate kaggle, or place the raw files in {path} manually."
+    )
+
+
+class ECGDatamodule(Datamodule):
+    """MIT-BIH heartbeats (kaggle ``shayanfazeli/heartbeat``): 187-step
+    univariate series and a label column.
+
+    The CSV's first line is read as a header, as ``pd.read_csv`` reads it:
+    the real files have none, so each split loses its first beat, as in the
+    JAX package. ``subsample_localization`` keeps the 1000 series of lowest
+    ``x_loc / x_spec_loc`` (a stable sort); ``smooth_frequency`` smooths
+    both splits' spectra with a Gaussian of ``smoother_width``.
+    """
+
+    def __init__(
+        self,
+        data_dir: Path | str = Path.cwd() / "data",
+        random_seed: int = 42,
+        batch_size: int = 32,
+        fourier_transform: bool = False,
+        standardize: bool = False,
+        subsample_localization: bool = False,
+        smooth_frequency: bool = False,
+        smoother_width: float = 0.0,
+    ) -> None:
+        super().__init__(data_dir, random_seed, batch_size, fourier_transform, standardize)
+        self.subsample_localization = subsample_localization
+        self.smooth_frequency = smooth_frequency
+        self.smoother_width = smoother_width
+
+    @staticmethod
+    def _read(path: Path) -> tuple[torch.Tensor, torch.Tensor]:
+        table = read_csv(path)
+        X = np.stack(table.columns[:187], axis=1).astype(np.float32)
+        y = table.columns[187].astype(np.int64)
+        return torch.from_numpy(X)[:, :, None], torch.from_numpy(y)
+
+    def setup(self, stage: str = "fit") -> None:
+        self.X_train, self.y_train = self._read(self.data_dir / "mitbih_train.csv")
+        self.X_test, self.y_test = self._read(self.data_dir / "mitbih_test.csv")
+
+        if self.subsample_localization:
+            x_loc, x_spec_loc = localization_metrics(self.X_train)
+            idx = torch.argsort(x_loc / x_spec_loc, stable=True)[:1000]
+            self.X_train = self.X_train[idx]
+            self.y_train = self.y_train[idx]
+            x_loc, x_spec_loc = localization_metrics(self.X_train)
+            logger.info("Subsampled by localization: time deloc %.3g, freq deloc %.3g",
+                        float(x_loc.mean()), float(x_spec_loc.mean()))
+
+        if self.smooth_frequency and self.smoother_width > 0.0:
+            self.X_train = smooth_frequency(self.X_train, sigma=self.smoother_width)
+            self.X_test = smooth_frequency(self.X_test, sigma=self.smoother_width)
+            logger.info("Smoothed the frequency domain (sigma=%s)", self.smoother_width)
+
+    def download_data(self) -> None:
+        _kaggle_download("shayanfazeli/heartbeat", self.data_dir)
+
+    @property
+    def dataset_name(self) -> str:
+        return "ecg"
+
+
+class _CachedPreprocessDatamodule(Datamodule):
+    """Runs a one-shot preprocessing pipeline where the cached
+    ``X_train.npy``/``X_test.npy`` are missing, then loads them."""
+
+    cache_subdir: str = ""
+
+    def _cache_dir(self) -> Path:
+        return self.data_dir / self.cache_subdir if self.cache_subdir else self.data_dir
+
+    @abstractmethod
+    def _preprocess(self) -> None: ...
+
+    def setup(self, stage: str = "fit") -> None:
+        cache = self._cache_dir()
+        if not (cache / "X_train.npy").exists() or not (cache / "X_test.npy").exists():
+            logger.info("Cache missing for %s; running preprocessing.", self.dataset_name)
+            self._preprocess()
+        self.X_train = torch.from_numpy(np.load(cache / "X_train.npy"))
+        self.X_test = torch.from_numpy(np.load(cache / "X_test.npy"))
+        self._postprocess()
+
+    def _postprocess(self) -> None:
+        pass
+
+
+class MIMICIIIDatamodule(_CachedPreprocessDatamodule):
+    """MIMIC-III hourly vitals and labs (restricted: the user places
+    MIMIC-Extract's ``all_hourly_data.h5``). Keeps the ``n_feats`` features
+    of highest variance (averaged over time; ties in feature order)."""
+
+    def __init__(
+        self,
+        data_dir: Path | str = Path.cwd() / "data",
+        random_seed: int = 42,
+        batch_size: int = 32,
+        fourier_transform: bool = False,
+        standardize: bool = False,
+        n_feats: int = 40,
+    ) -> None:
+        super().__init__(data_dir, random_seed, batch_size, fourier_transform, standardize)
+        self.n_feats = n_feats
+
+    def _preprocess(self) -> None:
+        preprocessing.mimic_preprocess(data_dir=self.data_dir, random_seed=self.random_seed)
+
+    def _postprocess(self) -> None:
+        std = torch.std(self.X_train, dim=0, correction=1).mean(dim=0)
+        top = torch.argsort(-std, stable=True)[: self.n_feats]
+        self.X_train = self.X_train[:, :, top]
+        self.X_test = self.X_test[:, :, top]
+
+    def download_data(self) -> None:
+        path = self.data_dir / "all_hourly_data.h5"
+        if not path.exists():
+            raise RuntimeError(
+                f"MIMIC-III is restricted; place the MIMIC-Extract "
+                f"'all_hourly_data.h5' at {path} (see "
+                f"https://github.com/MLforHealth/MIMIC_Extract)."
+            )
+
+    @property
+    def dataset_name(self) -> str:
+        return "mimiciii"
+
+
+class NASDAQDatamodule(_CachedPreprocessDatamodule):
+    """2019 daily prices of the NASDAQ stocks that traded every day of it;
+    Volume, the last feature, is dropped (5 features at L=252)."""
+
+    def _preprocess(self) -> None:
+        preprocessing.nasdaq_preprocess(data_dir=self.data_dir, random_seed=self.random_seed)
+
+    def _postprocess(self) -> None:
+        if not tuple(self.X_train.shape[1:]) == tuple(self.X_test.shape[1:]) == (252, 6):
+            raise ValueError(f"NASDAQ splits of shapes {tuple(self.X_train.shape)}, "
+                             f"{tuple(self.X_test.shape)}; expected (*, 252, 6)")
+        self.X_train = self.X_train[:, :, :-1]
+        self.X_test = self.X_test[:, :, :-1]
+
+    def download_data(self) -> None:
+        _kaggle_download("jacksoncrow/stock-market-dataset", self.data_dir)
+
+    @property
+    def dataset_name(self) -> str:
+        return "nasdaq"
+
+
+class NASADatamodule(_CachedPreprocessDatamodule):
+    """NASA battery cycles, ``subdataset`` charge or discharge. Charge with
+    ``remove_outlier_feature``: every second step (251) and features
+    [0, 1, 3, 4]."""
+
+    def __init__(
+        self,
+        data_dir: Path | str = Path.cwd() / "data",
+        random_seed: int = 42,
+        batch_size: int = 32,
+        fourier_transform: bool = False,
+        standardize: bool = False,
+        subdataset: str = "charge",
+        remove_outlier_feature: bool = True,
+    ) -> None:
+        super().__init__(data_dir, random_seed, batch_size, fourier_transform, standardize)
+        if subdataset not in ("charge", "discharge"):
+            raise ValueError(f"subdataset must be 'charge' or 'discharge', not {subdataset!r}")
+        self.subdataset = subdataset
+        self.remove_outlier_feature = remove_outlier_feature
+        self.cache_subdir = subdataset
+
+    def _preprocess(self) -> None:
+        preprocessing.nasa_preprocess(
+            data_dir=self.data_dir, subdataset=self.subdataset, random_seed=self.random_seed
+        )
+
+    def _postprocess(self) -> None:
+        if self.remove_outlier_feature and self.subdataset == "charge":
+            keep = torch.tensor([0, 1, 3, 4])
+            self.X_train = self.X_train[:, ::2, :][:, :, keep]
+            self.X_test = self.X_test[:, ::2, :][:, :, keep]
+            if not tuple(self.X_train.shape[1:]) == tuple(self.X_test.shape[1:]) == (251, 4):
+                raise ValueError(f"NASA charge splits of shapes {tuple(self.X_train.shape)}, "
+                                 f"{tuple(self.X_test.shape)}; expected (*, 251, 4)")
+
+    def download_data(self) -> None:
+        _kaggle_download("patrickfleith/nasa-battery-dataset", self.data_dir)
+
+    @property
+    def dataset_name(self) -> str:
+        return "nasa"
+
+
+class USDroughtsDatamodule(_CachedPreprocessDatamodule):
+    """One year of daily meteorological series per county; features {4, 5,
+    6, 7, 9} of the sorted order (T2MDEW, T2MWET, T2M_MAX, T2M_MIN, TS: the
+    ones that follow T2M) are dropped."""
+
+    def _preprocess(self) -> None:
+        preprocessing.droughts_preprocess(data_dir=self.data_dir, random_seed=self.random_seed)
+
+    def _postprocess(self) -> None:
+        keep = torch.tensor([i for i in range(self.X_train.shape[2])
+                             if i not in {4, 5, 6, 7, 9}])
+        self.X_train = self.X_train[:, :, keep]
+        self.X_test = self.X_test[:, :, keep]
+        if self.X_train.shape[1] % 365 or self.X_test.shape[1] % 365:
+            raise ValueError(f"droughts series of length {self.X_train.shape[1]}, "
+                             "not a multiple of 365")
+
+    def download_data(self) -> None:
+        _kaggle_download("cdminix/us-drought-meteorological-data", self.data_dir)
+
+    @property
+    def dataset_name(self) -> str:
+        return "droughts"
+
+
 class DummyDatamodule(Datamodule):
     """Seeded Gaussian data for tests: ``10 * batch_size`` series per split.
 
@@ -270,10 +511,27 @@ class DummyDatamodule(Datamodule):
         return "dummy"
 
 
+DATAMODULE_REGISTRY: dict[str, type[Datamodule]] = {
+    "ecg": ECGDatamodule,
+    "synthetic": SyntheticDatamodule,
+    "mimiciii": MIMICIIIDatamodule,
+    "nasdaq": NASDAQDatamodule,
+    "nasa": NASADatamodule,
+    "usdroughts": USDroughtsDatamodule,
+    "dummy": DummyDatamodule,
+}
+
+
 __all__ = [
+    "DATAMODULE_REGISTRY",
     "Datamodule",
     "DiffusionArrays",
     "DummyDatamodule",
+    "ECGDatamodule",
+    "MIMICIIIDatamodule",
+    "NASADatamodule",
+    "NASDAQDatamodule",
     "SyntheticDatamodule",
+    "USDroughtsDatamodule",
     "make_diffusion_arrays",
 ]

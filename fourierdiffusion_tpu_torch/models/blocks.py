@@ -1,9 +1,12 @@
-"""Embedding and encoding blocks (port of
-``fourierdiffusion_tpu/models/blocks.py``).
+"""Embedding, encoding and MLP blocks (port of
+``fourierdiffusion_tpu/models/blocks.py`` and of ``_MLPBlock`` in
+``fourierdiffusion_tpu/models/score_models.py``).
 
 Parameters are stored in fp32 under the reference PyTorch state-dict
 names and cast to the input's dtype at use, so a bf16 input runs bf16
-products with fp32 master weights.
+products with fp32 master weights. ``dropout`` is flax's ``nn.Dropout``
+drawing from a ``torch.Generator`` passed in, which every dropout of the
+score networks uses.
 """
 
 from __future__ import annotations
@@ -33,6 +36,40 @@ def max_norm_renorm(embedding: torch.Tensor, max_norm: float) -> torch.Tensor:
     norms = torch.linalg.vector_norm(embedding, dim=-1, keepdim=True)
     scale = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     return embedding * scale.detach()
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``x / (1 - rate)`` where a Bernoulli(1 - rate)
+    draw from ``generator`` keeps, else 0."""
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
+
+
+class MLPBlock(nn.Sequential):
+    """torchvision ``MLP(d_model, [d_mlp, d_model], dropout=rate)``: Linear,
+    ReLU, Dropout, Linear, Dropout, no final activation, so its state-dict
+    names are ``0.*`` and ``3.*``. In training mode at a rate above 0 both
+    dropouts draw from the ``generator`` passed to ``forward`` (``dropout``
+    above, not ``nn.Dropout``'s global stream); eval mode draws nothing."""
+
+    def __init__(self, d_model: int, d_mlp: int, dropout_rate: float = 0.1) -> None:
+        super().__init__(TorchLinear(d_model, d_mlp), nn.ReLU(), nn.Dropout(dropout_rate),
+                         TorchLinear(d_mlp, d_model), nn.Dropout(dropout_rate))
+        self.dropout_rate = dropout_rate
+
+    def forward(  # type: ignore[override]
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        drop = self.training and self.dropout_rate > 0.0
+        h = torch.relu(self[0](x))
+        if drop:
+            h = dropout(h, self.dropout_rate, generator)
+        h = self[3](h)
+        if drop:
+            h = dropout(h, self.dropout_rate, generator)
+        return h
 
 
 class PositionalEncoding(nn.Module):
@@ -75,7 +112,9 @@ class GaussianFourierProjection(nn.Module):
 
 __all__ = [
     "GaussianFourierProjection",
+    "MLPBlock",
     "PositionalEncoding",
     "TorchLinear",
+    "dropout",
     "max_norm_renorm",
 ]

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fourierdiffusion_tpu_torch.models.attention import MultiHeadSelfAttention
-from fourierdiffusion_tpu_torch.models.blocks import TorchLinear
+from fourierdiffusion_tpu_torch.models.blocks import TorchLinear, dropout
 
 LN_EPS = 1e-5
 
@@ -30,15 +30,6 @@ LN_EPS = 1e-5
 def layer_norm_fp32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with fp32 statistics and fp32 output."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
-
-
-def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
-) -> torch.Tensor:
-    """flax ``nn.Dropout``: ``x / (1 - rate)`` where a Bernoulli(1 - rate)
-    draw from ``generator`` keeps, else 0."""
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -10,7 +10,8 @@ Methods: ``em`` (Euler–Maruyama), ``ode`` (probability flow) and ``pc``
 each time). For a ``ScoreTransformer`` on CUDA the fused forward (one
 kernel launch per encoder layer and score evaluation; B1, or the int8
 kernels B7/B8 under ``FDIFF_FUSED_INT8``) is selected automatically, as
-the JAX sampler selects its Pallas path on the TPU. ``DiffusionSampler``
+the JAX sampler selects its Pallas path on the TPU; a ``ScoreMLP`` or
+``ScoreLSTM`` runs its own forward, as in JAX. ``DiffusionSampler``
 has JAX's divergence guard (``divergence_threshold``). The K steps run as
 a Python loop; capturing them in a CUDA graph is not ported yet.
 """
@@ -27,7 +28,7 @@ from fourierdiffusion_tpu_torch.models.fused import (
     fused_score_forward,
     pack_score_transformer,
 )
-from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
+from fourierdiffusion_tpu_torch.models.score_models import ScoreNetwork, ScoreTransformer
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
 
 METHODS = ("em", "ode", "pc")
@@ -127,7 +128,7 @@ def reverse_diffusion(
     return x
 
 
-def _score_fn(model: ScoreTransformer, fused: bool) -> ScoreFn:
+def _score_fn(model: ScoreNetwork, fused: bool) -> ScoreFn:
     if not fused:
         return model
     packed = pack_score_transformer(model)
@@ -135,7 +136,7 @@ def _score_fn(model: ScoreTransformer, fused: bool) -> ScoreFn:
 
 
 def make_sample_fn(
-    model: ScoreTransformer,
+    model: ScoreNetwork,
     scheduler: SDE,
     *,
     num_diffusion_steps: int,
@@ -196,7 +197,7 @@ class DiffusionSampler:
 
     def __init__(
         self,
-        model: ScoreTransformer,
+        model: ScoreNetwork,
         scheduler: SDE,
         *,
         max_len: int,

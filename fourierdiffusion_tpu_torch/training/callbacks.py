@@ -24,7 +24,7 @@ import logging
 import torch
 
 from fourierdiffusion_tpu_torch.data.datamodules import Datamodule
-from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
+from fourierdiffusion_tpu_torch.models.score_models import ScoreNetwork
 from fourierdiffusion_tpu_torch.sampling.metrics import (
     MarginalWasserstein,
     MetricCollection,
@@ -39,7 +39,7 @@ logger = logging.getLogger(__name__)
 class SamplingCallback:
     def __init__(
         self,
-        model: ScoreTransformer,
+        model: ScoreNetwork,
         scheduler: SDE,
         datamodule: Datamodule,
         *,

@@ -1,20 +1,23 @@
 """Training loop (port of ``fourierdiffusion_tpu/training/trainer.py``).
 
-``Trainer.fit(datamodule)`` trains a ``ScoreTransformer`` in place:
+``Trainer.fit(datamodule)`` trains a score network (``ScoreTransformer``,
+``ScoreMLP`` or ``ScoreLSTM``) in place:
 
 * each epoch draws a wrap-around permutation of the training split
   (``ceil(n / B)`` steps of ``B`` series);
 * each step draws ``t`` and ``z``, takes the DSM loss through the score
   network in training mode, clips the gradient to global norm
   ``gradient_clip_val`` and applies AdamW with the warmup-cosine schedule
-  (``training/optim.py``), then the EMA. The score network runs one of two
-  paths, chosen as JAX's ``_use_fused_train`` does from
+  (``training/optim.py``), then the EMA. A ``ScoreTransformer`` runs one
+  of two paths, chosen as JAX's ``_use_fused_train`` does from
   ``FDIFF_FUSED_TRAIN``: unset or ``1``, the fused path
   (``fused_score_training_forward``, one dropout seed per layer drawn per
   step; on the card every layer runs the training kernels B3 forward and
   B4 backward); ``0``, the unfused path (the module's own forward in
   training mode, drawing its dropout from the step's generator; on the
-  card its attention runs B6 forward and backward, or B2 and B5 at rate 0);
+  card its attention runs B6 forward and backward, or B2 and B5 at rate 0).
+  The MLP and LSTM, which have no fused layer, always take the unfused
+  path (the MLP's dropouts draw from the step's generator; no kernel);
 * after each epoch the validation loss is the mean over ``val_noise_draws``
   fixed draws of ``(t, z)``, drawn once per ``fit`` and reused every epoch,
   of the loss over the batches ``arange(ceil(n / B) * B) % n``, computed by
@@ -27,8 +30,10 @@
   perturbed random stream, at most ``spike_rollback_retries`` times;
 * each epoch's ``steps_per_sec`` is its steps over the seconds from the
   start of the epoch through validation and the guard, as in JAX;
-  ``train_seconds`` and ``val_seconds`` are the two parts;
-* after each epoch its record goes to ``metrics_writer`` (rollbacks too),
+  ``train_seconds`` and ``val_seconds``, the two parts, stay in the
+  history ``fit`` returns;
+* after each epoch its record goes to ``metrics_writer`` with the JAX
+  trainer's keys (rollbacks too),
   the ``callbacks`` are called with the eval weights, and the full training
   state is written to ``save_last_dir/last`` every ``save_last_every_n``
   epochs and at the final one; ``fit(resume_from=<last dir>)`` continues
@@ -44,8 +49,7 @@ through ``loss_and_grads``/``train_step``. Each epoch's streams are set by
 ``(seed, epoch, stream salt)`` and the validation draws by ``seed`` alone,
 so a run resumed from ``last`` continues bit for bit as the uninterrupted
 run would have (on the CPU; on the card as far as its kernels repeat). The
-device mesh, bf16 training and the MLP and LSTM score networks are not
-ported.
+device mesh and bf16 training are not ported.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ from fourierdiffusion_tpu_torch.data.datamodules import Datamodule
 from fourierdiffusion_tpu_torch.losses import draw_loss_noise, sde_loss
 from fourierdiffusion_tpu_torch.models.attention import SEED_MAX
 from fourierdiffusion_tpu_torch.models.fused import fused_score_training_forward
-from fourierdiffusion_tpu_torch.models.score_models import ScoreTransformer
+from fourierdiffusion_tpu_torch.models.score_models import ScoreNetwork, ScoreTransformer
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
 from fourierdiffusion_tpu_torch.training.optim import (
     MultiSteps,
@@ -78,6 +82,10 @@ from fourierdiffusion_tpu_torch.utils.checkpoint import restore_train_state, sav
 
 logger = logging.getLogger(__name__)
 
+# Epoch-record keys the JAX trainer does not write: kept in ``fit``'s
+# history, left out of the metrics writer's records.
+HISTORY_ONLY = ("train_seconds", "val_seconds")
+
 
 def use_fused_train() -> bool:
     """The fused training path unless ``FDIFF_FUSED_TRAIN=0`` (JAX's
@@ -86,7 +94,7 @@ def use_fused_train() -> bool:
 
 
 class Trainer:
-    """Fits a ``ScoreTransformer`` (moved to ``device``) on a datamodule.
+    """Fits a score network (moved to ``device``) on a datamodule.
 
     ``plain=True`` runs the plain PyTorch versions instead of the kernels,
     with the same seeds, masks and draws: a check of the kernels on the card
@@ -100,7 +108,7 @@ class Trainer:
 
     def __init__(
         self,
-        model: ScoreTransformer,
+        model: ScoreNetwork,
         scheduler: SDE,
         *,
         max_epochs: int = 200,
@@ -121,8 +129,6 @@ class Trainer:
         device: str | torch.device = "cuda",
         plain: bool = False,
     ) -> None:
-        if not isinstance(model, ScoreTransformer):
-            raise ValueError(f"only ScoreTransformer is ported, not {type(model).__name__}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.scheduler = scheduler
@@ -151,6 +157,11 @@ class Trainer:
         self.history: list[dict] = []
 
     # -- one step ---------------------------------------------------------------
+    def fused(self) -> bool:
+        """Whether steps take the fused path: a ``ScoreTransformer`` unless
+        ``FDIFF_FUSED_TRAIN=0``."""
+        return use_fused_train() and isinstance(self.model, ScoreTransformer)
+
     def start(self, num_training_steps: int) -> None:
         """Fresh optimiser state, EMA and step count for a run of this length."""
         self.num_training_steps = num_training_steps
@@ -172,7 +183,7 @@ class Trainer:
         """DSM loss of one batch in training mode: on the fused path with one
         dropout seed per layer (``layer_seeds``), on the unfused path with
         the dropout drawn from ``generator`` (on the model's device)."""
-        if use_fused_train():
+        if self.fused():
             if layer_seeds is None:
                 raise ValueError("the fused training path needs layer_seeds")
 
@@ -378,7 +389,7 @@ class Trainer:
                 snapshots.append((epoch, self._snapshot()))
             t0 = time.perf_counter()
             losses = []
-            fused = use_fused_train()
+            fused = self.fused()
             for idx in perm:
                 x = x_train[idx]
                 t, z = draw_loss_noise(self.scheduler, x, dev_gen)
@@ -449,7 +460,8 @@ class Trainer:
                 metrics["stream_salt"] = stream_salt
             history.append(metrics)
             if self.metrics_writer is not None:
-                self.metrics_writer.log(metrics, step=self.step)
+                self.metrics_writer.log(
+                    {k: v for k, v in metrics.items() if k not in HISTORY_ONLY}, step=self.step)
             if epoch % 10 == 0 or epoch + 1 == self.max_epochs:
                 logger.info(
                     "epoch %d: train/loss=%.4f val/loss=%.4f lr=%.2e (%.2fs)",

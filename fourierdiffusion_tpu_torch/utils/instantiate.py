@@ -1,27 +1,10 @@
-"""Config -> object builders (port of ``fourierdiffusion_tpu/utils/instantiate.py``).
-
-``build_datamodule`` knows the datamodules the port has (``synthetic`` and
-``dummy``); the dataset-backed ones are ROADMAP.md queue A item 6.
-``build_model_config`` builds the transformer score network only; the MLP
-and LSTM are queue A item 7.
-"""
+"""Config -> object builders (port of ``fourierdiffusion_tpu/utils/instantiate.py``)."""
 
 from __future__ import annotations
 
-from fourierdiffusion_tpu_torch.data.datamodules import (
-    Datamodule,
-    DummyDatamodule,
-    SyntheticDatamodule,
-)
+from fourierdiffusion_tpu_torch.data.datamodules import DATAMODULE_REGISTRY, Datamodule
 from fourierdiffusion_tpu_torch.models import ScoreModelConfig
 from fourierdiffusion_tpu_torch.schedulers import SDE, VEScheduler, VPScheduler
-
-DATAMODULE_REGISTRY: dict[str, type[Datamodule]] = {
-    "synthetic": SyntheticDatamodule,
-    "dummy": DummyDatamodule,
-}
-# The JAX package's other datamodules, which read datasets from files.
-NOT_PORTED_DATAMODULES = ("ecg", "mimiciii", "nasa", "nasdaq", "usdroughts")
 
 
 def build_scheduler(cfg: dict) -> SDE:
@@ -48,17 +31,13 @@ def build_model_config(cfg: dict) -> ScoreModelConfig:
     """``cfg`` is the ``score_model`` node. ``use_pallas`` selects the JAX
     package's Pallas kernels; it means nothing here (the port picks its
     kernels by device) and is ignored."""
-    if cfg["model_type"] != "transformer":
-        raise ValueError(
-            f"model_type {cfg['model_type']!r} is not ported yet (ROADMAP.md queue A "
-            "item 7: ScoreMLP and ScoreLSTM); only 'transformer' is"
-        )
     return ScoreModelConfig(
         model_type=cfg["model_type"],
         d_model=int(cfg.get("d_model", 72)),
         num_layers=int(cfg.get("num_layers", 10)),
         n_head=int(cfg.get("n_head", 12)),
         dim_feedforward=int(cfg.get("dim_feedforward", 2048)),
+        d_mlp=int(cfg.get("d_mlp", 1024)),
         dropout_rate=float(cfg.get("dropout_rate", 0.1)),
         dtype=str(cfg.get("dtype", "float32")),
     )
@@ -67,15 +46,7 @@ def build_model_config(cfg: dict) -> ScoreModelConfig:
 def build_datamodule(cfg: dict) -> Datamodule:
     """``cfg`` is the ``datamodule`` node."""
     cfg = dict(cfg)
-    name = cfg.pop("name")
-    if name not in DATAMODULE_REGISTRY:
-        where = (" (ROADMAP.md queue A item 6: the dataset-backed datamodules)"
-                 if name in NOT_PORTED_DATAMODULES else "")
-        raise ValueError(
-            f"datamodule {name!r} is not ported yet{where}; the port has "
-            f"{sorted(DATAMODULE_REGISTRY)}"
-        )
-    return DATAMODULE_REGISTRY[name](**cfg)
+    return DATAMODULE_REGISTRY[cfg.pop("name")](**cfg)
 
 
 __all__ = [

@@ -9,7 +9,8 @@ and writes ``<dir>/<run_id>/`` as ``fourierdiffusion_tpu_torch`` writes a
 run (``fourierdiffusion_tpu_torch/utils/checkpoint.py``):
 
 * ``checkpoints/epoch=*/model.pt``: the weights as the port's state dict
-  (``utils/weights.state_dict_from_jax``), and ``metadata.json`` copied;
+  (``utils/weights.state_dict_from_jax``: a transformer, MLP or LSTM run),
+  and ``metadata.json`` copied;
 * ``checkpoints/last/train_state.pt``: ``params``, ``constants``,
   ``ema_params``, the AdamW ``mu``/``nu``/``count`` (and, for a run with
   gradient accumulation, ``optax.MultiSteps``' accumulator and counters)
@@ -42,7 +43,10 @@ import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fourierdiffusion_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
+from fourierdiffusion_tpu_torch.utils.weights import (  # noqa: E402
+    num_layers_of,
+    state_dict_from_jax,
+)
 
 
 def restore_on_cpu(path: Path) -> dict:
@@ -57,10 +61,6 @@ def restore_on_cpu(path: Path) -> dict:
         )
         restored = ckptr.restore(path, target)
     return jax.tree_util.tree_map(np.asarray, restored)
-
-
-def num_layers(params: dict) -> int:
-    return sum(1 for k in params["backbone"] if k.startswith("layers_"))
 
 
 def named(tree: dict, layers: int) -> dict[str, torch.Tensor]:
@@ -112,14 +112,14 @@ def convert_run(run_dir: Path, out_root: Path) -> Path:
         variables = restore_on_cpu(ckpt)
         dst = out / "checkpoints" / ckpt.name
         dst.mkdir(exist_ok=True)
-        torch.save(state_dict_from_jax(variables, num_layers(variables["params"])),
+        torch.save(state_dict_from_jax(variables, num_layers_of(variables["params"])),
                    dst / "model.pt")
         shutil.copy2(ckpt / "metadata.json", dst / "metadata.json")
         print(f"converted {ckpt.name}", flush=True)
     last = run_dir / "checkpoints" / "last"
     if last.exists():
         state = restore_on_cpu(last)
-        layers = num_layers(state["params"])
+        layers = num_layers_of(state["params"])
         ema = state.get("ema_params")
         train_state = {
             "params": named(state["params"], layers),

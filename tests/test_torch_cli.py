@@ -10,9 +10,10 @@ at a small size (d_model 16, 1 layer, 2 heads, L=20).
   ``last`` bit for bit;
 * the initial weights come from ``trainer.init_seed``, or else
   ``random_seed``, and the trainer's draws from ``random_seed`` alone;
-* ``checkpoint=last``, the noise-scaling assert, and a clear error for what
-  the port does not have yet (``datamodule=ecg``, ``score_model=mlp``) and
-  for a CUDA device where there is none.
+* ``datamodule=ecg`` (on MIT-BIH files the test writes) and
+  ``score_model=mlp``/``lstm`` train;
+* ``checkpoint=last``, the noise-scaling assert, and a clear error for a
+  CUDA device where there is none.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import yaml
 
 from fourierdiffusion_tpu_torch.cli import sample as cli_sample
 from fourierdiffusion_tpu_torch.cli import train as cli_train
+from fourierdiffusion_tpu_torch.data.raw_formats import write_mitbih
 from fourierdiffusion_tpu_torch.utils import yamlio
 from fourierdiffusion_tpu_torch.utils.config import compose
 from fourierdiffusion_tpu_torch.utils.instantiate import build_model_config
@@ -171,12 +173,37 @@ def test_noise_scaling_needs_the_fourier_transform(tmp_path: Path) -> None:
         cli_train.main(overrides)
 
 
-@pytest.mark.parametrize("override,item", [("datamodule=ecg", "item 6"),
-                                           ("score_model=mlp", "item 7"),
-                                           ("score_model=lstm", "item 7")])
-def test_not_ported_options_raise_clearly(tmp_path: Path, override: str, item: str) -> None:
-    with pytest.raises(ValueError, match=item):
-        cli_train.main(_overrides(tmp_path, "dummy", False) + [override])
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the LSTM's many small per-step operations slow
+    down by an order of magnitude when the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("override", ["datamodule=ecg", "score_model=mlp", "score_model=lstm"])
+def test_dataset_and_network_options_train(tmp_path: Path, capsys, one_thread,
+                                           override: str) -> None:
+    """Options the CLI once refused: ECG (on MIT-BIH files written here) and
+    the MLP and LSTM score networks each train through ``fdiff-torch-train``."""
+    data = "dummy"
+    if override == "datamodule=ecg":
+        write_mitbih(tmp_path / "data", np.random.default_rng(0), 40, 24)
+        data = "ecg"
+    argv = [o for o in _overrides(tmp_path, "dummy", False) if not o.startswith("datamodule")]
+    argv += DATA.get(data, ["datamodule=ecg", "datamodule.batch_size=16"])
+    argv += [f"datamodule.data_dir={tmp_path / 'data'}", override, "score_model.d_mlp=32"]
+    run_id = _train(capsys, argv)
+    run = tmp_path / "runs" / run_id
+    group, option = override.split("=")
+    saved = yamlio.load(run / "train_config.yaml")[group]
+    assert saved["name" if group == "datamodule" else "model_type"] == option
+    epochs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in epochs if "epoch" in r]
+    assert [r["epoch"] for r in epochs] == [0, 1]
+    assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["val/loss"]) for r in epochs)
 
 
 def test_default_device_raises_without_cuda(tmp_path: Path) -> None:

@@ -10,6 +10,8 @@ PyYAML and the JAX package's ``utils/config.py``, on the CPU.
 * ``compose`` equals JAX's ``compose`` on every ``score_model`` x
   ``datamodule`` x ``noise_scheduler`` option and on dotted overrides; the
   comparison leaves out only ``device``, which the port's roots add.
+* Every ``datamodule`` and ``score_model`` option builds (``utils/instantiate.py``)
+  the class the JAX package's builders build, with the same settings.
 * The writer's output reads back equal to the value through ``yaml.safe_load``
   and through the port's reader (hypothesis over nested dicts of scalars
   and float lists).
@@ -28,7 +30,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from fourierdiffusion_tpu.utils import config as jax_config
-from fourierdiffusion_tpu_torch.utils import config, yamlio
+from fourierdiffusion_tpu.utils import instantiate as jax_instantiate
+from fourierdiffusion_tpu_torch.utils import config, instantiate, yamlio
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CONFIGS = REPO / "fourierdiffusion_tpu" / "configs"
@@ -135,6 +138,27 @@ def test_compose_equals_jax(score_model: str, datamodule: str, scheduler: str) -
     port = config.compose("train", overrides)
     assert port["device"] == "cuda"
     assert same(_drop_device(port), jax_config.compose("train", overrides))
+
+
+@pytest.mark.parametrize("datamodule", _DATAMODULES)
+def test_every_datamodule_option_builds_its_jax_twin(datamodule: str, tmp_path: Path) -> None:
+    overrides = [f"datamodule={datamodule}", f"datamodule.data_dir={tmp_path}"]
+    port = instantiate.build_datamodule(config.compose("train", overrides)["datamodule"])
+    ref = jax_instantiate.build_datamodule(jax_config.compose("train", overrides)["datamodule"])
+    assert type(port).__name__ == type(ref).__name__
+    settings = {k: v for k, v in vars(ref).items() if not k.startswith(("X_", "y_"))}
+    assert settings == {k: v for k, v in vars(port).items() if k in settings}
+    assert not tmp_path.exists() or not any(tmp_path.iterdir())  # built, nothing read
+
+
+@pytest.mark.parametrize("score_model", _SCORE_MODELS)
+def test_every_score_model_option_builds_its_jax_twin(score_model: str) -> None:
+    overrides = [f"score_model={score_model}"]
+    port = instantiate.build_model_config(config.compose("train", overrides)["score_model"])
+    ref = jax_instantiate.build_model_config(jax_config.compose("train", overrides)["score_model"])
+    assert {k: v for k, v in vars(ref).items() if k != "use_pallas"} == vars(port)
+    network = port.build(n_channels=2, max_len=12, seed=0)
+    assert type(network).__name__ == type(ref.build(n_channels=2, max_len=12)).__name__
 
 
 DOTTED = [

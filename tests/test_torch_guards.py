@@ -1,8 +1,10 @@
 """Guards of the PyTorch/CUDA port.
 
 * The port and ``chip_smoke.py`` import no JAX, flax, optax, orbax, YAML,
-  omegaconf or ``fourierdiffusion_tpu`` module: the machine with the card
-  has none of them.
+  omegaconf, pandas or ``fourierdiffusion_tpu`` module: the machine with
+  the card has none of them. The one exception is pandas inside
+  ``data/preprocessing.py::mimic_preprocess``, which reads MIMIC-III's
+  HDF5 file (and needs PyTables besides).
 * ``chip_smoke.py`` fails, and prints no result, where CUDA is absent.
 * A CPU tensor never reaches a kernel, and the public sampler's and the
   trainer's default device is CUDA, which they do not trade for the CPU.
@@ -33,8 +35,10 @@ from fourierdiffusion_tpu_torch.training import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "fourierdiffusion_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "omegaconf",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "omegaconf", "pandas",
              "fourierdiffusion_tpu")
+# The one function of the port that may import pandas, inside its body.
+PANDAS_EXCEPTION = ("preprocessing.py", "mimic_preprocess")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, pkgutil, sys
@@ -58,10 +62,11 @@ print("modules", " ".join(names))
 """
 
 # Modules the import walk must reach (pkgutil walks only packages with an
-# ``__init__.py``): the entry points and the config, checkpoint and logging
-# utilities.
+# ``__init__.py``): the entry points, the config, checkpoint and logging
+# utilities, and the dataset readers and the LSTM layer.
 WALKED = ("cli.train", "cli.sample", "utils.yamlio", "utils.config", "utils.instantiate",
-          "utils.logging", "utils.profiling", "utils.checkpoint", "training.callbacks")
+          "utils.logging", "utils.profiling", "utils.checkpoint", "training.callbacks",
+          "data.csvio", "data.preprocessing", "data.raw_formats", "models.lstm")
 
 
 def _env() -> dict[str, str]:
@@ -87,20 +92,39 @@ def _source_files() -> list[Path]:
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+def _imports(path: Path) -> list[tuple[str, int, str | None]]:
+    """Every module ``path`` imports: (name, line, the function whose body
+    holds the import, or None at module level)."""
+    out = []
+
+    def visit(node: ast.AST, function: str | None) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((a.name, child.lineno, function) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                out.append((child.module or "", child.lineno, function))
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                else function
+            visit(child, inner)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), None)
+    return out
+
+
 @pytest.mark.parametrize("path", _source_files(), ids=lambda p: p.name)
 def test_sources_name_no_forbidden_module(path: Path) -> None:
     """Also catches imports inside functions, which an import run misses."""
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
+    for name, line, function in _imports(path):
+        root = name.split(".")[0]
+        if root == "pandas" and (path.name, function) == PANDAS_EXCEPTION:
             continue
-        for name in names:
-            root = name.split(".")[0]
-            assert root not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
+        assert root not in FORBIDDEN, f"{path.name}:{line} imports {name}"
+
+
+def test_pandas_is_imported_only_by_mimic_preprocess() -> None:
+    found = [(p.name, function) for p in _source_files() for name, _, function in _imports(p)
+             if name.split(".")[0] == "pandas"]
+    assert found == [PANDAS_EXCEPTION]
 
 
 def test_chip_smoke_fails_without_cuda() -> None:

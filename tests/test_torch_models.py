@@ -134,7 +134,16 @@ def test_attention_matches_jax() -> None:
     np.testing.assert_allclose(ours, ref, **FP32)
 
 
-@pytest.mark.parametrize("model_type", ["mlp", "lstm"])
-def test_unported_model_types_raise(model_type: str) -> None:
-    with pytest.raises(ValueError, match="not ported"):
-        ScoreModelConfig(model_type=model_type).build(1, 19)
+@pytest.mark.parametrize("model_type,names", [
+    ("mlp", ("backbone.0.0.weight", "backbone.0.3.bias", "backbone.1.0.bias")),
+    ("lstm", ("backbone.0.weight_ih_l0", "backbone.1.bias_hh_l0")),
+])
+def test_mlp_and_lstm_build_under_reference_names(model_type: str, names: tuple) -> None:
+    model = ScoreModelConfig(model_type=model_type, num_layers=2).build(2, 19, seed=0)
+    state = model.state_dict()
+    assert set(names) <= set(state)
+    assert {"embedder.weight", "unembedder.bias", "time_encoder.W",
+            "time_encoder.dense.weight"} <= set(state)
+    assert not any(k.startswith("pos_encoder") for k in state)
+    out = model(torch.randn(3, 19, 2), torch.rand(3))
+    assert out.shape == (3, 19, 2) and torch.isfinite(out).all()
