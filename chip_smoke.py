@@ -187,6 +187,30 @@ Phases, each printed with its seconds as it ends:
    ``fdiff-torch-sample`` with 64 samples at K=100: finite losses and
    samples, no kernel launched (the JAX package runs no Pallas kernel for
    the MLP). The seconds of each of (a)-(e).
+19. data-parallel training and sharded sampling (``parallel/``), every
+   library built by phase 2 before any rank starts, so that ranks only load
+   them: (a) NCCL at world size 1 on ``cuda:0``, in this process: one
+   epoch of phase 8's configuration through the mesh code path (draws cut
+   to the rank's rows, the gradients' all-reduce, the reduced losses)
+   equal bit for bit to the same epoch without a mesh; (b) two ranks that
+   share the card over gloo (NCCL refuses two ranks on one device; gloo
+   takes CUDA tensors), phase 8's configuration, 32 chains each: the first
+   step's all-reduced gradients against phase 7's first kernel step to
+   GRAD_TOL (FFN ReLU gates that flipped between the two runs located and
+   matched, as in phase 7), the first 3 losses to LOSS_TOL (their layer
+   seeds through ``Trainer.draw_layer_seeds``, as ``fit`` draws them), then
+   phase 8's 2 epochs of ``Trainer.fit`` (both ranks' weights and EMA bit for bit after every
+   epoch, the losses against phase 8's to DP_EPOCH_LOSS_TOL, and per rank
+   B3 = B4 = steps x 10, B2 = 2 x 16 x 4 x 10 for the sharded validation);
+   (c) in the same two ranks, phase 4's fp32 sampler on
+   ``ref-freq42-e200`` from phase 4's generator, 32 chains split 16 + 16,
+   K=1000 (B1 = 10,000 per rank), gathered: against phase 4's samples,
+   printed as bit for bit or not (then finite), and a 20-step run against
+   one process to TRAJ_TOL; (d) ``dryrun_multichip(2)`` on the card over
+   gloo; (e) NCCL across cards with phase 8's configuration, only where
+   two cards are present (printed as not run otherwise). Any rank's
+   failure or time limit fails the phase; the seconds of each part and
+   each rank's launches are printed.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -229,6 +253,9 @@ from fourierdiffusion_tpu_torch.ops import _build, fourier
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
+from fourierdiffusion_tpu_torch.parallel import distributed, make_mesh
+from fourierdiffusion_tpu_torch.parallel.dryrun import dryrun_multichip
+from fourierdiffusion_tpu_torch.parallel.launch import free_port, run_ranks
 from fourierdiffusion_tpu_torch.sampling import (
     DiffusionSampler,
     MarginalWasserstein,
@@ -497,6 +524,23 @@ CROSS_RESULTS = WEIGHTS.parent / "results_cross_our_sampler.yaml"
 PROFILE_PAD_S = 0.005
 PROFILE_ATTEMPTS = 3
 PROFILE_PRIMES = 8
+
+
+# Phase 19: two ranks, each spawn of them within DP_TIMEOUT seconds (the
+# collectives' own time limit too).
+DP_RANKS, DP_TIMEOUT = 2, 240
+# The 2 epochs' losses of two ranks against phase 8's one process. Both draw
+# the same batches, t, z and masks; they part only in the gradients' fp32
+# sums (B4 sums 32 chains per rank and the all-reduce adds the two halves,
+# where phase 8's B4 sums 64), by ~1e-6 of a gradient per step. AdamW
+# divides each entry by its own RMS, so an entry whose gradient is rounding
+# noise (the attention's key bias, zero in exact arithmetic) takes steps of
+# up to the learning rate that differ between the two; at a small size on
+# the CPU the same run's losses agree to 1e-7 (tests/test_torch_parallel.py).
+# 1e-3 relative leaves room for 32 such steps. The masks, draws and shards
+# themselves are held tighter, by the first 3 steps' losses at LOSS_TOL
+# (their seeds shifted by Trainer.draw_layer_seeds, as in fit).
+DP_EPOCH_LOSS_TOL = 1e-3
 
 
 def phase(name: str, t0: float) -> None:
@@ -1192,13 +1236,13 @@ def flagship_model(dtype: str = "float32", rate: float = DROPOUT) -> ScoreTransf
 
 
 def flagship_trainer(plain: bool = False, rate: float = DROPOUT,
-                     epochs: int = TRAIN_EPOCHS) -> Trainer:
+                     epochs: int = TRAIN_EPOCHS, mesh=None) -> Trainer:
     model = flagship_model(rate=rate)
     return Trainer(
         model, VPScheduler(fourier_noise_scaling=True), max_epochs=epochs,
         lr_max=1e-3, gradient_clip_val=1.0, ema_decay=0.999, spike_rollback_factor=2.5,
         spike_rollback_retries=2, val_noise_draws=VAL_DRAWS, seed=42, device="cuda",
-        plain=plain,
+        plain=plain, mesh=mesh,
     )
 
 
@@ -1212,12 +1256,15 @@ def synthetic_data(root: str) -> SyntheticDatamodule:
     return dm
 
 
+STEP_SEED = 5  # draw_steps' streams
+
+
 def draw_steps(dm: SyntheticDatamodule, n: int) -> list[tuple]:
     """``n`` train steps' inputs from a seed: a batch, its ``t`` and ``z``
     and one dropout seed per layer."""
     x_all = dm.train_arrays().standardized().to("cuda")
-    g = torch.Generator(device="cuda").manual_seed(5)
-    seeds = torch.Generator().manual_seed(5)
+    g = torch.Generator(device="cuda").manual_seed(STEP_SEED)
+    seeds = torch.Generator().manual_seed(STEP_SEED)
     steps = []
     for _ in range(n):
         idx = torch.randperm(x_all.shape[0], generator=g, device="cuda")[:TRAIN_BATCH]
@@ -2615,6 +2662,282 @@ def check_datasets_and_networks() -> dict:
             "fused_epoch": fused, "lstm": lstm, "mlp_train": mlp, "mlp_sample": mlp_sample}
 
 
+def trained_state(trainer: Trainer) -> dict:
+    return {**{f"params/{n}": p.detach() for n, p in zip(trainer.names, trainer.params)},
+            **{f"ema/{n}": e for n, e in trainer.ema.items()}}
+
+
+def replicas_checked(trainer: Trainer, epoch: int, params, constants, metrics) -> None:
+    """Epoch callback: every rank's weights and EMA bit for bit rank 0's."""
+    distributed.assert_replicated_equal(trained_state(trainer), f"epoch {epoch}")
+
+
+def dp_training(mesh, dm: SyntheticDatamodule) -> dict:
+    """Part (b) on this rank: phase 7's first 3 kernel steps on this rank's
+    rows, their layer seeds drawn anew from ``draw_steps``' stream through
+    ``Trainer.draw_layer_seeds`` (the draw and shift ``fit`` makes), then
+    phase 8's fit."""
+    rows = mesh.rows(TRAIN_BATCH)
+    trainer = flagship_trainer(mesh=mesh)
+    trainer.start(dm.steps_per_epoch * TRAIN_EPOCHS)
+    layer_seeds = torch.Generator().manual_seed(STEP_SEED)
+    steps = []
+    for x, t, z, _ in draw_steps(dm, CHECK_STEPS):
+        x, t, z = x[rows], t[rows], z[rows]
+        steps.append((x, t, z, trainer.draw_layer_seeds(layer_seeds, len(x))))
+    gates = {}
+    with kernel_gates(gates):
+        grads = distributed.all_reduce_mean(trainer.loss_and_grads(*steps[0])[1])
+    losses = [distributed.all_reduce_mean([trainer.train_step(*step).reshape(1)])[0].item()
+              for step in steps]
+    trainer = flagship_trainer(mesh=mesh)
+    trainer.callbacks = (replicas_checked,)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(dm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"grads0": [g.cpu() for g in grads], "gates0": [gates[s].cpu() for s in steps[0][3]],
+            "losses3": losses, "seconds": seconds,
+            "launches": read_counts(), "losses": [(h["train/loss"], h["val/loss"]) for h in history],
+            "state": {k: v.cpu() for k, v in trained_state(trainer).items()}}
+
+
+def dp_sampling(mesh) -> dict:
+    """Part (c) on this rank: phase 4's fp32 run with its chains split over
+    the ranks, from phase 4's generator (its 2-step warm-up first), and a
+    20-step run from seed 7."""
+    sampler = DiffusionSampler(
+        load_flagship(torch.float32, "cuda"), VPScheduler(fourier_noise_scaling=True),
+        max_len=MAX_LEN, n_channels=N_CHANNELS, sample_batch_size=SAMPLE_CHAINS, method="em",
+        mesh=mesh,
+    )
+    g = torch.Generator(device="cuda").manual_seed(42)
+    sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=2, generator=g)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=SAMPLE_STEPS, generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    short = sampler.sample(SAMPLE_CHAINS, num_diffusion_steps=TRAJ_STEPS,
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    return {"samples": out.cpu(), "short": short.cpu(), "seconds": seconds,
+            "launches": launches}
+
+
+def rank_main(root: str, backend: str) -> int:
+    """One rank of phase 19 (b) and (c), or of (e) with NCCL: started by
+    ``run_ranks`` as ``chip_smoke.py --rank <dir> <backend>``; writes its
+    results to ``<dir>/rank<r>-<backend>.pt``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo: every rank on the one card; NCCL: rank r on cuda:r.
+    distributed.maybe_initialize_distributed(
+        device="cuda:0" if backend == "gloo" else None, backend=backend)
+    mesh = make_mesh()
+    dm = synthetic_data(str(Path(root) / "data"))
+    result = {"b": dp_training(mesh, dm)}
+    if backend == "gloo":
+        result["c"] = dp_sampling(mesh)
+    torch.save(result, Path(root) / f"rank{mesh.rank}-{backend}.pt")
+    print(f"rank {mesh.rank} of {mesh.world_size} ({backend}) done", flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def spawn_ranks(root: Path, backend: str) -> list[dict]:
+    run_ranks([sys.executable, str(REPO / "chip_smoke.py"), "--rank", str(root), backend],
+              DP_RANKS, timeout=DP_TIMEOUT)
+    return [torch.load(root / f"rank{r}-{backend}.pt") for r in range(DP_RANKS)]
+
+
+def nccl_world_one(dm: SyntheticDatamodule) -> dict:
+    """Part (a): NCCL at world size 1 in this process, one epoch of phase
+    8's configuration with and without the mesh, bit for bit."""
+    with environ("FDIFF_COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}"), \
+            environ("FDIFF_NUM_PROCESSES", "1"), environ("FDIFF_PROCESS_ID", "0"):
+        distributed.maybe_initialize_distributed()
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"(a): backend {backend}, not nccl")
+        runs = {}
+        for name, mesh in (("mesh", make_mesh()), ("no mesh", None)):
+            trainer = flagship_trainer(epochs=1, mesh=mesh)
+            reset_counts()
+            history = trainer.fit(dm)
+            runs[name] = ([(h["train/loss"], h["val/loss"]) for h in history],
+                          trained_state(trainer), read_counts())
+    finally:
+        distributed.shutdown()
+    (losses, state, counts), (ref_losses, ref_state, ref_counts) = runs["mesh"], runs["no mesh"]
+    differ = [k for k in ref_state if not torch.equal(state[k], ref_state[k])]
+    print(f"  (a) NCCL, world size 1: losses {losses} (no mesh {ref_losses}); tensors that "
+          f"differ: {differ}; launches {counts}", flush=True)
+    if differ or losses != ref_losses or counts != ref_counts:
+        raise AssertionError(f"(a): the mesh path at world size 1 is not the one-process run: "
+                             f"{differ}, {losses} vs {ref_losses}, {counts} vs {ref_counts}")
+    return {"backend": backend, "losses": losses, "launches": counts}
+
+
+def check_training_ranks(ranks: list[dict], dm: SyntheticDatamodule, training: dict,
+                         what: str) -> dict:
+    """Parts (b) and (e) against phase 7's first steps and phase 8's fit.
+
+    The first step's gradients are held to GRAD_TOL as phase 7 holds the
+    kernel's: against the one-process kernel step or, where an FFN ReLU gate
+    opened in one run and stayed shut in the other (B3 sums a row's products
+    in another order over 32 chains than over 64), against the plain path
+    with the ranks' gates; each such flip is located and must lie within
+    GATE_BAND x sum |terms| of 0."""
+    n_steps = dm.steps_per_epoch * TRAIN_EPOCHS
+    reference = flagship_trainer()
+    reference.start(n_steps)
+    steps = draw_steps(dm, CHECK_STEPS)
+    ref_gates, record = {}, {}
+    with kernel_gates(ref_gates):
+        ref_grads = reference.loss_and_grads(*steps[0])[1]
+    ref_losses = [reference.train_step(*step).item() for step in steps]
+    b = [r["b"] for r in ranks]
+    differ = [k for k in b[0]["state"] if not torch.equal(b[0]["state"][k], b[1]["state"][k])]
+    seeds = steps[0][3]
+    gates = {s: torch.cat([r["gates0"][i] for r in b]).cuda() for i, s in enumerate(seeds)}
+    flips = {s: gates[s] != ref_gates[s] for s in seeds}
+    located = int(sum(int(f.sum()) for f in flips.values()))
+    matched_grads = ref_grads
+    if located:
+        matched = flagship_trainer(plain=True)
+        matched.start(n_steps)
+        with plain_gates(record, gates):
+            matched_grads = matched.loss_and_grads(*steps[0])[1]
+        far = sum(int(((pre.abs() > GATE_BAND * terms) & flips[s]).sum())
+                  for s, (pre, terms, _, _) in record.items())
+        if far:
+            raise AssertionError(f"{what}: {far} ReLU gates flipped away from 0")
+    del gates, flips, record
+    rel = {name: (rel_err(g.cuda(), r), rel_err(g.cuda(), m)) for name, g, r, m in
+           zip(reference.names, b[0]["grads0"], ref_grads, matched_grads)}
+    bad = {k: v for k, v in rel.items() if not (v[0] <= GRAD_TOL or (located and v[1] <= GRAD_TOL))}
+    grad_err = max(v[0] for v in rel.values())
+    worst = max(rel, key=lambda k: rel[k][0])
+    loss_err = max(abs(a - r) / abs(r) for a, r in zip(b[0]["losses3"], ref_losses))
+    epoch_err = max(abs(a - r) / abs(r) for got, want in zip(b[0]["losses"], training["losses"])
+                    for a, r in zip(got, want))
+    expected = {"B3": n_steps * N_LAYERS, "B4": n_steps * N_LAYERS,
+                "B2": TRAIN_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH) * VAL_DRAWS * N_LAYERS}
+    print(f"  {what}: first-step gradients against phase 7's kernel step {grad_err:.3e} "
+          f"({worst}; against the plain path with the ranks' gates {rel[worst][1]:.3e}; "
+          f"tol {GRAD_TOL:.0e}; ReLU gates flipped between the runs: {located}); 3 losses {b[0]['losses3']} against {ref_losses}: {loss_err:.3e} "
+          f"(tol {LOSS_TOL:.0e}); 2 epochs {b[0]['losses']} against phase 8's "
+          f"{training['losses']}: {epoch_err:.3e} (tol {DP_EPOCH_LOSS_TOL:.0e}); replicas "
+          f"differ in {differ}; fit {[round(r['seconds'], 3) for r in b]} s; launches "
+          + "; ".join(f"rank {i} {r['launches']}" for i, r in enumerate(b)), flush=True)
+    if differ or any(r["losses"] != b[0]["losses"] for r in b):
+        raise AssertionError(f"{what}: the ranks disagree: {differ}")
+    if bad or not (loss_err <= LOSS_TOL and epoch_err <= DP_EPOCH_LOSS_TOL):
+        raise AssertionError(f"{what}: gradients {bad}, losses {loss_err}, {epoch_err}")
+    for i, r in enumerate(b):
+        wrong = {k: (r["launches"][k], n) for k, n in expected.items() if r["launches"][k] != n}
+        if wrong or r["launches"]["B1"]:
+            raise AssertionError(f"{what}: rank {i} launches {r['launches']}")
+    return {"grad_rel_err": grad_err, "grad_rel_err_gate_matched": max(v[1] for v in rel.values()),
+            "gate_flips": located, "loss_rel_err": loss_err, "epoch_loss_rel_err": epoch_err,
+            "losses": b[0]["losses"], "fit_seconds": [r["seconds"] for r in b],
+            "launches": [r["launches"] for r in b]}
+
+
+def check_sampling_ranks(ranks: list[dict], main_samples: torch.Tensor) -> dict:
+    """Part (c) against phase 4's samples and a one-process 20-step run."""
+    c = [r["c"] for r in ranks]
+    one = DiffusionSampler(
+        load_flagship(torch.float32, "cuda"), VPScheduler(fourier_noise_scaling=True),
+        max_len=MAX_LEN, n_channels=N_CHANNELS, sample_batch_size=SAMPLE_CHAINS, method="em",
+    ).sample(SAMPLE_CHAINS, num_diffusion_steps=TRAJ_STEPS,
+             generator=torch.Generator(device="cuda").manual_seed(7)).cpu()
+    samples = c[0]["samples"]
+    bitwise = torch.equal(samples, main_samples.cpu())
+    # Which part of a step depends on the batch: chains 0-15 of one fp32
+    # score evaluation and one B1 call at 32 chains against the same chains
+    # evaluated alone.
+    model = load_flagship(torch.float32, "cuda")
+    packed = pack_score_transformer(model)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((SAMPLE_CHAINS, MAX_LEN, N_CHANNELS), generator=g, device="cuda")
+    t = torch.rand(SAMPLE_CHAINS, generator=g, device="cuda")
+    h = torch.randn((SAMPLE_CHAINS, MAX_LEN, 72), generator=g, device="cuda")
+    half = SAMPLE_CHAINS // 2
+    layer = packed["layers"][0]
+    by_batch = {
+        "score": (fused_score_forward(model, packed, x, t)[:half]
+                  - fused_score_forward(model, packed, x[:half], t[:half])).abs().max().item(),
+        "B1 layer": (fe.fused_encoder_layer(h, layer, n_head=N_HEAD)[:half]
+                     - fe.fused_encoder_layer(h[:half].contiguous(), layer, n_head=N_HEAD)
+                     ).abs().max().item(),
+    }
+    diff = (samples - main_samples.cpu()).abs().max().item()
+    traj = (c[0]["short"] - one).abs().max().item()
+    holds = ("bit for bit: B1's per-chain result does not depend on the batch" if bitwise else
+             f"not bit for bit (max |difference| {diff:.3e}): the 20-step run decides")
+    print(f"  (c) 32 chains as 16 + 16, K={SAMPLE_STEPS}, against phase 4's: {holds}; chains "
+          f"0-15 at 32 chains against alone, max |difference|: {json.dumps(by_batch)}; 20 steps "
+          f"against one process {traj:.3e} (tol {TRAJ_TOL:.0e}); seconds "
+          f"{[round(r['seconds'], 3) for r in c]}; launches "
+          + "; ".join(f"rank {i} {r['launches']}" for i, r in enumerate(c)), flush=True)
+    if not all(torch.equal(r["samples"], samples) and torch.equal(r["short"], c[0]["short"])
+               for r in c):
+        raise AssertionError("(c): the ranks gathered different samples")
+    if tuple(samples.shape) != (SAMPLE_CHAINS, MAX_LEN, N_CHANNELS) or not bool(
+            torch.isfinite(samples).all()):
+        raise AssertionError(f"(c): samples {tuple(samples.shape)}, finite "
+                             f"{bool(torch.isfinite(samples).all())}")
+    if not traj <= TRAJ_TOL:
+        raise AssertionError(f"(c): the 20-step runs part by {traj}")
+    for i, r in enumerate(c):
+        if r["launches"]["B1"] != SAMPLE_STEPS * N_LAYERS:
+            raise AssertionError(f"(c): rank {i} launches {r['launches']}")
+    return {"bit_for_bit": bitwise, "max_abs_diff": diff, "traj_20_max_abs_diff": traj,
+            "half_batch_vs_whole": by_batch,
+            "seconds": [r["seconds"] for r in c], "launches": [r["launches"] for r in c]}
+
+
+def check_data_parallel(main_samples: torch.Tensor, training: dict) -> dict:
+    """Phase 19 (a)-(e)."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        dm = synthetic_data(str(root / "data"))
+        t0 = time.perf_counter()
+        out["a"] = nccl_world_one(dm)
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(root, "gloo")
+        seconds["b+c spawn"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = check_training_ranks(ranks, dm, training, "(b) 2 ranks over gloo")
+        out["c"] = check_sampling_ranks(ranks, main_samples)
+        seconds["b+c checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dryrun = dryrun_multichip(DP_RANKS, device="cuda:0", backend="gloo", timeout=DP_TIMEOUT)
+        seconds["d"] = time.perf_counter() - t0
+        print("  (d) " + " | ".join(o.strip().splitlines()[-1] for o in dryrun), flush=True)
+        if torch.cuda.device_count() >= DP_RANKS:
+            t0 = time.perf_counter()
+            out["e"] = check_training_ranks(spawn_ranks(root, "nccl"), dm, training,
+                                            "(e) NCCL across cards")
+            seconds["e"] = time.perf_counter() - t0
+        else:
+            print(f"  (e) NCCL across cards: not run, {torch.cuda.device_count()} CUDA device",
+                  flush=True)
+    print(f"  seconds: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}", flush=True)
+    return {**out, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2762,6 +3085,10 @@ def main() -> int:
     datasets = check_datasets_and_networks()
     phase("18 datasets, MLP and LSTM", t0)
 
+    t0 = time.perf_counter()
+    parallel = check_data_parallel(main[torch.float32]["samples"], training)
+    phase("19 data-parallel training and sharded sampling", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -2900,10 +3227,21 @@ def main() -> int:
     for k in kernels:
         k["launches_datasets"] = {n: c[cli_names[k["name"]]] if k["name"] in cli_names else 0
                                   for n, c in by_dataset.items()}
+    # Phase 19's launches on each rank: (b)'s fit and (c)'s sampling run.
+    mesh_names = {**cli_names, "flash_attention_bwd": "B5", "flash_attention_dropout_fwd":
+                  "B6-fwd", "flash_attention_dropout_bwd": "B6-bwd",
+                  "fused_encoder_layer_int8/bfloat16": "B7",
+                  "fused_encoder_layer_int8_attn/bfloat16": "B8"}
+    for k in kernels:
+        k["launches_mesh"] = {
+            f"rank {i}": b[mesh_names[k["name"]]] + c[mesh_names[k["name"]]]
+            if k["name"] in mesh_names else 0
+            for i, (b, c) in enumerate(zip(parallel["b"]["launches"], parallel["c"]["launches"]))}
     print(f"pc: {json.dumps(pc)}", flush=True)
     print(f"quality: {json.dumps(quality)}", flush=True)
     print(f"cli: {json.dumps(cli)}", flush=True)
     print(f"datasets: {json.dumps(datasets)}", flush=True)
+    print(f"parallel: {json.dumps(parallel)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)
@@ -2917,4 +3255,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(*sys.argv[2:4]) if sys.argv[1:2] == ["--rank"] else main())

@@ -15,6 +15,10 @@ them with the metric collection (baselines and spectral density as the
 ``metrics`` group says) and the divergent-chain census, and writes
 ``sample_config.yaml``, ``results.yaml`` and ``samples.npy`` into the run
 directory. It runs on ``device`` (``cuda`` unless the config says ``cpu``).
+
+Several ranks (launched as for ``fdiff-torch-train``) split the chains of
+each batch between them when ``sampler.sample_batch_size`` divides over
+them, and the primary rank writes the files.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import numpy as np
 import torch
 
 from fourierdiffusion_tpu_torch import resolve_device
+from fourierdiffusion_tpu_torch.cli.train import init_distributed
+from fourierdiffusion_tpu_torch.parallel import auto_data_mesh, distributed
 from fourierdiffusion_tpu_torch.sampling.metrics import (
     MarginalWasserstein,
     MetricCollection,
@@ -67,11 +73,12 @@ class SamplingRunner:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
         logger.info("Sampling config:\n%s", dict_to_str(cfg))
         self.cfg = cfg
-        self.device = resolve_device(cfg.get("device", "cuda"))
+        self.device = distributed.rank_device() or resolve_device(cfg.get("device", "cuda"))
         self.save_dir = Path(cfg["model_path"]) / str(cfg["model_id"])
         if not self.save_dir.exists():
             raise FileNotFoundError(f"Run directory {self.save_dir} not found")
-        save_config(cfg, self.save_dir / "sample_config.yaml")
+        if distributed.is_primary():
+            save_config(cfg, self.save_dir / "sample_config.yaml")
 
         train_cfg = load_config(self.save_dir / "train_config.yaml")
         self.datamodule = build_datamodule(train_cfg["datamodule"])
@@ -102,12 +109,13 @@ class SamplingRunner:
         self.model.load_state_dict(state)
 
         s_cfg = cfg["sampler"]
+        batch = int(s_cfg["sample_batch_size"])
         self.sampler = DiffusionSampler(
             self.model,
             self.scheduler,
             max_len=params["max_len"],
             n_channels=params["n_channels"],
-            sample_batch_size=int(s_cfg["sample_batch_size"]),
+            sample_batch_size=batch,
             method=str(s_cfg.get("method", "em")),
             corrector_steps=int(s_cfg.get("corrector_steps", 1)),
             snr=float(s_cfg.get("snr", 0.16)),
@@ -115,6 +123,7 @@ class SamplingRunner:
             divergence_threshold=_optional_float(s_cfg.get("divergence_threshold")),
             max_resample_retries=int(s_cfg.get("max_resample_retries", 2)),
             device=self.device,
+            mesh=auto_data_mesh(batch),
         )
 
         seed = int(cfg.get("random_seed", 42))
@@ -139,8 +148,8 @@ class SamplingRunner:
         self.random_seed = seed
 
     def sample(self) -> dict:
-        """Sample, score, write ``results.yaml`` and ``samples.npy``; returns
-        the results."""
+        """Sample, score, write ``results.yaml`` and ``samples.npy`` (the
+        primary rank); returns the results (on every rank)."""
         generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         with trace_if_enabled("sample"):
             x = self.sampler.sample(
@@ -180,9 +189,10 @@ class SamplingRunner:
         printable = {k: v for k, v in results.items() if not isinstance(v, list)}
         logger.info("Metrics:\n%s", dict_to_str(printable))
 
-        logger.info("Saving samples and metrics to %s", self.save_dir)
-        yamlio.dump(dict(sorted(results.items())), self.save_dir / "results.yaml")
-        np.save(self.save_dir / "samples.npy", samples)
+        if distributed.is_primary():
+            logger.info("Saving samples and metrics to %s", self.save_dir)
+            yamlio.dump(dict(sorted(results.items())), self.save_dir / "results.yaml")
+            np.save(self.save_dir / "samples.npy", samples)
         return results
 
 
@@ -191,6 +201,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     cfg = compose("sample", overrides)
     if cfg.get("model_id") in (None, "???"):
         raise SystemExit("model_id=<run_id> is required")
+    init_distributed(cfg)
     SamplingRunner(cfg).sample()
 
 

@@ -15,18 +15,28 @@ implies the Fourier transform, and fits with the best checkpoint, the
 continues from its ``last`` state. The initial weights are drawn from
 ``trainer.init_seed``, or else ``random_seed``, which alone sets the
 trainer's draws. Everything runs on
-``device`` (``cuda`` unless the config says ``cpu``). One device: the
-multi-GPU path is ROADMAP.md queue A item 9. It prints ``run_id=<id>``.
+``device`` (``cuda`` unless the config says ``cpu``). It prints
+``run_id=<id>``.
+
+Several ranks (``torchrun --nproc-per-node=N -m
+fourierdiffusion_tpu_torch.cli.train ...``, or the ``FDIFF_*`` variables of
+``parallel/distributed.py``) train one run data-parallel, each rank on its
+card (``device: cuda`` becomes ``cuda:LOCAL_RANK``), when the batch divides
+over them (else each trains the whole batch). They agree on the run id
+without talking (``FDIFF_RUN_ID``, else ``mh-<seed>``; no wandb), and the
+primary rank writes the run directory, its config, metrics and checkpoints.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from pathlib import Path
 from typing import Any, Optional
 
 from fourierdiffusion_tpu_torch import resolve_device
+from fourierdiffusion_tpu_torch.parallel import auto_data_mesh, distributed
 from fourierdiffusion_tpu_torch.training.callbacks import SamplingCallback
 from fourierdiffusion_tpu_torch.training.trainer import Trainer
 from fourierdiffusion_tpu_torch.utils.checkpoint import BestCheckpointCallback
@@ -56,16 +66,23 @@ class TrainingRunner:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
         logger.info("Training config:\n%s", dict_to_str(cfg))
         self.cfg = cfg
-        self.device = resolve_device(cfg.get("device", "cuda"))
+        self.device = distributed.rank_device() or resolve_device(cfg.get("device", "cuda"))
+        primary = distributed.is_primary()
+        seed = int(cfg.get("random_seed", 42))
 
         wandb_writer = None
         if run_id is None:
-            wandb_writer, run_id = maybe_initialize_wandb(cfg)
+            if distributed.world_size() > 1:
+                # Every rank derives the same id; wandb stays off.
+                run_id = os.environ.get("FDIFF_RUN_ID", f"mh-{seed:06d}")
+            else:
+                wandb_writer, run_id = maybe_initialize_wandb(cfg)
         self.run_id = run_id
         self.run_dir = Path(cfg.get("run_dir", "runs")) / run_id
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        save_config(cfg, self.run_dir / "train_config.yaml")
-        logger.info("Run directory: %s", self.run_dir)
+        if primary:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            save_config(cfg, self.run_dir / "train_config.yaml")
+            logger.info("Run directory: %s", self.run_dir)
 
         self.datamodule = build_datamodule(cfg["datamodule"])
         self.datamodule.prepare_data()
@@ -74,7 +91,6 @@ class TrainingRunner:
         self.scheduler = build_scheduler(cfg["score_model"]["noise_scheduler"])
         params = self.datamodule.dataset_parameters
         trainer_cfg = cfg["trainer"]
-        seed = int(cfg.get("random_seed", 42))
         # trainer.init_seed changes only the initial weights.
         init_seed = trainer_cfg.get("init_seed")
         self.model = build_model_config(cfg["score_model"]).build(
@@ -82,7 +98,10 @@ class TrainingRunner:
             seed=seed if init_seed is None else int(init_seed),
         )
 
-        writer = MultiWriter(JsonlWriter(self.run_dir), wandb_writer)
+        mesh = auto_data_mesh(self.datamodule.batch_size)
+        if mesh is not None:
+            logger.info("Data-parallel over %d ranks", mesh.size)
+        writer = MultiWriter(JsonlWriter(self.run_dir), wandb_writer) if primary else None
         max_epochs = int(trainer_cfg["max_epochs"])
         callbacks: list = [BestCheckpointCallback(self.run_dir / "checkpoints")]
         sampling_cfg = trainer_cfg.get("callbacks", {}).get("sampling", {})
@@ -100,6 +119,7 @@ class TrainingRunner:
                     random_seed=seed,
                     metrics_writer=writer,
                     device=self.device,
+                    mesh=mesh,
                 )
             )
 
@@ -122,6 +142,7 @@ class TrainingRunner:
             accumulate_grad_batches=int(trainer_cfg.get("accumulate_grad_batches", 1)),
             perm_salt=int(trainer_cfg.get("perm_salt", 0)),
             device=self.device,
+            mesh=mesh,
         )
 
     def train(self, resume_from: Optional[Path] = None) -> Any:
@@ -133,6 +154,14 @@ class TrainingRunner:
         ), "You cannot use noise scaling without the Fourier transform."
         with trace_if_enabled("train"):
             return self.trainer.fit(self.datamodule, resume_from=resume_from)
+
+
+def init_distributed(cfg: dict) -> bool:
+    """Join the process group the environment describes, before anything
+    touches a device: ``device: cuda`` puts each rank on its own card, any
+    other value on that device."""
+    device = str(cfg.get("device", "cuda"))
+    return distributed.maybe_initialize_distributed(device=None if device == "cuda" else device)
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -150,11 +179,14 @@ def main(argv: Optional[list[str]] = None) -> None:
             if ov.startswith("run_dir="):
                 run_dir_root = ov.split("=", 1)[1]
         cfg = load_config(Path(run_dir_root) / resume_id / "train_config.yaml")
+        init_distributed(cfg)
         runner = TrainingRunner(cfg, run_id=resume_id)
         last = runner.run_dir / "checkpoints" / "last"
         runner.train(resume_from=last if last.exists() else None)
     else:
-        runner = TrainingRunner(compose("train", overrides))
+        cfg = compose("train", overrides)
+        init_distributed(cfg)
+        runner = TrainingRunner(cfg)
         runner.train()
     print(f"run_id={runner.run_id}")
 

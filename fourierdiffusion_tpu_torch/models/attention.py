@@ -11,7 +11,8 @@ with Pallas, with "on CUDA" in place of "on TPU":
 * training with a rate above 0 -> ``flash_attention_dropout``, the kernels
   B6 with the mask regenerated in the backward, keyed by a seed drawn per
   call in ``[0, 2**31 - 1)`` from the caller's ``generator`` on the
-  activations' device, as the JAX module draws it from its dropout rng;
+  activations' device, as the JAX module draws it from its dropout rng
+  (under a data mesh made for this rank's chains, ``draw_seed``);
 * on CPU tensors, and with ``plain=True`` on any device (the card's check
   of the kernels), the plain versions, differentiated by autograd:
   ``dot_product_attention`` (the JAX module's route off the TPU) and
@@ -29,6 +30,7 @@ from torch import nn
 
 from fourierdiffusion_tpu_torch.models.blocks import TorchLinear
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
+from fourierdiffusion_tpu_torch.parallel.mesh import Stream, batch_seed
 
 SEED_MAX = 2**31 - 1  # dropout seeds are drawn from [0, SEED_MAX), as in JAX
 
@@ -44,9 +46,11 @@ def dot_product_attention(
     return out.to(v.dtype)
 
 
-def draw_seed(generator: torch.Generator | None, device: torch.device) -> torch.Tensor:
-    """One int64 seed in ``[0, SEED_MAX)`` from ``generator``, on ``device``."""
-    return torch.randint(0, SEED_MAX, (1,), generator=generator, device=device)
+def draw_seed(generator: Stream, device: torch.device, batch: int = 0) -> torch.Tensor:
+    """One int64 seed in ``[0, SEED_MAX)`` from ``generator``, on ``device``,
+    for ``batch`` chains (``batch_seed``: under a data mesh, this rank's)."""
+    return batch_seed(
+        lambda g: torch.randint(0, SEED_MAX, (1,), generator=g, device=device), batch, generator)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -65,7 +69,7 @@ class MultiHeadSelfAttention(nn.Module):
         nn.init.uniform_(self.in_proj_bias, -bound, bound)
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None, *,
+        self, x: torch.Tensor, generator: Stream = None, *,
         plain: bool = False,
     ) -> torch.Tensor:
         b, l, d = x.shape
@@ -79,7 +83,7 @@ class MultiHeadSelfAttention(nn.Module):
         )
         on_card = x.device.type == "cuda" and not plain
         if self.training and self.dropout_rate > 0.0:
-            seed = draw_seed(generator, x.device)
+            seed = draw_seed(generator, x.device, b)
             route = fa.flash_attention_dropout if on_card else fa.flash_attention_dropout_reference
             out = route(q, k, v, seed, self.dropout_rate)
         elif on_card:

@@ -5,8 +5,8 @@
 Parameters are stored in fp32 under the reference PyTorch state-dict
 names and cast to the input's dtype at use, so a bf16 input runs bf16
 products with fp32 master weights. ``dropout`` is flax's ``nn.Dropout``
-drawing from a ``torch.Generator`` passed in, which every dropout of the
-score networks uses.
+drawing from a ``torch.Generator`` passed in (or a ``ShardedGenerator``
+under a data mesh), which every dropout of the score networks uses.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fourierdiffusion_tpu_torch.parallel.mesh import Stream, batch_draw
 
 
 class TorchLinear(nn.Linear):
@@ -38,12 +40,14 @@ def max_norm_renorm(embedding: torch.Tensor, max_norm: float) -> torch.Tensor:
     return embedding * scale.detach()
 
 
-def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
-) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Stream) -> torch.Tensor:
     """flax ``nn.Dropout``: ``x / (1 - rate)`` where a Bernoulli(1 - rate)
-    draw from ``generator`` keeps, else 0."""
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    draw from ``generator`` keeps, else 0. From a ``ShardedGenerator`` the
+    draw is made at the global batch and cut to this rank's rows."""
+    keep = batch_draw(
+        lambda n, g: x.new_empty((n, *x.shape[1:])).bernoulli_(1.0 - rate, generator=g),
+        x.shape[0], generator,
+    )
     return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -60,7 +64,7 @@ class MLPBlock(nn.Sequential):
         self.dropout_rate = dropout_rate
 
     def forward(  # type: ignore[override]
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, generator: Stream = None
     ) -> torch.Tensor:
         drop = self.training and self.dropout_rate > 0.0
         h = torch.relu(self[0](x))

@@ -8,6 +8,10 @@ keep_threshold(rate)``: ``hash_bits`` is the murmur3 finalizer of
 position in the TPU kernel's own coordinates and ``tag`` a per-(chain,
 site, head group) key. The uint32 arithmetic is done in int64 with a split
 32-bit multiply, so every value stays exact.
+
+Every key is ``seed + chain*131071 + ...``, so a rank that holds chains
+``c0, c0+1, ...`` of a larger batch draws the masks of those global chains
+with the seed ``shift_seed(seed, c0)``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ LANE = 128
 _VMEM_BUDGET = 14 * 1024 * 1024
 M32 = 0xFFFFFFFF
 C0, C1 = 1000003, 19349663
+CHAIN_STRIDE = 131071  # a mask key's step from one chain to the next
 
 
 def head_group(n_head: int, lp: int, live_bytes_per_elem: int) -> int:
@@ -65,6 +70,15 @@ def keep_scale(bits: torch.Tensor, rate: float) -> torch.Tensor:
     return torch.where(bits < thr, kept, torch.zeros((), device=bits.device))
 
 
+def shift_seed(seed: torch.Tensor | int, first_chain: int) -> torch.Tensor | int:
+    """``seed`` for the chains that start at global chain ``first_chain``:
+    ``(seed + first_chain*131071) mod 2**32``, so local chain c keys its
+    masks as global chain ``first_chain + c`` does. Unchanged at 0."""
+    if first_chain == 0:
+        return seed
+    return (seed + first_chain * CHAIN_STRIDE) & M32
+
+
 def head_positions(
     n_head: int, max_len: int, group: int, device: torch.device | str = "cpu"
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,4 +101,5 @@ __all__ = [
     "keep_threshold",
     "lanes",
     "mul32",
+    "shift_seed",
 ]

@@ -48,6 +48,7 @@ import math
 import torch
 
 from fourierdiffusion_tpu_torch.ops.dropout_hash import (
+    CHAIN_STRIDE,
     M32,
     hash_bits,
     head_group,
@@ -121,7 +122,7 @@ def attention_keep(
     device = torch.device(device)
     idx, g0 = head_positions(n_head, max_len, attention_group(n_head, max_len), device)
     chain = torch.arange(batch, dtype=torch.int64, device=device)
-    key = (_seed_tensor(seed, device) + chain[:, None] * 131071 + g0[None, :]) & M32
+    key = (_seed_tensor(seed, device) + chain[:, None] * CHAIN_STRIDE + g0[None, :]) & M32
     return keep_scale(hash_bits(idx[None], key[:, :, None, None]), rate)
 
 

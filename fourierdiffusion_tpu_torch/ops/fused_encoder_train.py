@@ -43,6 +43,7 @@ from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops.dropout_hash import (
     C0,
     C1,
+    CHAIN_STRIDE,
     M32,
     hash_bits,
     head_group,
@@ -74,7 +75,7 @@ def train_group(n_head: int, max_len: int) -> int:
 
 def mask_key(seed: int, chain: torch.Tensor, site: int, extra=0) -> torch.Tensor:
     """``seed + chain*131071 + site*7919 + extra*104729`` wrapped to uint32."""
-    return (seed + chain * 131071 + site * 7919 + extra * 104729) & M32
+    return (seed + chain * CHAIN_STRIDE + site * 7919 + extra * 104729) & M32
 
 
 def dropout_masks(

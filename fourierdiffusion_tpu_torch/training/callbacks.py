@@ -14,17 +14,24 @@ and puts it in eval mode) and loads the eval weights into that copy at each
 call, and it draws from a ``torch.Generator`` of its own, seeded with
 ``random_seed`` anew at each call. A fit with the callback is therefore the
 same, bit for bit, as one without it.
+
+Under a data ``mesh`` every rank calls it: its sampler splits the chains
+over the ranks and gathers them (``DiffusionSampler(mesh=)``), every rank
+scores the same samples, and the primary rank writes the scores.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+from typing import Optional
 
 import torch
 
 from fourierdiffusion_tpu_torch.data.datamodules import Datamodule
 from fourierdiffusion_tpu_torch.models.score_models import ScoreNetwork
+from fourierdiffusion_tpu_torch.parallel.distributed import is_primary
+from fourierdiffusion_tpu_torch.parallel.mesh import DataMesh
 from fourierdiffusion_tpu_torch.sampling.metrics import (
     MarginalWasserstein,
     MetricCollection,
@@ -50,7 +57,8 @@ class SamplingCallback:
         num_directions: int = 200,
         random_seed: int = 42,
         metrics_writer=None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh: Optional[DataMesh] = None,
     ) -> None:
         self.every_n_epochs = every_n_epochs
         self.num_samples = num_samples
@@ -67,8 +75,9 @@ class SamplingCallback:
             n_channels=params["n_channels"],
             sample_batch_size=sample_batch_size,
             device=device,
+            mesh=mesh,
         )
-        self.device = self.sampler.device
+        self.device = device = self.sampler.device
         self.metric_collection = MetricCollection(
             metric_factories=[
                 lambda o: SlicedWasserstein(
@@ -99,7 +108,7 @@ class SamplingCallback:
         results = self.metric_collection(x)
         results = {f"metrics/{k}": v for k, v in results.items()}
         metrics.update(results)
-        if self.metrics_writer is not None:
+        if self.metrics_writer is not None and is_primary():
             self.metrics_writer.log(results)
         logger.info(
             "epoch %d sampling metrics: %s",

@@ -48,8 +48,19 @@ differ from ``jax.random``'s, so the parity tests hand the JAX draws in
 through ``loss_and_grads``/``train_step``. Each epoch's streams are set by
 ``(seed, epoch, stream salt)`` and the validation draws by ``seed`` alone,
 so a run resumed from ``last`` continues bit for bit as the uninterrupted
-run would have (on the CPU; on the card as far as its kernels repeat). The
-device mesh and bf16 training are not ported.
+run would have (on the CPU; on the card as far as its kernels repeat).
+bf16 training is not ported.
+
+With ``mesh=`` (``parallel/mesh.py``) the run is data-parallel over the
+ranks of the process group and computes what the one-process run computes:
+every rank holds the whole state and data, draws every batch-led tensor at
+the global batch and keeps its rows (``B / W`` of each training and
+validation batch), shifts each layer's dropout seed to its first chain, and
+averages the gradients over the ranks in one all-reduce per step before
+``MultiSteps``, the clip and AdamW. The epoch's train and validation losses
+are averaged over the ranks before the rollback guard, so every rank takes
+the same branch; the metrics writer, the best checkpoint and ``last`` are
+written by the primary rank, which all ranks wait for after ``last``.
 """
 
 from __future__ import annotations
@@ -72,6 +83,8 @@ from fourierdiffusion_tpu_torch.losses import draw_loss_noise, sde_loss
 from fourierdiffusion_tpu_torch.models.attention import SEED_MAX
 from fourierdiffusion_tpu_torch.models.fused import fused_score_training_forward
 from fourierdiffusion_tpu_torch.models.score_models import ScoreNetwork, ScoreTransformer
+from fourierdiffusion_tpu_torch.parallel import distributed
+from fourierdiffusion_tpu_torch.parallel.mesh import DataMesh, ShardedGenerator, Stream
 from fourierdiffusion_tpu_torch.schedulers.sde import SDE
 from fourierdiffusion_tpu_torch.training.optim import (
     MultiSteps,
@@ -103,7 +116,8 @@ class Trainer:
 
     Callbacks are called after each epoch as ``cb(trainer, epoch, params,
     constants, metrics)``: ``params`` the eval weights (the EMA where it is
-    on) and ``constants`` the buffers, both name -> tensor.
+    on) and ``constants`` the buffers, both name -> tensor. Under a ``mesh`` every
+    rank calls them. The device defaults to the mesh's, else CUDA.
     """
 
     def __init__(
@@ -126,10 +140,12 @@ class Trainer:
         save_last_every_n: int = 1,
         accumulate_grad_batches: int = 1,
         perm_salt: int = 0,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         plain: bool = False,
+        mesh: Optional[DataMesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.device = mesh.place(device) if mesh is not None else resolve_device(device or "cuda")
+        self.mesh = mesh
         self.model = model.to(self.device)
         self.scheduler = scheduler
         self.max_epochs = max_epochs
@@ -178,7 +194,7 @@ class Trainer:
 
     def train_loss(
         self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
-        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
+        layer_seeds: list[int] | None = None, *, generator: Stream = None,
     ) -> torch.Tensor:
         """DSM loss of one batch in training mode: on the fused path with one
         dropout seed per layer (``layer_seeds``), on the unfused path with
@@ -204,18 +220,23 @@ class Trainer:
 
     def loss_and_grads(
         self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
-        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
+        layer_seeds: list[int] | None = None, *, generator: Stream = None,
     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         loss = self.train_loss(x, t, z, layer_seeds, generator=generator)
         return loss.detach(), list(torch.autograd.grad(loss, self.params))
 
     def train_step(
         self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
-        layer_seeds: list[int] | None = None, *, generator: torch.Generator | None = None,
+        layer_seeds: list[int] | None = None, *, generator: Stream = None,
     ) -> torch.Tensor:
         """Loss, gradients, clipped AdamW update (on every
-        ``accumulate_grad_batches``-th step) and EMA; returns the loss."""
+        ``accumulate_grad_batches``-th step) and EMA; returns the loss.
+        Under a mesh ``x``, ``t``, ``z`` are this rank's rows and
+        ``layer_seeds`` its shifted seeds (``draw_layer_seeds``); the gradients
+        are averaged over the ranks and the loss is this rank's."""
         loss, grads = self.loss_and_grads(x, t, z, layer_seeds, generator=generator)
+        if self.mesh is not None:
+            grads = distributed.all_reduce_mean(grads)
         self.optimizer.step(grads)
         if self.ema_decay > 0.0:
             t_ema = float(self.step + 1)
@@ -336,6 +357,31 @@ class Trainer:
         """Validation batches ``arange(ceil(n / B) * B) % n``, (steps, B)."""
         return (torch.arange(-(-n // batch_size) * batch_size) % n).reshape(-1, batch_size)
 
+    def draw_layer_seeds(self, generator: torch.Generator, batch: int) -> list[int]:
+        """One dropout seed per layer from ``generator`` (the fused path's
+        draw); under a mesh shifted to this rank's first chain of its
+        ``batch`` rows, so the hashed masks are those of the global chains."""
+        seeds = torch.randint(0, SEED_MAX, (self.model.num_layers,), generator=generator)
+        if self.mesh is not None:
+            seeds = self.mesh.chain_seed(seeds, batch)
+        return seeds.tolist()
+
+    def _rows(self, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """This rank's rows of each global-batch tensor (all of them without
+        a mesh)."""
+        if self.mesh is None:
+            return tensors
+        rows = self.mesh.rows(tensors[0].shape[0])
+        return tuple(t[rows] for t in tensors)
+
+    def _mean_over_ranks(self, *values: torch.Tensor) -> list[float]:
+        """Each scalar averaged over the ranks (as it is without a mesh), in
+        one all-reduce: the same floats on every rank."""
+        stacked = torch.stack([v.double() for v in values])
+        if self.mesh is not None:
+            stacked = distributed.all_reduce_mean([stacked])[0]
+        return stacked.tolist()
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -367,9 +413,12 @@ class Trainer:
 
         host_gen = torch.Generator().manual_seed(self.seed)
         dev_gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        # The unfused path's dropouts: at the global batch, cut to the rows.
+        stream = dev_gen if self.mesh is None else ShardedGenerator(dev_gen, self.mesh)
         val_idx = self.val_batches(x_val.shape[0], bsz).to(self.device)
         val_draws = [
-            [draw_loss_noise(self.scheduler, x_val[idx], dev_gen) for idx in val_idx]
+            [self._rows(x_val[idx], *draw_loss_noise(self.scheduler, x_val[idx], dev_gen))
+             for idx in val_idx]
             for _ in range(self.val_noise_draws)
         ]
 
@@ -392,24 +441,21 @@ class Trainer:
             fused = self.fused()
             for idx in perm:
                 x = x_train[idx]
-                t, z = draw_loss_noise(self.scheduler, x, dev_gen)
+                x, t, z = self._rows(x, *draw_loss_noise(self.scheduler, x, dev_gen))
                 if fused:
-                    seeds = torch.randint(
-                        0, SEED_MAX, (self.model.num_layers,), generator=host_gen
-                    )
-                    losses.append(self.train_step(x, t, z, seeds.tolist()))
+                    seeds = self.draw_layer_seeds(host_gen, len(x))
+                    losses.append(self.train_step(x, t, z, seeds))
                 else:
-                    losses.append(self.train_step(x, t, z, generator=dev_gen))
-            train_loss = torch.stack(losses).mean().item()
+                    losses.append(self.train_step(x, t, z, generator=stream))
+            train_loss = torch.stack(losses).mean()
             self._sync()
             train_s = time.perf_counter() - t0
             t1 = time.perf_counter()
             val_loss = torch.stack([
-                torch.stack([
-                    self.val_loss(x_val[idx], t, z) for idx, (t, z) in zip(val_idx, draws)
-                ]).mean()
+                torch.stack([self.val_loss(x, t, z) for x, t, z in draws]).mean()
                 for draws in val_draws
-            ]).mean().item()
+            ]).mean()
+            train_loss, val_loss = self._mean_over_ranks(train_loss, val_loss)
             val_s = time.perf_counter() - t1
             if (
                 guard_on
@@ -430,7 +476,7 @@ class Trainer:
                         "(rollback %d/%d)", epoch, train_loss, statistics.median(recent),
                         rewind_epoch, rollbacks_used, self.spike_rollback_retries,
                     )
-                    if self.metrics_writer is not None:
+                    if self.metrics_writer is not None and distributed.is_primary():
                         self.metrics_writer.log(
                             {"rollback_from_epoch": epoch, "rollback_to_epoch": rewind_epoch,
                              "spike_train_loss": train_loss},
@@ -459,7 +505,7 @@ class Trainer:
             if stream_salt:
                 metrics["stream_salt"] = stream_salt
             history.append(metrics)
-            if self.metrics_writer is not None:
+            if self.metrics_writer is not None and distributed.is_primary():
                 self.metrics_writer.log(
                     {k: v for k, v in metrics.items() if k not in HISTORY_ONLY}, step=self.step)
             if epoch % 10 == 0 or epoch + 1 == self.max_epochs:
@@ -475,7 +521,9 @@ class Trainer:
             if self.save_last_dir is not None and (
                 epoch % self.save_last_every_n == 0 or epoch + 1 == self.max_epochs
             ):
-                save_train_state(self.save_last_dir, self.train_state(), epoch)
+                if distributed.is_primary():
+                    save_train_state(self.save_last_dir, self.train_state(), epoch)
+                distributed.barrier()
             epoch += 1
         self.history = history
         return history

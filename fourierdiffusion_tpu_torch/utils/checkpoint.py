@@ -38,6 +38,8 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from fourierdiffusion_tpu_torch.parallel.distributed import is_primary
+
 MODEL_FILE = "model.pt"
 TRAIN_STATE_FILE = "train_state.pt"
 
@@ -144,7 +146,8 @@ def restore_train_state(last_dir: Path) -> tuple[dict[str, Any], int]:
 class BestCheckpointCallback:
     """Epoch callback: keep the checkpoint with the lowest ``val/loss``
     (Lightning ``ModelCheckpoint(monitor="val/loss")`` semantics); the
-    previous best is deleted."""
+    previous best is deleted. In a multi-process run every rank tracks the
+    best (the losses are reduced, so they agree) and the primary writes it."""
 
     def __init__(self, checkpoints_dir: Path) -> None:
         self.checkpoints_dir = Path(checkpoints_dir)
@@ -154,6 +157,9 @@ class BestCheckpointCallback:
     def __call__(self, trainer, epoch: int, params, constants, metrics) -> None:
         val_loss = metrics["val/loss"]
         if val_loss < self.best_loss:
+            self.best_loss = val_loss
+            if not is_primary():
+                return
             prev = self.best_path
             self.best_path = save_checkpoint(
                 self.checkpoints_dir,
@@ -163,7 +169,6 @@ class BestCheckpointCallback:
                 params=params,
                 constants=constants,
             )
-            self.best_loss = val_loss
             if prev is not None and prev != self.best_path and prev.exists():
                 shutil.rmtree(prev, ignore_errors=True)
 

@@ -11,6 +11,9 @@
 * The kernel wrappers check the dtype before they look at the device and
   hold no ``try`` that could fall back to the plain version. The
   CUDA-tensor cases are in ``tests/test_torch_cuda.py``.
+* ``parallel/distributed.py`` and ``parallel/mesh.py`` hold no ``try``
+  either, and a rank asked for CUDA where there is none raises instead of
+  joining over gloo or running alone.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ from fourierdiffusion_tpu_torch.models.transformer import TransformerEncoderLaye
 from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops import fused_encoder_train as fet
+from fourierdiffusion_tpu_torch.parallel import distributed
+from fourierdiffusion_tpu_torch.parallel import mesh as parallel_mesh
+from fourierdiffusion_tpu_torch.parallel.launch import free_port
 from fourierdiffusion_tpu_torch.sampling import DiffusionSampler
 from fourierdiffusion_tpu_torch.schedulers import VPScheduler
 from fourierdiffusion_tpu_torch.training import Trainer
@@ -63,10 +69,11 @@ print("modules", " ".join(names))
 
 # Modules the import walk must reach (pkgutil walks only packages with an
 # ``__init__.py``): the entry points, the config, checkpoint and logging
-# utilities, and the dataset readers and the LSTM layer.
+# utilities, the dataset readers and the LSTM layer, and the data mesh.
 WALKED = ("cli.train", "cli.sample", "utils.yamlio", "utils.config", "utils.instantiate",
           "utils.logging", "utils.profiling", "utils.checkpoint", "training.callbacks",
-          "data.csvio", "data.preprocessing", "data.raw_formats", "models.lstm")
+          "data.csvio", "data.preprocessing", "data.raw_formats", "models.lstm",
+          "parallel.distributed", "parallel.mesh", "parallel.launch", "parallel.dryrun")
 
 
 def _env() -> dict[str, str]:
@@ -162,11 +169,37 @@ def test_trainer_default_device_raises_without_cuda() -> None:
 
 
 @pytest.mark.parametrize(
-    "module", [fa, fe, fet], ids=["flash_attention", "fused_encoder", "fused_encoder_train"]
+    "module", [fa, fe, fet, distributed, parallel_mesh],
+    ids=["flash_attention", "fused_encoder", "fused_encoder_train", "parallel_distributed",
+         "parallel_mesh"],
 )
 def test_kernel_wrappers_hold_no_fallback(module) -> None:
     tree = ast.parse(Path(module.__file__).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_rank_asked_for_cuda_without_a_card_raises(monkeypatch, device) -> None:
+    """No gloo on the CPU and no one-process run in its place: the rank
+    raises before it joins anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setenv("FDIFF_COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("FDIFF_NUM_PROCESSES", "2")
+    monkeypatch.setenv("FDIFF_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.maybe_initialize_distributed(device=device)
+    assert not torch.distributed.is_initialized()
+    assert distributed.rank_device() is None and distributed.world_size() == 1
+
+
+def test_nccl_is_never_asked_to_run_on_the_cpu(monkeypatch) -> None:
+    monkeypatch.setenv("FDIFF_COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("FDIFF_NUM_PROCESSES", "2")
+    monkeypatch.setenv("FDIFF_PROCESS_ID", "0")
+    with pytest.raises(ValueError, match="NCCL"):
+        distributed.maybe_initialize_distributed(device="cpu", backend="nccl")
+    assert not torch.distributed.is_initialized()
 
 
 def test_wrappers_check_dtype_before_device() -> None:
