@@ -10,7 +10,8 @@ Phases, each printed with its seconds as it ends:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: ``csrc/fused_encoder.cu`` (B1), ``csrc/flash_attention.cu`` (B2,
-   B5, B6), ``csrc/fused_encoder_train.cu`` (B3, B4) and
+   B5, B6), ``csrc/fused_encoder_train.cu`` and ``_bf16.cu`` (B3, B4 in fp32
+   and bf16) and
    ``csrc/fused_encoder_int8.cu`` (B7, B8), one ``nvcc`` each, all started
    together (a library already built is reused), with ptxas's registers,
    stack and spills for every kernel instance, and, from ``cuobjdump
@@ -26,7 +27,11 @@ Phases, each printed with its seconds as it ends:
    its time before the tensor-core redesign, PRIOR_MS), the plain version
    and one eval-mode ``nn.TransformerEncoderLayer`` call on the same
    weights (a yardstick the port never calls), its bounds (and, in fp32,
-   three times its products over the TF32 peak) and launches per call.
+   three times its products over the TF32 peak) and launches per call; B1's
+   B=32 times beside its times before C1's repair (B1_BEFORE_C1_MS). Then
+   C1, bit for bit in fp32 and bf16: chains 0-15 of one B1 call at 32
+   chains against the same chains alone, chains 0-31 of one B3 call at 64
+   against a call at 32, and B4's ReLU gates there.
 4. main path: ``DiffusionSampler`` (Euler-Maruyama, VP SDE with Fourier
    noise scaling, K=1000) on the trained ``ref-freq42-e200`` weights,
    32 chains, in fp32 and then in bf16 compute. Every layer of every step
@@ -204,13 +209,31 @@ Phases, each printed with its seconds as it ends:
    B3 = B4 = steps x 10, B2 = 2 x 16 x 4 x 10 for the sharded validation);
    (c) in the same two ranks, phase 4's fp32 sampler on
    ``ref-freq42-e200`` from phase 4's generator, 32 chains split 16 + 16,
-   K=1000 (B1 = 10,000 per rank), gathered: against phase 4's samples,
-   printed as bit for bit or not (then finite), and a 20-step run against
-   one process to TRAJ_TOL; (d) ``dryrun_multichip(2)`` on the card over
+   K=1000 (B1 = 10,000 per rank), gathered: bit for bit phase 4's samples
+   (and chains 0-15 of one score and one B1 call at 32 chains bit for bit
+   the same chains alone), and a 20-step run against one process to
+   TRAJ_TOL; (d) ``dryrun_multichip(2)`` on the card over
    gloo; (e) NCCL across cards with phase 8's configuration, only where
    two cards are present (printed as not run otherwise). Any rank's
    failure or time limit fails the phase; the seconds of each part and
    each rank's launches are printed.
+20. bf16 training (a model of ``dtype`` bfloat16, fp32 parameters): (a) B3
+   and B4 in bf16 against their plain bf16 versions (the plain backward
+   ``train_backward_staged`` rounds where the TPU kernel rounds) on the
+   flagship's layer 0 at B=64, L=100 (timed, with the plain versions, the
+   bound and a train-mode bf16 ``nn.TransformerEncoderLayer``) and on
+   phase 9's long and wide shapes at B=8: outputs to TOL, B4's stages, dx
+   and gradients to BF16_GRAD_TOL against the staged plain backward with
+   the kernel's ReLU gates, each flipped gate located; (b) phase 7's first
+   3 steps in bf16 through the kernels and through the plain versions:
+   losses, the step-0 gradients (gates located and matched), parameters
+   and gradients fp32; (c) ``runs/94c6eb87/train_config.yaml`` (the
+   flagship trained in bf16) cut to 3 epochs through ``fdiff-torch-train``,
+   then the same configuration in fp32: finite losses, B3 = B4 = steps x
+   10, B2 = 3 x 16 x 4 x 10, all of them (bf16) or none (fp32) B2's fast
+   bf16 form, the checkpoint fp32, each epoch's steps/s side by side; and
+   ``fdiff-torch-sample`` of the bf16 run's checkpoint, 64 samples at K=100
+   through B1 in bf16.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -268,7 +291,11 @@ from fourierdiffusion_tpu_torch.training import Trainer
 from fourierdiffusion_tpu_torch.training.trainer import SEED_MAX
 from fourierdiffusion_tpu_torch.utils import yamlio
 from fourierdiffusion_tpu_torch.utils.census import census_fields
-from fourierdiffusion_tpu_torch.utils.checkpoint import save_checkpoint
+from fourierdiffusion_tpu_torch.utils.checkpoint import (
+    get_best_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from fourierdiffusion_tpu_torch.utils.config import compose, save_config
 from fourierdiffusion_tpu_torch.utils.weights import load_reference_state_dict
 
@@ -340,7 +367,8 @@ REQUIRED_PRODUCT_KERNELS = (("flash_attention", "attention_fwd_mma_kernel"),
 INT8_PRODUCT_KERNELS = ("qkv_int8_kernel", "attention_int8_kernel", "int8_tail_kernel")
 REPLACES = "fourierdiffusion_tpu/ops/fused_encoder.py:172"
 SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder.cu"
-SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_int8")
+SOURCES = ("fused_encoder", "flash_attention", "fused_encoder_train", "fused_encoder_train_bf16",
+           "fused_encoder_int8")
 
 # The training slice: the flagship's training configuration
 # (runs/4ffeaa7e/train_config.yaml), cut to TRAIN_EPOCHS epochs.
@@ -380,7 +408,7 @@ FLASH_FAST_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:108"
 TRAIN_FWD_REPLACES = "fourierdiffusion_tpu/ops/fused_encoder_train.py:135"
 TRAIN_BWD_REPLACES = "fourierdiffusion_tpu/ops/fused_encoder_train.py:234"
 FLASH_SOURCE = "fourierdiffusion_tpu_torch/csrc/flash_attention.cu"
-TRAIN_SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder_train.cu"
+TRAIN_SOURCE = "fourierdiffusion_tpu_torch/csrc/fused_encoder_train.cuh"
 FLASH_BWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:167"
 DROPOUT_FWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:326"
 DROPOUT_BWD_REPLACES = "fourierdiffusion_tpu/ops/flash_attention.py:342"
@@ -1226,18 +1254,20 @@ def gate_matched_grads(
 
 
 def flagship_model(dtype: str = "float32", rate: float = DROPOUT) -> ScoreTransformer:
-    """The flagship with random weights from seed 0 (the same for any dtype)."""
+    """The flagship with random weights from seed 0 (the same for any dtype):
+    fp32 parameters computing in ``dtype``, or, for the fp64 reference,
+    parameters in fp64."""
     torch.manual_seed(0)
     model = ScoreModelConfig(
         d_model=72, num_layers=N_LAYERS, n_head=N_HEAD, dim_feedforward=2048,
         dropout_rate=rate, dtype=dtype,
     ).build(n_channels=N_CHANNELS, max_len=MAX_LEN)
-    return model.to(getattr(torch, dtype))
+    return model.to(torch.float64) if dtype == "float64" else model
 
 
 def flagship_trainer(plain: bool = False, rate: float = DROPOUT,
-                     epochs: int = TRAIN_EPOCHS, mesh=None) -> Trainer:
-    model = flagship_model(rate=rate)
+                     epochs: int = TRAIN_EPOCHS, mesh=None, dtype: str = "float32") -> Trainer:
+    model = flagship_model(dtype, rate=rate)
     return Trainer(
         model, VPScheduler(fourier_noise_scaling=True), max_epochs=epochs,
         lr_max=1e-3, gradient_clip_val=1.0, ema_decay=0.999, spike_rollback_factor=2.5,
@@ -1295,23 +1325,27 @@ def kernel_gates(store: dict):
 @contextlib.contextmanager
 def plain_gates(record: dict, force: dict | None = None):
     """Inside the block, the plain training layer of the fused path records,
-    by the layer's seed, its FFN pre-activations, their sums of |terms|,
+    by the layer's seed, its FFN pre-activations (from x1 rounded to the
+    activation dtype, as the W1 product takes it), their sums of |terms|,
     its gates and the kept units; with ``force`` ({seed: gates}) it takes
-    those gates (the value keeps its size, the gradient passes an open gate
+    those gates forward and backward (``fused_encoder_layer_train_reference``'s
+    ``gates``: the value keeps its size, the gradient passes an open gate
     and not a shut one). Without ``force`` it computes what
-    ``fused_encoder_layer_train_reference`` computes, in the same order."""
+    ``fused_encoder_layer_train_reference`` computes."""
     reference = fused_models.fused_encoder_layer_train_reference
 
     def layer_fn(x, layer, seed, *, n_head, rate):
         b, l, d = x.shape
         masks = fet.dropout_masks(b, l, d, layer["w1"].shape[1], n_head, seed, rate, x.device)
-        x1 = fet.attention_sublayer(x, layer, masks, n_head)
-        pre = x1 @ layer["w1"] + layer["b1"]
         with torch.no_grad():
-            terms = x1.abs() @ layer["w1"].abs() + layer["b1"].abs()
-        record[seed] = (pre.detach(), terms, pre.detach() > 0, masks["ff"] > 0)
-        hidden = torch.relu(pre) if force is None else pre * force[seed]
-        return fet.ffn_sublayer(x1, hidden, layer, masks)
+            x1 = fet.attention_sublayer(x, layer, masks, n_head)
+            x1 = x1.to(x.dtype).to(x1.dtype)
+            w1 = layer["w1"].to(x1.dtype)
+            pre = x1 @ w1 + layer["b1"]
+            terms = x1.abs() @ w1.abs() + layer["b1"].abs()
+        record[seed] = (pre, terms, pre > 0, masks["ff"] > 0)
+        return reference(x, layer, seed, n_head=n_head, rate=rate,
+                         gates=None if force is None else force[seed])
 
     fused_models.fused_encoder_layer_train_reference = layer_fn
     try:
@@ -1320,15 +1354,22 @@ def plain_gates(record: dict, force: dict | None = None):
         fused_models.fused_encoder_layer_train_reference = reference
 
 
-def check_training(dm: SyntheticDatamodule) -> dict:
-    """The first steps through the kernels and through the plain versions.
-    The step-0 gradients are held to GRAD_TOL per tensor against the plain
+def check_training(dm: SyntheticDatamodule, dtype: str = "float32") -> dict:
+    """The first steps of the flagship computing in ``dtype`` (fp32
+    parameters) through the kernels and through the plain versions. The
+    losses are held to LOSS_TOL (bf16: BF16_LOSS_TOL) and the step-0
+    gradients per tensor to GRAD_TOL (BF16_STEP_GRAD_TOL) against the plain
     path's or, where FFN ReLU gates flipped between the two paths, against
     the plain path with exactly the kernels' gates (as phase 11 does for the
-    unfused path); every flip is located, printed and must lie within
-    GATE_BAND x sum |terms| of 0."""
+    unfused path); every flip is located and must lie within GATE_BAND
+    (BF16_STEP_GATE_BAND) x sum |terms| of 0. In fp32 both paths' gradients
+    are printed beside an fp64 run's; in bf16 the parameters and their
+    gradients must stay fp32."""
+    band, grad_tol, loss_tol = {
+        "float32": (GATE_BAND, GRAD_TOL, LOSS_TOL),
+        "bfloat16": (BF16_STEP_GATE_BAND, BF16_STEP_GRAD_TOL, BF16_LOSS_TOL)}[dtype]
     steps = draw_steps(dm, CHECK_STEPS)
-    kernel, plain = flagship_trainer(), flagship_trainer(plain=True)
+    kernel, plain = flagship_trainer(dtype=dtype), flagship_trainer(plain=True, dtype=dtype)
     n_steps = dm.steps_per_epoch * TRAIN_EPOCHS
     losses, grads, k_gates, p_record = {}, {}, {}, {}
     for name, trainer in (("kernel", kernel), ("plain", plain)):
@@ -1345,43 +1386,53 @@ def check_training(dm: SyntheticDatamodule) -> dict:
                             "pre_plain": pre[b, l, u].item(), "terms": terms[b, l, u].item(),
                             "kernel_open": bool(k_gates[seed][b, l, u])})
     del k_gates, p_record
-    far = [f for f in located if abs(f["pre_plain"]) > GATE_BAND * f["terms"]]
-    if far:
-        raise AssertionError(f"training check: ReLU gates flipped away from 0: {far}")
+    farthest = max((abs(f["pre_plain"]) / f["terms"] for f in located), default=0.0)
+    if farthest > band:
+        raise AssertionError(f"training check {dtype}: a ReLU gate flipped {farthest} x sum "
+                             f"|terms| from 0")
     grads["gate_matched"] = grads["plain"]
     if located:
-        matched = flagship_trainer(plain=True)
+        matched = flagship_trainer(plain=True, dtype=dtype)
         matched.start(n_steps)
         with plain_gates({}, force):
             grads["gate_matched"] = matched.loss_and_grads(*steps[0])[1]
     del force
-    exact = Trainer(flagship_model("float64"), VPScheduler(fourier_noise_scaling=True),
-                    device="cuda", plain=True)
-    x0, t0, z0, seeds0 = steps[0]
-    grads["fp64"] = exact.loss_and_grads(x0.double(), t0.double(), z0.double(), seeds0)[1]
+    if dtype == "float32":
+        exact = Trainer(flagship_model("float64"), VPScheduler(fourier_noise_scaling=True),
+                        device="cuda", plain=True)
+        x0, t0, z0, seeds0 = steps[0]
+        grads["fp64"] = exact.loss_and_grads(x0.double(), t0.double(), z0.double(), seeds0)[1]
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"]))
-    print(f"  losses kernel {losses['kernel']} plain {losses['plain']}: max rel diff "
-          f"{rel_loss:.3e} (tol {LOSS_TOL:.0e})", flush=True)
+    print(f"  {dtype} losses kernel {losses['kernel']} plain {losses['plain']}: max rel diff "
+          f"{rel_loss:.3e} (tol {loss_tol:.0e})", flush=True)
     if not all(math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
-        raise AssertionError(f"training check: losses not finite: {losses}")
-    if not rel_loss <= LOSS_TOL:
-        raise AssertionError(f"training check: losses disagree: {rel_loss}")
+        raise AssertionError(f"training check {dtype}: losses not finite: {losses}")
+    if not rel_loss <= loss_tol:
+        raise AssertionError(f"training check {dtype}: losses disagree: {rel_loss}")
+    fp32 = all(g.dtype == torch.float32 for g in grads["kernel"]) and all(
+        p.dtype == torch.float32 for t in (kernel, plain) for p in t.params)
+    if not fp32:
+        raise AssertionError(f"training check {dtype}: parameters or gradients not fp32")
     rel = {}
-    for name, k, p, m, e in zip(kernel.names, grads["kernel"], grads["plain"],
-                                grads["gate_matched"], grads["fp64"]):
-        rel[name] = {"vs_plain": rel_err(k, p), "vs_gate_matched": rel_err(k, m),
-                     "kernel_vs_fp64": rel_err(k, e), "plain_vs_fp64": rel_err(p, e)}
+    for i, (name, k, p, m) in enumerate(zip(kernel.names, grads["kernel"], grads["plain"],
+                                            grads["gate_matched"])):
+        rel[name] = {"vs_plain": rel_err(k, p), "vs_gate_matched": rel_err(k, m)}
+        if "fp64" in grads:
+            rel[name].update(kernel_vs_fp64=rel_err(k, grads["fp64"][i]),
+                             plain_vs_fp64=rel_err(p, grads["fp64"][i]))
         r = rel[name]
-        if not (r["vs_plain"] <= GRAD_TOL or (located and r["vs_gate_matched"] <= GRAD_TOL)):
-            raise AssertionError(f"training check: gradient {name} disagrees: {r}")
+        if not (r["vs_plain"] <= grad_tol or (located and r["vs_gate_matched"] <= grad_tol)):
+            raise AssertionError(f"training check {dtype}: gradient {name} disagrees: {r}")
     worst = max(rel.items(), key=lambda kv: kv[1]["vs_plain"])
     worst_m = max(r["vs_gate_matched"] for r in rel.values())
-    print(f"  step-0 gradients: worst against plain {worst[0]} {json.dumps(worst[1])}, worst "
-          f"against gate-matched plain {worst_m:.3e} (tol {GRAD_TOL:.0e}); ReLU gates flipped "
-          f"between the paths: {len(located)}: {json.dumps(located)}; per tensor "
+    print(f"  {dtype} step-0 gradients: worst against plain {worst[0]} {json.dumps(worst[1])}, "
+          f"worst against gate-matched plain {worst_m:.3e} (tol {grad_tol:.1e}); ReLU gates "
+          f"flipped between the paths: {len(located)}, the farthest {farthest:.3e} x sum |terms| "
+          f"from 0 (band {band:.1e}), the first {json.dumps(located[:3])}; per tensor "
           f"{json.dumps(rel)}", flush=True)
     return {"loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_plain"],
-            "grad_rel_err_gate_matched": worst_m, "gate_flips": located}
+            "grad_rel_err_gate_matched": worst_m, "gate_flips": len(located),
+            "gate_flip_farthest": farthest, "step_losses": losses}
 
 
 def run_training(dm: SyntheticDatamodule) -> dict:
@@ -1699,6 +1750,7 @@ def reset_counts() -> None:
     fet.fwd_launches = fet.bwd_launches = fe.launches = 0
     fe.int8_launches = fe.int8_attn_launches = 0
     fa.launches = fa.bwd_launches = fa.dropout_fwd_launches = fa.dropout_bwd_launches = 0
+    fa.fast_launches = 0
 
 
 def read_counts() -> dict:
@@ -2862,9 +2914,8 @@ def check_sampling_ranks(ranks: list[dict], main_samples: torch.Tensor) -> dict:
              generator=torch.Generator(device="cuda").manual_seed(7)).cpu()
     samples = c[0]["samples"]
     bitwise = torch.equal(samples, main_samples.cpu())
-    # Which part of a step depends on the batch: chains 0-15 of one fp32
-    # score evaluation and one B1 call at 32 chains against the same chains
-    # evaluated alone.
+    # Chains 0-15 of one fp32 score evaluation and of one B1 call at 32
+    # chains against the same chains evaluated alone: equal, as the samples.
     model = load_flagship(torch.float32, "cuda")
     packed = pack_score_transformer(model)
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -2882,8 +2933,7 @@ def check_sampling_ranks(ranks: list[dict], main_samples: torch.Tensor) -> dict:
     }
     diff = (samples - main_samples.cpu()).abs().max().item()
     traj = (c[0]["short"] - one).abs().max().item()
-    holds = ("bit for bit: B1's per-chain result does not depend on the batch" if bitwise else
-             f"not bit for bit (max |difference| {diff:.3e}): the 20-step run decides")
+    holds = ("bit for bit" if bitwise else f"not bit for bit (max |difference| {diff:.3e})")
     print(f"  (c) 32 chains as 16 + 16, K={SAMPLE_STEPS}, against phase 4's: {holds}; chains "
           f"0-15 at 32 chains against alone, max |difference|: {json.dumps(by_batch)}; 20 steps "
           f"against one process {traj:.3e} (tol {TRAJ_TOL:.0e}); seconds "
@@ -2892,6 +2942,9 @@ def check_sampling_ranks(ranks: list[dict], main_samples: torch.Tensor) -> dict:
     if not all(torch.equal(r["samples"], samples) and torch.equal(r["short"], c[0]["short"])
                for r in c):
         raise AssertionError("(c): the ranks gathered different samples")
+    if not bitwise or any(by_batch.values()):
+        raise AssertionError(f"(c): 16 + 16 chains are not phase 4's 32 bit for bit: samples "
+                             f"{diff}, chains 0-15 at 32 against alone {by_batch}")
     if tuple(samples.shape) != (SAMPLE_CHAINS, MAX_LEN, N_CHANNELS) or not bool(
             torch.isfinite(samples).all()):
         raise AssertionError(f"(c): samples {tuple(samples.shape)}, finite "
@@ -2938,6 +2991,299 @@ def check_data_parallel(main_samples: torch.Tensor, training: dict) -> dict:
     return {**out, "seconds": seconds}
 
 
+# ---- C1: a chain's result does not depend on the batch it is in ----------------------
+
+# B1 at B=32, L=100 before the tail folded a row's d_ff chunks in chunk
+# order (ROADMAP C1), as this script measured it on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6). Printed beside this run's times, never
+# compared with them in a gate.
+B1_BEFORE_C1_MS = {torch.float32: 0.1728, torch.bfloat16: 0.1084}
+
+
+def check_batch_independence(layer) -> dict:
+    """Phase 3's C1 check, bit for bit, fp32 and bf16: chains 0-15 of one B1
+    call at 32 chains against the same chains called alone (the trained
+    layer ``layer``); chains 0-31 of one B3 call at 64 chains against a call
+    at 32, and the FFN ReLU gates B4's recompute takes there. Both tails
+    group a row's FFN sums by the d_ff chunk alone (csrc/encoder_layer_tc.cuh),
+    so nothing may differ."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    h = torch.randn((SAMPLE_CHAINS, MAX_LEN, 72), generator=g, device="cuda")
+    x = torch.randn((TRAIN_BATCH, MAX_LEN, 72), generator=g, device="cuda")
+    dy = torch.randn((TRAIN_BATCH, MAX_LEN, 72), generator=g, device="cuda")
+    half, n = SAMPLE_CHAINS // 2, TRAIN_BATCH // 2
+    out, failures = {}, []
+    for dtype in TOL:
+        name = str(dtype).removeprefix("torch.")
+        packed = fe.pack_encoder_layer(layer, N_HEAD, dtype)
+        hd = h.to(dtype)
+        with torch.no_grad():
+            whole = fe.fused_encoder_layer(hd, packed, n_head=N_HEAD)[:half]
+            alone = fe.fused_encoder_layer(hd[:half].contiguous(), packed, n_head=N_HEAD)
+        lay = {k: t.detach() for k, t in
+               fet.pack_encoder_layer_train(layer, N_HEAD, dtype).items()}
+        xd, dyd = x.to(dtype), dy.to(dtype)
+        y64 = fet._launch_fwd(xd, lay, 5, N_HEAD, DROPOUT)[:n]
+        y32 = fet._launch_fwd(xd[:n].contiguous(), lay, 5, N_HEAD, DROPOUT)
+        g64 = fet._launch_bwd(xd, dyd, lay, 5, N_HEAD, DROPOUT, stages=True)[2]["gates"][:n]
+        g32 = fet._launch_bwd(xd[:n].contiguous(), dyd[:n].contiguous(), lay, 5, N_HEAD,
+                              DROPOUT, stages=True)[2]["gates"]
+        torch.cuda.synchronize()
+        r = {"B1 chains 0-15 at 32 and 16 equal": torch.equal(whole, alone),
+             "B1 max |diff|": (whole.float() - alone.float()).abs().max().item(),
+             "B3 chains 0-31 at 64 and 32 equal": torch.equal(y64, y32),
+             "B3 max |diff|": (y64.float() - y32.float()).abs().max().item(),
+             "B4 ReLU gates flipped between 64 and 32": int((g64 != g32).sum())}
+        out[name] = r
+        print(f"  C1 {name}: {json.dumps(r)}", flush=True)
+        if not (r["B1 chains 0-15 at 32 and 16 equal"] and r["B3 chains 0-31 at 64 and 32 equal"]
+                and r["B4 ReLU gates flipped between 64 and 32"] == 0):
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"C1: a chain's result depends on its batch: {failures}, {out}")
+    return out
+
+
+# ---- phase 20: bf16 training on the fused path ---------------------------------------------
+
+BF16 = torch.bfloat16
+# (a) B3 and B4 in bf16 against their plain bf16 versions (whose backward,
+# train_backward_staged, rounds where the TPU kernel rounds). The outputs y
+# to TOL[bf16]: both round at the same points, and a rounding that flips
+# between their fp32 sum orders moves an element by one bf16 ulp. dx, B4's
+# stages and the 12 gradients, max |diff| / max |ref| per tensor, against
+# the staged plain backward with the kernel's FFN ReLU gates (located), to
+# BF16_GRAD_TOL: both round the same operands to bf16 (qkv, O, x1, h, dF2,
+# dh, dao, dO, P keep, dS, dqkv), but a value the two compute in other fp32
+# orders now and then lies within an fp32 ulp of a bf16 rounding boundary
+# and then rounds one bf16 ulp (2**-8 of itself) apart. A few such flips,
+# of both signs, in sums of thousands of terms stay well below 2**-5 of a
+# tensor's largest value; a wrong product, mask or rounding point misses by
+# far more (a lost d_ff chunk moves dW2 by its whole share).
+BF16_GRAD_TOL = 2.0**-5
+# A ReLU gate may flip where its fp64 input lies within BF16_GATE_BAND x sum
+# |terms| of 0: x1 enters the W1 product rounded to bf16, and one of its
+# elements that rounds the other way moves a term by 2**-8 of itself.
+BF16_GATE_BAND = 2.0**-7
+# (b) 3 training steps of the bf16 flagship through the kernels and through
+# the plain versions (check_training). Through 10 layers each layer's input differs between
+# the two by the bf16 flips of the layers before, so a flipped gate's input
+# may lie further from 0 (BF16_STEP_GATE_BAND, 4x the one-layer band) and
+# the step-0 gradients, against the plain path with the kernels' gates,
+# differ by the flips of all layers: BF16_STEP_GRAD_TOL, 2x the one-layer
+# limit. The losses, means of 6400 squared terms: BF16_LOSS_TOL.
+BF16_STEP_GATE_BAND = 2.0**-5
+BF16_STEP_GRAD_TOL = 2.0**-4
+BF16_LOSS_TOL = 1e-2
+# (c) runs/94c6eb87/train_config.yaml (the flagship trained 600 epochs in
+# bf16) cut to BF16_EPOCHS epochs through fdiff-torch-train, and the same
+# configuration in fp32 in the same call; BF16_SAMPLES samples at
+# BF16_SAMPLE_STEPS reverse steps from the checkpoint it writes. The card's
+# copy of the repository holds no runs/, so the overrides carry that
+# configuration (tests/test_torch_bf16_training.py holds them to the file
+# on every leaf but the directories and the epochs).
+BF16_RUN = "runs/94c6eb87/train_config.yaml"
+BF16_EPOCHS, BF16_SAMPLES, BF16_SAMPLE_STEPS = 3, 64, 100
+
+
+def bf16_bounds(b: int, l: int, d: int, d_ff: int, lay: dict) -> tuple:
+    """Least time of one bf16 B3 and one B4 call, as ``check_train_layer``
+    counts fp32's: its operations over the bf16 tensor-core peak, or its
+    bytes (bf16 activations and weight matrices, fp32 vectors and weight
+    gradients) over the memory rate."""
+    flops = train_layer_flops(b, l, d, d_ff)
+    weights = sum(t.numel() * t.element_size() for t in lay.values())
+    act = b * l * d * 2
+    grads = sum(t.numel() for t in lay.values()) * 4
+    return (bound(flops, 2 * act + weights, BF16),
+            bound(3 * flops, 3 * act + weights + grads, BF16))
+
+
+def bf16_train_layer(layer, n_head: int, batch: int, l: int, timed: bool) -> dict:
+    """Phase 20 (a): B3 and B4 in bf16 on one encoder layer (dropout 0.1) at
+    (batch, l) against their plain bf16 versions; ReLU gates that flipped
+    between the two located, each within BF16_GATE_BAND x sum |terms| of 0;
+    with ``timed``, the times of both kernels, the plain versions, the bound
+    and a train-mode ``nn.TransformerEncoderLayer`` in bf16."""
+    d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
+    shape = f"bf16 B={batch} L={l} D={d} H={n_head} F={d_ff}"
+    lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head, BF16).items()}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((batch, l, d), generator=g, device="cuda").to(BF16)
+    dy = torch.randn((batch, l, d), generator=g, device="cuda").to(BF16)
+    seed = 123456789
+    out = fet._launch_fwd(x, lay, seed, n_head, DROPOUT)
+    ref = fet.fused_encoder_layer_train_reference(x, lay, seed, n_head=n_head, rate=DROPOUT)
+    dx, grads, ws = fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT, stages=True)
+    _, _, plain = fet.train_backward_staged(x, dy, lay, seed, n_head=n_head, rate=DROPOUT)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (out.dtype == BF16 and torch.isfinite(out.float()).all() and err <= TOL[BF16]):
+        raise AssertionError(f"B3 {shape}: kernel disagrees with plain version: {err}")
+    masks = fet.dropout_masks(batch, l, d, d_ff, n_head, seed, DROPOUT, "cuda")
+    kept = masks["ff"] > 0
+    flips = (ws["gates"] != plain["gates"]) & kept
+    located = []
+    if int(flips.sum()):
+        x1t = fet.attention_sublayer(x, lay, masks, n_head).to(BF16).double()
+        w1, b1 = lay["w1"].double(), lay["b1"].double()
+        pre, terms = x1t @ w1 + b1, x1t.abs() @ w1.abs() + b1.abs()
+        for b, r, u in flips.nonzero().tolist():
+            located.append({"chain": b, "row": r, "unit": u, "pre_fp64": pre[b, r, u].item(),
+                            "terms": terms[b, r, u].item(),
+                            "kernel_open": bool(ws["gates"][b, r, u])})
+        far = [f for f in located if abs(f["pre_fp64"]) > BF16_GATE_BAND * f["terms"]]
+        if far:
+            raise AssertionError(f"B4 {shape}: ReLU gates flipped away from 0: {far}")
+    gates = ws["gates"] | (~kept & plain["gates"])
+    ref_dx, ref_grads, ref_st = fet.train_backward_staged(x, dy, lay, seed, n_head=n_head,
+                                                          rate=DROPOUT, gates=gates)
+    rel = {k: rel_err(ws[k], ref_st[k]) for k in ("df2", "dx1", "da", "dqkv")}
+    rel.update({k: rel_err(gk, gr) for k, gk, gr in
+                zip(["dx", *fet.LAYER_KEYS], [dx, *grads], [ref_dx, *ref_grads])})
+    band = max((abs(f["pre_fp64"]) / f["terms"] for f in located), default=0.0)
+    print(f"  B3/B4 {shape}: max |fwd - plain| {err:.3e} (tol {TOL[BF16]:.3e}); ReLU gates "
+          f"flipped: {len(located)}, the farthest {band:.3e} x sum |terms| from 0 (band "
+          f"{BF16_GATE_BAND:.3e}), the first {json.dumps(located[:3])}; B4 against the staged "
+          f"plain "
+          f"backward with the kernel's gates, max |diff| / max (tol {BF16_GRAD_TOL:.3e}): "
+          f"{json.dumps(rel)}", flush=True)
+    bad = {k: v for k, v in rel.items() if not v <= BF16_GRAD_TOL}
+    if bad or dx.dtype != BF16:
+        raise AssertionError(f"B4 {shape}: disagrees with the staged plain backward: {bad}")
+    r = {"fwd": {"max_abs_err": err},
+         "bwd": {"max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in
+                                    zip([dx, *grads], [ref_dx, *ref_grads])),
+                 "max_rel_err": max(rel.values()), "gate_flips": len(located),
+                 "gate_flip_farthest": band}}
+    if not timed:
+        return r
+    r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(x, lay, seed, n_head, DROPOUT), iters=20)
+    r["bwd"]["ms"] = time_ms(lambda: fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT),
+                             iters=10)
+    r["fwd"]["plain_ms"] = time_ms(lambda: fet.fused_encoder_layer_train_reference(
+        x, lay, seed, n_head=n_head, rate=DROPOUT), iters=10)
+    r["bwd"]["plain_ms"] = time_ms(lambda: fet.train_backward_staged(
+        x, dy, lay, seed, n_head=n_head, rate=DROPOUT), iters=3, warmup=1)
+    lib = torch.nn.TransformerEncoderLayer(
+        d, n_head, d_ff, DROPOUT, batch_first=True).to("cuda", BF16).train()
+    xl = x.detach().requires_grad_(True)
+    lib_out = lib(xl)
+    lib_params = [xl, *lib.parameters()]
+    r["fwd"]["library_ms"] = time_ms(lambda: lib(xl), iters=10)
+    r["bwd"]["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, lib_params, dy, retain_graph=True), iters=10)
+    (f_ms, f_by), (b_ms, b_by) = bf16_bounds(batch, l, d, d_ff, lay)
+    r["fwd"].update(bound_ms=f_ms, bound_by=f_by)
+    r["bwd"].update(bound_ms=b_ms, bound_by=b_by)
+    print(f"  B3/B4 {shape} times: {json.dumps(r)}", flush=True)
+    return r
+
+
+def bf16_cli_overrides(root: Path, dtype: str) -> list[str]:
+    """fdiff-torch-train's overrides for phase 20 (c): BF16_RUN's
+    configuration in ``dtype``, cut to BF16_EPOCHS epochs."""
+    return [f"run_dir={root / 'runs'}", "datamodule=synthetic",
+            f"datamodule.data_dir={root / 'data'}", "fourier_transform=true",
+            "trainer.ema_decay=0.999", f"score_model.dtype={dtype}",
+            f"trainer.max_epochs={BF16_EPOCHS}", "trainer.callbacks.sampling.enabled=false"]
+
+
+def check_bf16_cli(root: Path) -> dict:
+    """Phase 20 (c): BF16_RUN's configuration through fdiff-torch-train, in
+    bf16 and then in fp32: every loss finite, B3 = B4 = steps x 10, B2 =
+    epochs x validation batches x VAL_DRAWS x 10 (in bf16 all of them B2's
+    fast bf16 form, none fp32; in fp32 none of them), the checkpoint's
+    parameters fp32; each epoch's steps/s; then fdiff-torch-sample on the
+    bf16 run: B1 = BF16_SAMPLE_STEPS x 10 launches, finite samples."""
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        overrides = bf16_cli_overrides(root, dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        stdout = run_cli(cli_train.main, overrides)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {**read_counts(), "B2 fast bf16": fa.fast_launches}
+        run_id = re.search(r"^run_id=(\S+)$", stdout, re.M).group(1)
+        run_dir = root / "runs" / run_id
+        records = [json.loads(s) for s in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        epochs = [r for r in records if "epoch" in r]
+        steps = BF16_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH)
+        b2 = BF16_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH) * VAL_DRAWS * N_LAYERS
+        expected = {k: 0 for k in counts}
+        expected.update({"B3": steps * N_LAYERS, "B4": steps * N_LAYERS, "B2": b2,
+                         "B2 fast bf16": b2 if dtype == "bfloat16" else 0})
+        best = get_best_checkpoint(run_dir / "checkpoints")
+        params = load_checkpoint(best)
+        runs[dtype] = {"seconds": seconds, "launches": counts, "run_id": run_id,
+                       "losses": [(r["train/loss"], r["val/loss"]) for r in epochs],
+                       "steps_per_sec": [r["steps_per_sec"] for r in epochs],
+                       "checkpoint_dtypes": sorted({str(t.dtype) for t in params.values()})}
+        print(f"  (c) fdiff-torch-train score_model.dtype={dtype}: {BF16_EPOCHS} epochs, "
+              f"{steps} steps in {seconds:.3f} s; {json.dumps(runs[dtype])}", flush=True)
+        failures = []
+        if len(epochs) != BF16_EPOCHS or not all(
+                math.isfinite(v) for pair in runs[dtype]["losses"] for v in pair):
+            failures.append(f"losses {runs[dtype]['losses']}")
+        if counts != expected:
+            failures.append(f"launches {counts}, expected {expected}")
+        if runs[dtype]["checkpoint_dtypes"] != ["torch.float32"]:
+            failures.append(f"checkpoint dtypes {runs[dtype]['checkpoint_dtypes']}")
+        if failures:
+            raise AssertionError(f"(c) {dtype}: " + "; ".join(failures))
+    print(f"  (c) steps/s per epoch (validation included, as the trainer counts them): bf16 "
+          f"{runs['bfloat16']['steps_per_sec']}, fp32 {runs['float32']['steps_per_sec']}",
+          flush=True)
+    run_dir = root / "runs" / runs["bfloat16"]["run_id"]
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(cli_sample.main, [f"model_path={root / 'runs'}",
+                              f"model_id={runs['bfloat16']['run_id']}",
+                              f"num_samples={BF16_SAMPLES}",
+                              f"num_diffusion_steps={BF16_SAMPLE_STEPS}",
+                              f"sampler.sample_batch_size={BF16_SAMPLES}",
+                              f"random_seed={QUALITY_SEED}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    samples = np.load(run_dir / "samples.npy")
+    expected = {k: 0 for k in counts}
+    expected["B1"] = BF16_SAMPLE_STEPS * N_LAYERS
+    print(f"  (c) fdiff-torch-sample of the bf16 run: {BF16_SAMPLES} samples x "
+          f"{BF16_SAMPLE_STEPS} steps in {seconds:.3f} s, launches {counts}, samples.npy "
+          f"{samples.shape}", flush=True)
+    if counts != expected or samples.shape != (BF16_SAMPLES, MAX_LEN, N_CHANNELS) or not (
+            np.isfinite(samples).all()):
+        raise AssertionError(f"(c) sample: launches {counts}, samples {samples.shape}")
+    return {**runs, "sample": {"seconds": seconds, "launches": counts}}
+
+
+def check_bf16(flagship: ScoreTransformer) -> dict:
+    """Phase 20 (a)-(c) in a temporary directory; the seconds of each."""
+    seconds, layers = {}, {}
+    t0 = time.perf_counter()
+    layers[f"L={MAX_LEN} D=72 B={TRAIN_BATCH}"] = bf16_train_layer(
+        flagship.backbone.layers[0], N_HEAD, TRAIN_BATCH, MAX_LEN, timed=True)
+    for l, d, n_head, d_ff in COVERAGE:
+        torch.manual_seed(0)
+        layer = TransformerEncoderLayer(d, n_head, d_ff).to("cuda")
+        layers[f"L={l} D={d} H={n_head} F={d_ff} B={COVERAGE_BATCH}"] = bf16_train_layer(
+            layer, n_head, COVERAGE_BATCH, l, timed=False)
+    seconds["a"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        training = check_training(synthetic_data(str(root / "check")), "bfloat16")
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli = check_bf16_cli(root)
+        seconds["c"] = time.perf_counter() - t0
+    print("  seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in seconds.items()), flush=True)
+    return {"layers": layers, "training": training, "cli": cli, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2969,6 +3315,9 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         model = load_flagship(dtype, "cuda")
         checks[dtype] = {b: check_kernel(model, dtype, b) for b in KERNEL_BATCHES}
+        print(f"  B1 {dtype} B={SAMPLE_CHAINS}: {checks[dtype][SAMPLE_CHAINS]['kernel_ms']:.4f} "
+              f"ms (before C1's repair: {B1_BEFORE_C1_MS[dtype]} ms)", flush=True)
+    c1 = check_batch_independence(load_flagship(torch.float32, "cuda").backbone.layers[0])
     phase("3 kernel vs plain", t0)
 
     t0 = time.perf_counter()
@@ -3089,6 +3438,10 @@ def main() -> int:
     parallel = check_data_parallel(main[torch.float32]["samples"], training)
     phase("19 data-parallel training and sharded sampling", t0)
 
+    t0 = time.perf_counter()
+    bf16 = check_bf16(flagship)
+    phase("20 bf16 training", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -3180,6 +3533,36 @@ def main() -> int:
             "sdpa_backend": attn_main["sdpa_backend"],
             "checked_shapes": {k: a[key] for k, a in checked.items()},
         })
+    bf16_runs = bf16["cli"]["bfloat16"]
+    b16 = attention[torch.bfloat16]
+    kernels.append({
+        "name": "flash_attention_fast/bfloat16", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_FAST_REPLACES, "launches": bf16_runs["launches"]["B2 fast bf16"],
+        "max_abs_err": max([b16["max_abs_err"]] + [c["max_abs_err"] for k, c in
+                                                   attn_shapes.items() if k.startswith("bfloat16")
+                                                   and int(k.split("dh=")[1]) < fa.DH_PAD]),
+        "ms": b16["ms"], "plain_ms": b16["plain_ms"], "bound_ms": b16["bound_ms"],
+        "bound_by": b16["bound_by"], "library_ms": b16["library_ms"],
+        "shape": f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD} bfloat16",
+        "launches_note": f"validation of the bf16 training run, phase 20 (c), {BF16_EPOCHS} epochs",
+    })
+    flagship_key = f"L={MAX_LEN} D=72 B={TRAIN_BATCH}"
+    for key, name, replaces, count in (
+        ("fwd", "fused_encoder_layer_train_fwd/bfloat16", TRAIN_FWD_REPLACES, "B3"),
+        ("bwd", "fused_encoder_layer_train_bwd/bfloat16", TRAIN_BWD_REPLACES, "B4"),
+    ):
+        r = bf16["layers"][flagship_key][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": TRAIN_SOURCE, "replaces": replaces,
+            "launches": bf16_runs["launches"][count],
+            "max_abs_err": max(c[key]["max_abs_err"] for c in bf16["layers"].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 bf16 dropout {DROPOUT}",
+            "steps_per_sec": bf16_runs["steps_per_sec"],
+            "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train_bf16: ")},
+            "checked_lengths": {k: v[key] for k, v in bf16["layers"].items()},
+        })
     breakdown8 = int8_checks["breakdown"]
     for level in INT8_LEVELS:
         by_shape = int8_checks[level]
@@ -3242,6 +3625,8 @@ def main() -> int:
     print(f"cli: {json.dumps(cli)}", flush=True)
     print(f"datasets: {json.dumps(datasets)}", flush=True)
     print(f"parallel: {json.dumps(parallel)}", flush=True)
+    print(f"bf16: {json.dumps({k: v for k, v in bf16.items() if k != 'layers'})}", flush=True)
+    print(f"C1: {json.dumps(c1)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}
     print(f"unfused training: {json.dumps(unfused_all)}", flush=True)

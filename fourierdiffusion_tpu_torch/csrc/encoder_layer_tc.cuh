@@ -10,16 +10,22 @@
 //      where two do not fit) over the units (row tile of 16 or 32 rows, d_ff
 //      chunk of 64) (TailSchedule):
 //      per row tile it holds, the out projection, dropout, residual, LN1,
-//      then the FFN over its chunks with the hidden chunk in shared memory,
-//      and the partial sum f2 of those chunks to device memory;
-//   4. tail_finish_kernel, a warp per row: the row's partials in a fixed
-//      order, dropout, residual, LN2.
+//      then the FFN over its chunks with the hidden chunk in shared memory;
+//      the CTA that holds a row tile's chunk 0 folds its chunks' partial
+//      sums of f2 in chunk order and writes the fold once, any other CTA
+//      writes each chunk's partial, each to a slot of its own in device
+//      memory (the chunk's plane of N x D);
+//   4. tail_finish_kernel, a warp per row: the fold continued over the
+//      row's remaining partials in chunk order, then dropout, residual,
+//      LN2. So a row's FFN sum is (p0 + p1) + p2 ... whichever CTAs hold
+//      its chunks: it does not depend on the batch the row is in.
 //   Where D is wider than the tail's register tiles (256), 3 and 4 run
 //   instead as five launches through device memory (launch_layer_tail_wide).
 //
 // Used by the sampling layer B1 (fused_encoder.cu: T = float or bf16, no
 // dropout), by the training forward B3 and by the training backward B4's
-// recompute of that forward (fused_encoder_train.cu: T = float, dropout).
+// recompute of that forward (fused_encoder_train.cu: T = float or bf16,
+// dropout).
 // The tail's TailMode says which: kTailSample (B1), kTailTrainFwd (B3:
 // dropout at the out, FF and FF2 sites, LN2's output) or kTailTrainBwd
 // (B4: dropout, and in place of LN2's output the normalised LN inputs, their
@@ -27,9 +33,12 @@
 //
 // Numerics are the TPU kernels': products take operands in T and
 // accumulate in fp32 (bf16 on the tensor cores, fp32 as 3xTF32); results
-// are rounded to T after qkv, P, O, LN1, the ReLU and LN2; LayerNorm
-// statistics in fp32 with eps 1e-5; fp32 takes the exact max-subtracted
-// softmax, bf16 the max-free one with scores clamped to +-60. Dropout masks
+// are rounded to T after qkv, P (times its keep factor), O, LN1, the ReLU
+// (times its keep factor) and LN2; LayerNorm statistics in fp32 with eps
+// 1e-5; the sampling layer in bf16 takes the max-free softmax with scores
+// clamped to +-60, every other instance the exact max-subtracted one. The
+// residual around the FFN is LN1's output rounded to T in the sampling
+// layer and unrounded in training, as in the TPU kernels. Dropout masks
 // come from encoder_layer.cuh's hash at the TPU kernels' positions.
 //
 // What bounds it, and the design: at the flagship's shape (D 72, F 2048,
@@ -84,20 +93,23 @@ struct TailPlan {
   int swo;    // stride of a [kt or fc][dn] weight tile (W_out, W2 chunk)
   int sw1;    // stride of a [kt][fc] weight tile (W1 chunk)
   int slot;   // elements of one ring slot
-  int off_a, off_h, off_ring, off_pre, bytes;
+  int off_a, off_h, off_ring, off_pre, off_run, bytes;
 };
 
 // What the tail writes in kTailTrainBwd besides x1 (all fp32, N x D unless
 // noted): xhat1 / inv1 (N), xhat2 / inv2 (N), g2 = LN2's input gradient,
-// df2 = g2 * keep_ff2; dy is read.
+// df2 = g2 * keep_ff2; where not null, x1t = x1 and df2t = df2 rounded to
+// the tail's T (the backward's product operands in bf16). dy (N x D, in
+// T) is read.
 struct TailTrain {
   float* xhat1; float* inv1; float* xhat2; float* inv2; float* g2; float* df2;
-  const float* dy;
+  void* x1t; void* df2t; const void* dy;
 };
 
-// The tail's device-memory workspace. Fused route: x1 (N x D, fp32; LN1's
-// output) and part (the f2 partials, TailSchedule::parts x tm x D, fp32).
-// Wide route: pre (N x D, fp32), x1t (N x D) and h (N x F) in T.
+// The tail's device-memory workspace. Fused route: x1 (N x D, fp32; the
+// residual around the FFN) and part (the f2 partials, one plane of N x D
+// per d_ff chunk, fp32). Wide route: pre (N x D, fp32), x1t (N x D) and h
+// (N x F) in T.
 template <typename T>
 struct TailWs {
   float* x1; float* part; float* pre; T* x1t; T* h;
@@ -106,10 +118,15 @@ struct TailWs {
 // The fused tail's persistent schedule. Its units are (row tile, d_ff
 // chunk), tile-major; CTA k of G (ops/fused_encoder.py: tail_schedule)
 // takes the units [k U / G, (k + 1) U / G), so every SM gets the same
-// share of the FFN whether or not the row tiles divide evenly among them. The units of one CTA within one row tile are
-// a segment; its f2 partial goes to slot tile + k (unique: a later CTA
-// never holds an earlier tile), and tail_finish_kernel adds a tile's
-// partials in CTA order. G <= U, so no CTA's range is empty.
+// share of the FFN whether or not the row tiles divide evenly among them.
+// The units of one CTA within one row tile are a segment. The partials go
+// to planes of N x D (rows of tile t at t tm): the segment that holds chunk
+// 0 of its tile folds its chunks' partials in order, s = (p0 + p1) + ...,
+// and writes s to the plane of its last chunk; any other segment writes
+// each chunk c's partial to plane c; tail_finish_kernel continues the fold
+// over the tile's later chunks in order. The same fp32 additions in the
+// same order at any batch and on any card. G <= U, so no CTA's range is
+// empty.
 struct TailSchedule {
   long long units;
   int chunks;
@@ -121,6 +138,12 @@ struct TailSchedule {
   // the CTA whose range holds unit u
   __host__ __device__ int cta_of(long long u, int G) const {
     return (int)(((u + 1) * G - 1) / units);
+  }
+  // chunks of row tile t that its first segment holds (and folds)
+  __host__ __device__ int first_segment(int t, int G) const {
+    const long long u0 = (long long)t * chunks;
+    const long long end = begin(cta_of(u0, G) + 1, G);
+    return (int)(end - u0 < chunks ? end - u0 : chunks);
   }
 };
 
@@ -147,7 +170,7 @@ template <typename T, bool kDrop, int kDh>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D, int H,
                      Dropout dp) {
-  constexpr bool kFast = sizeof(T) == 2;
+  constexpr bool kFast = sizeof(T) == 2 && !kDrop;  // the bf16 sampling layer's softmax
   constexpr int KB = attn_key_block<kDh>();
   __shared__ float sK[KB * kDh], sV[KB * kDh];
   const int i = blockIdx.x * kAttnThreads + threadIdx.x;
@@ -198,7 +221,7 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D,
     const float inv = __fdividef(1.0f, sum);
     for_keys([&](int j, int jl, float sc) {
       const float e = __expf(fminf(fmaxf(sc, -kScoreClamp), kScoreClamp));
-      accumulate(jl, round_to<T>(e * inv) * keep3<kDrop>(dp, key, g, i, j));
+      accumulate(jl, round_to<T>(e * inv));
     });
   } else {
     float m = -FLT_MAX;
@@ -206,7 +229,7 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D,
     float sum = 0.0f;
     for_keys([&](int, int, float sc) { sum += expf(sc - m); });
     for_keys([&](int j, int jl, float sc) {
-      accumulate(jl, round_to<T>(expf(sc - m) / sum) * keep3<kDrop>(dp, key, g, i, j));
+      accumulate(jl, round_to<T>(expf(sc - m) / sum * keep3<kDrop>(dp, key, g, i, j)));
     });
   }
   if (!active) return;
@@ -251,9 +274,9 @@ __device__ __forceinline__ float2 ln_stats(const float* row, int D, int lane) {
   return make_float2(mean, rsqrtf(warp_sum(v) / D + kLnEps));
 }
 
-// LN1 of row gr (N = B*L rows; fp32, held by one warp): x1 = round_T(LN1),
-// put(c, x1) for every column c; with tr (may be null), also its xhat1 and
-// inv1.
+// LN1 of row gr (N = B*L rows; fp32, held by one warp): put(c, x1) for
+// every column c, x1 = LN1 in fp32; with tr (may be null), also its xhat1,
+// inv1 and, where tr->x1t is not null, x1 rounded to T.
 template <typename T, typename Put>
 __device__ __forceinline__ void ln1_row(const float* row, int gr, int D,
                                         const float* __restrict__ ln1_s,
@@ -264,8 +287,12 @@ __device__ __forceinline__ void ln1_row(const float* row, int gr, int D,
   const size_t g = (size_t)gr * D;
   for (int c = lane; c < D; c += 32) {
     const float xh = (row[c] - st.x) * st.y;
-    put(c, round_to<T>(xh * ln1_s[c] + ln1_b[c]));
-    if (tr != nullptr) tr->xhat1[g + c] = xh;
+    const float x1 = xh * ln1_s[c] + ln1_b[c];
+    put(c, x1);
+    if (tr != nullptr) {
+      tr->xhat1[g + c] = xh;
+      if (tr->x1t != nullptr) static_cast<T*>(tr->x1t)[g + c] = from_f<T>(x1);
+    }
   }
   if (tr != nullptr && lane == 0) tr->inv1[gr] = st.y;
 }
@@ -285,11 +312,12 @@ __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
     for (int c = lane; c < D; c += 32)
       out[g + c] = from_f<T>((row[c] - st.x) * st.y * ln2_s[c] + ln2_b[c]);
   } else {
+    const T* dy = static_cast<const T*>(tr.dy);
     float s1 = 0.0f, s2 = 0.0f;
     for (int c = lane; c < D; c += 32) {
       const float xh = (row[c] - st.x) * st.y;
       tr.xhat2[g + c] = xh;
-      const float dxh = tr.dy[g + c] * ln2_s[c];
+      const float dxh = to_f(dy[g + c]) * ln2_s[c];
       s1 += dxh;
       s2 += dxh * xh;
     }
@@ -297,9 +325,11 @@ __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
     const int b = gr / L, l = gr - b * L;
     const uint32_t key = mask_key(dp, b, kSiteFf2, 0);
     for (int c = lane; c < D; c += 32) {
-      const float gv = st.y * (tr.dy[g + c] * ln2_s[c] - m1 - tr.xhat2[g + c] * m2);
+      const float gv = st.y * (to_f(dy[g + c]) * ln2_s[c] - m1 - tr.xhat2[g + c] * m2);
+      const float df2 = gv * keep2<true>(dp, key, c, l);
       tr.g2[g + c] = gv;
-      tr.df2[g + c] = gv * keep2<true>(dp, key, c, l);
+      tr.df2[g + c] = df2;
+      if (tr.df2t != nullptr) static_cast<T*>(tr.df2t)[g + c] = from_f<T>(df2);
     }
     if (lane == 0) tr.inv2[gr] = st.y;
   }
@@ -310,10 +340,12 @@ __device__ __forceinline__ void ln2_row(const float* row, int gr, int L, int D,
 // of the N = B*L rows) and chunks [c_lo, c_hi): the out projection of O
 // (N x D, T, from attention_fwd_kernel), dropout, residual and LN1 (x1 to
 // ws.x1, and in kTailTrainBwd xhat1 and inv1, by the segment that holds
-// chunk 0), then the FFN over its chunks, and its f2 partial to ws.part.
-// kMT = tm / 16 m-tiles per warp. Warps: the out projection and W1 split
-// the output columns eight ways; W2 splits them four ways and its k-range
-// (the chunk) in two halves, added at the end of the segment.
+// chunk 0), then the FFN over its chunks, their f2 partials to ws.part as
+// TailSchedule says (the fold through sRun where the segment holds chunk
+// 0). kMT = tm / 16 m-tiles per warp. Warps: the out projection and W1
+// split the output columns eight ways; W2 splits them four ways and its
+// k-range (the chunk) in two halves, which are added (the upper half
+// through sPre) into the chunk's partial.
 template <typename T, TailMode kMode, int kMT>
 __global__ void __launch_bounds__(kTailThreads, 2)
 layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
@@ -332,7 +364,8 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
   T* sH = reinterpret_cast<T*>(tail_smem + p.off_h);
   T* ring = reinterpret_cast<T*>(tail_smem + p.off_ring);
   float* sPre = reinterpret_cast<float*>(tail_smem + p.off_pre);
-  float* sRed = reinterpret_cast<float*>(tail_smem + p.off_ring);  // after the last tile
+  float* sRed = sPre;  // tm x dn: after LN1, the upper half of a chunk's W2 sums
+  float* sRun = reinterpret_cast<float*>(tail_smem + p.off_run);  // the fold, tm x dn
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int nkd = (p.kd + p.kt - 1) / p.kt;
@@ -409,13 +442,14 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
             }
           });
           __syncthreads();
-          // LN1: x1 rounded to T, into sA (the FFN's A operand) and, once
-          // per row, to device memory
+          // LN1: x1 rounded to T into sA (the FFN's A operand) and, once
+          // per row, the residual to device memory (rounded to T in the
+          // sampling layer, as its TPU kernel keeps it)
           const TailTrain* trp = kMode == kTailTrainBwd && c_lo == 0 ? &tr : nullptr;
           for (int r = warp; r < rows; r += kWarps)
             ln1_row<T>(sPre + r * D, row0 + r, D, ln1_s, ln1_b, trp, [&](int c, float x1) {
               sA[r * p.sa + c] = from_f<T>(x1);
-              if (c_lo == 0) x1g[(size_t)(row0 + r) * D + c] = x1;
+              if (c_lo == 0) x1g[(size_t)(row0 + r) * D + c] = kDrop ? x1 : round_to<T>(x1);
             });
         }
       } else {
@@ -432,38 +466,50 @@ layer_tail_kernel(const T* __restrict__ x, const T* __restrict__ o,
               if (f < F) {
                 int b, l;
                 chain_pos(r, b, l);
-                h = round_to<T>(fmaxf(val + b1[f], 0.0f)) *
-                    keep2<kDrop>(dp, mask_key(dp, b, kSiteFf, 0), f, l);
+                h = fmaxf(val + b1[f], 0.0f) * keep2<kDrop>(dp, mask_key(dp, b, kSiteFf, 0), f, l);
               }
               sH[r * p.sh + n] = from_f<T>(h);
             });
             tc::zero(acc1);
           }
         } else {
-          // W2 chunk c: this warp's columns over its half of the chunk
+          // W2 chunk c: this warp's columns over its half of the chunk,
+          // then the chunk's partial p_c = lower half + upper half: folded
+          // into sRun (s = p_0, then s + p_c) where the segment holds chunk
+          // 0, s written at its last chunk; else p_c to plane c. Each (r, n)
+          // of sRun belongs to one thread, at every chunk.
           tc::warp_mma<T, kMT, NT2, true, false>(acc2, sH, p.sh, 0, s, p.swo, 8 * nw, 32,
                                                  nact_2, kh * (p.fc / 2), (kh + 1) * (p.fc / 2));
+          if (kh == 1)
+            tc::for_each_acc(acc2, 0, 8 * nw, 32, nact_2,
+                             [&](int r, int n, float v) { sRed[r * p.dn + n] = v; });
+          __syncthreads();
+          if (kh == 0) {
+            const bool fold = c_lo == 0, last = c == c_hi - 1;
+            float* dst = part + ((size_t)c * N + row0) * D;
+            tc::for_each_acc(acc2, 0, 8 * nw, 32, nact_2, [&](int r, int n, float v) {
+              const int e = r * p.dn + n;
+              float pc = v + sRed[e];
+              if (fold) {
+                if (c > 0) pc = sRun[e] + pc;
+                if (!last) sRun[e] = pc;
+              }
+              if ((!fold || last) && r < rows && n < D) dst[(size_t)r * D + n] = pc;
+            });
+          }
+          tc::zero(acc2);
         }
       }
       __syncthreads();
     }
-
-    // the segment's f2 partial: its two half-chunk sums, in order
-    tc::for_each_acc(acc2, 0, 8 * nw, 32, nact_2, [&](int r, int n, float v) {
-      sRed[(kh * p.tm + r) * p.dn + n] = v;
-    });
-    __syncthreads();
-    float* dst = part + (size_t)(tile + blockIdx.x) * p.tm * D;
-    for (int e = tid; e < rows * D; e += kTailThreads) {
-      const int r = e / D, n = e - r * D;
-      dst[e] = sRed[r * p.dn + n] + sRed[(p.tm + r) * p.dn + n];
-    }
   }
 }
 
-// f2 of each row = its tile's partials in CTA order (G CTAs in the tail),
-// + b2; dropout; residual x1 (N x D, fp32); LN2 into out, or in
-// kTailTrainBwd its backward into tr. A warp per row.
+// f2 of each row = the fold its tile's first segment wrote (at that
+// segment's last chunk, e - 1) continued over the partials of chunks e, e +
+// 1, ... in order (G CTAs in the tail), + b2; dropout; residual x1 (N x D,
+// fp32); LN2 into out, or in kTailTrainBwd its backward into tr. A warp
+// per row.
 template <typename T, TailMode kMode>
 __global__ void __launch_bounds__(256)
 tail_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
@@ -475,15 +521,15 @@ tail_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
   const int gr = blockIdx.x * 8 + warp;
   if (gr >= N) return;
   const TailSchedule sc(N, F, p);
-  const int tile = gr / p.tm, r = gr - tile * p.tm;
-  const long long u0 = (long long)tile * sc.chunks;
-  const int k0 = sc.cta_of(u0, G), k1 = sc.cta_of(u0 + sc.chunks - 1, G);
+  const size_t plane = (size_t)N * D;
+  const int e = sc.first_segment(gr / p.tm, G);
   const int b = gr / L, l = gr - b * L;
   const uint32_t key = mask_key(dp, b, kSiteFf2, 0);
   float* row = rows[warp];
   for (int c = lane; c < D; c += 32) {
-    float f2 = part[((size_t)(tile + k0) * p.tm + r) * D + c];
-    for (int k = k0 + 1; k <= k1; ++k) f2 += part[((size_t)(tile + k) * p.tm + r) * D + c];
+    const float* src = part + (size_t)gr * D + c;
+    float f2 = src[(e - 1) * plane];
+    for (int k = e; k < sc.chunks; ++k) f2 += src[k * plane];
     row[c] = x1[(size_t)gr * D + c] + (f2 + b2[c]) * keep2<tail_drops(kMode)>(dp, key, c, l);
   }
   __syncwarp();
@@ -494,14 +540,16 @@ tail_finish_kernel(const float* __restrict__ part, const float* __restrict__ x1,
 // Where D is wider than layer_tail_kernel's register tiles (kTailMaxD), the
 // tail runs as five launches through device memory, with the same
 // products (the tile product, gemm_kernel), roundings, masks and
-// LayerNorms: pre = x + (O W_out + b_out) keep_out; x1 = round(LN1(pre));
-// h = round(relu(x1 W1 + b1)) keep_ff; pre = x1 + (h W2 + b2) keep_ff2;
+// LayerNorms: pre = x + (O W_out + b_out) keep_out; x1 = round(LN1(pre))
+// (in training LN1's fp32 output also stays in pre, as the residual);
+// h = round(relu(x1 W1 + b1) keep_ff); pre = x1 + (h W2 + b2) keep_ff2;
 // LN2(pre). Each product sums its whole depth in one order.
 
-// pre[m, n] = res[m, n] + (v + bias[n]) * keep at a site of shape (D, L).
-template <typename T, bool kDrop>
+// pre[m, n] = res[m, n] + (v + bias[n]) * keep at a site of shape (D, L);
+// res in T or fp32 (R).
+template <typename R, bool kDrop>
 struct ResidualEpi {
-  float* pre; const T* res; const float* bias; int D, L, site; Dropout dp;
+  float* pre; const R* res; const float* bias; int D, L, site; Dropout dp;
   __device__ void operator()(int m, int n, float v) const {
     const int b = m / L, l = m - b * L;
     const float keep = keep2<kDrop>(dp, mask_key(dp, b, site, 0), n, l);
@@ -509,28 +557,34 @@ struct ResidualEpi {
   }
 };
 
-// h[m, f] = round_T(relu(v + b1[f])) * keep_ff.
+// h[m, f] = round_T(relu(v + b1[f]) * keep_ff).
 template <typename T, bool kDrop>
 struct HiddenRoundEpi {
   T* h; const float* b1; int F, L; Dropout dp;
   __device__ void operator()(int m, int f, float v) const {
     const int b = m / L, l = m - b * L;
     const float keep = keep2<kDrop>(dp, mask_key(dp, b, kSiteFf, 0), f, l);
-    h[(long)m * F + f] = from_f<T>(round_to<T>(fmaxf(v + b1[f], 0.0f)) * keep);
+    h[(long)m * F + f] = from_f<T>(fmaxf(v + b1[f], 0.0f) * keep);
   }
 };
 
 constexpr int kRowThreads = 256;  // a warp per row
 
-template <typename T, bool kBwd>
+// x1 = round_T(LN1(pre)); with kDrop (training) pre's row then holds
+// LN1's fp32 output, the residual around the FFN.
+template <typename T, TailMode kMode>
 __global__ void __launch_bounds__(kRowThreads)
-tail_ln1_kernel(const float* __restrict__ pre, T* __restrict__ x1,
+tail_ln1_kernel(float* __restrict__ pre, T* __restrict__ x1,
                 const float* __restrict__ ln1_s, const float* __restrict__ ln1_b, int N, int D,
                 TailTrain tr) {
   const int r = blockIdx.x * (kRowThreads / 32) + threadIdx.x / 32;
   if (r >= N) return;
-  ln1_row<T>(pre + (size_t)r * D, r, D, ln1_s, ln1_b, kBwd ? &tr : nullptr,
-             [&](int c, float v) { x1[(size_t)r * D + c] = from_f<T>(v); });
+  float* row = pre + (size_t)r * D;
+  ln1_row<T>(row, r, D, ln1_s, ln1_b, kMode == kTailTrainBwd ? &tr : nullptr,
+             [&](int c, float v) {
+               x1[(size_t)r * D + c] = from_f<T>(v);
+               if (tail_drops(kMode)) row[c] = v;  // this lane's own column, read above
+             });
 }
 
 template <typename T, bool kBwd>
@@ -555,15 +609,21 @@ cudaError_t launch_layer_tail_wide(const T* x, const T* o, const Weights<T>& w, 
       o, D, w.w_out, D, N, D, D, tc::round_up(D, tc::kGemmBK), 1,
       ResidualEpi<T, kDrop>{ws.pre, x, w.b_out, D, L, kSiteOut, dp}, s);
   if (err != cudaSuccess) return err;
-  tail_ln1_kernel<T, kBwd><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, ws.x1t, w.ln1_s,
-                                                                w.ln1_b, N, D, tr);
+  tail_ln1_kernel<T, kMode><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, ws.x1t, w.ln1_s,
+                                                                 w.ln1_b, N, D, tr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = tc::gemm<T, true, false>(ws.x1t, D, w.w1, F, N, F, D, tc::round_up(D, tc::kGemmBK), 1,
                                  HiddenRoundEpi<T, kDrop>{ws.h, w.b1, F, L, dp}, s);
   if (err != cudaSuccess) return err;
-  err = tc::gemm<T, true, false>(ws.h, F, w.w2, D, N, D, F, tc::round_up(F, tc::kGemmBK), 1,
-                                 ResidualEpi<T, kDrop>{ws.pre, ws.x1t, w.b2, D, L, kSiteFf2, dp},
-                                 s);
+  const int k2 = tc::round_up(F, tc::kGemmBK);
+  if constexpr (kDrop)  // the residual: LN1's fp32 output, in pre
+    err = tc::gemm<T, true, false>(
+        ws.h, F, w.w2, D, N, D, F, k2, 1,
+        ResidualEpi<float, true>{ws.pre, ws.pre, w.b2, D, L, kSiteFf2, dp}, s);
+  else  // the residual: x1 rounded to T
+    err = tc::gemm<T, true, false>(
+        ws.h, F, w.w2, D, N, D, F, k2, 1,
+        ResidualEpi<T, false>{ws.pre, ws.x1t, w.b2, D, L, kSiteFf2, dp}, s);
   if (err != cudaSuccess) return err;
   tail_ln2_kernel<T, kBwd><<<row_blocks, kRowThreads, 0, s>>>(ws.pre, out, w.ln2_s, w.ln2_b,
                                                                 N, L, D, dp, tr);

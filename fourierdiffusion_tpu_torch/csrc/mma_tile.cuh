@@ -154,6 +154,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -170,9 +176,10 @@ __device__ __forceinline__ int at(int r, int k, int s) {
 // acc[i][j] += sum over k in [k0, k1) of A(m0 + 16 i + ., k) B(k, n0 + j nstep + .)
 // for i < MT and j < min(NT, nact): one warp, m16 x n8 accumulator tiles
 // in the mma C layout (c0, c1: row g, columns 2t, 2t+1; c2, c3: row g + 8).
-// A is kKMaj with stride sa (bf16: required); B is kKMaj ([n][k]) or
-// row-major in n ([k][n]; bf16: required), stride sb. k1 - k0 is a multiple
-// of KStep<T>.
+// A is kKMaj ([m][k]) or row-major in m ([k][m]), stride sa; B is kKMaj
+// ([n][k]) or row-major in n ([k][n]), stride sb. k1 - k0 is a multiple of
+// KStep<T>. bf16 fragments come from ldmatrix: [m][k] A and [n][k] B as
+// stored, [k][m] A and [k][n] B through its transposing form.
 template <typename T, int MT, int NT, bool kAKMaj, bool kBKMaj>
 __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const T* __restrict__ sA,
                                          int sa, int m0, const T* __restrict__ sB, int sb,
@@ -206,17 +213,24 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const T* __res
       }
     }
   } else {
-    static_assert(kAKMaj && !kBKMaj, "bf16 tiles: A [m][k], B [k][n]");
     for (int k = k0; k < k1; k += 16) {
       uint32_t a[MT][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], sA + (m0 + 16 * i + (lane & 15)) * sa + k + (lane >> 4) * 8);
+      for (int i = 0; i < MT; ++i) {
+        if constexpr (kAKMaj)  // matrices (m 0-7 | 8-15) x (k 0-7 | 8-15), m first
+          ldmatrix_x4(a[i], sA + (m0 + 16 * i + (lane & 15)) * sa + k + (lane >> 4) * 8);
+        else  // the same four, from rows of k
+          ldmatrix_x4_trans(a[i], sA + (k + (lane & 7) + (lane >> 4) * 8) * sa + m0 + 16 * i +
+                                      ((lane >> 3) & 1) * 8);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         if (j < nact) {
           uint32_t b[2];
-          ldmatrix_x2_trans(b, sB + (k + (lane & 15)) * sb + n0 + j * nstep);
+          if constexpr (kBKMaj)  // n 0-7 x (k 0-7 | 8-15)
+            ldmatrix_x2(b, sB + (n0 + j * nstep + (lane & 7)) * sb + k + ((lane >> 3) & 1) * 8);
+          else
+            ldmatrix_x2_trans(b, sB + (k + (lane & 15)) * sb + n0 + j * nstep);
 #pragma unroll
           for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b);
         }

@@ -72,7 +72,10 @@ STAT_COLS = 3
 
 #: Kernel launches so far in this process; only the CUDA branches add to
 #: them (B2, B5, B6-fwd, B6-bwd). Callers reset them to 0 to count a run.
+#: ``fast_launches`` counts, of B2's ``launches``, those of the bf16 fast
+#: form (``_fast_fwd_kernel``'s counterpart: bf16 with dh < 16).
 launches = 0
+fast_launches = 0
 bwd_launches = 0
 dropout_fwd_launches = 0
 dropout_bwd_launches = 0
@@ -367,7 +370,7 @@ def _fp32_only(q: torch.Tensor, what: str) -> None:
 
 def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
     """B2 (seed None) or B6-fwd on contiguous CUDA tensors."""
-    global launches, dropout_fwd_launches
+    global launches, fast_launches, dropout_fwd_launches
     b, h, l, dh = _dims(q)
     scale = 1.0 / math.sqrt(dh)
     if seed is not None:
@@ -386,6 +389,7 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
     _raise_on(err, "attention forward")
     if seed is None:
         launches += 1
+        fast_launches += variant == 2
     else:
         dropout_fwd_launches += 1
     return out

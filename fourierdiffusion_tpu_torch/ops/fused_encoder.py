@@ -66,7 +66,7 @@ class TailPlan(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "wide", "tm", "kt", "fc", "slots", "kd", "dn", "sa", "sh", "swo", "sw1", "slot",
-        "off_a", "off_h", "off_ring", "off_pre", "bytes")]
+        "off_a", "off_h", "off_ring", "off_pre", "off_run", "bytes")]
 
 
 #: Kernel launches so far in this process, of B1, B7 and B8; only the CUDA
@@ -424,10 +424,12 @@ def tail_plan(d_model: int, dtype: torch.dtype) -> dict[str, int]:
     row tiles of 32 rows up to D = 128, else 16; d_ff chunks of 64; weight
     tiles of all of D's k-rows up to 96, else of 64; three weight tiles in
     the ring where they fit, else two; the shared-memory regions
-    (activation tile, hidden chunk, the weight ring, which also holds the
-    W2 partial sums at the end of a segment, and an fp32 row buffer), each
-    16-byte aligned. Wider layers take the wide route (``wide`` 1, the
-    other fields 0): five launches through device memory."""
+    (activation tile, hidden chunk, the weight ring, an fp32 tile of tm x
+    dn that holds the rows before LN1 and, per d_ff chunk, one half of the
+    chunk's W2 sums, and one that holds the running sum of a row tile's
+    chunks), each 16-byte aligned. Wider layers take the wide route
+    (``wide`` 1, the other fields 0): five launches through device
+    memory."""
     p = dict.fromkeys(f for f, _ in TailPlan._fields_)
     if d_model > MAX_TAIL_D:
         return {**dict.fromkeys(p, 0), "wide": 1}
@@ -443,8 +445,8 @@ def tail_plan(d_model: int, dtype: torch.dtype) -> dict[str, int]:
     for slots in (3, 2):
         p["slots"] = slots
         regions = (("off_a", tm * p["sa"] * size), ("off_h", tm * p["sh"] * size),
-                   ("off_ring", max(slots * p["slot"] * size, 2 * tm * dn * 4)),
-                   ("off_pre", tm * d_model * 4))
+                   ("off_ring", slots * p["slot"] * size), ("off_pre", tm * dn * 4),
+                   ("off_run", tm * dn * 4))
         offset = 0
         for name, nbytes in regions:
             p[name] = offset
@@ -471,25 +473,29 @@ def _schedule(n_rows: int, tm: int, fc: int, d_ff: int, per_sm: int, sms: int) -
     tiles, chunks = -(-n_rows // tm), -(-d_ff // fc)
     ctas = min(sms * per_sm, tiles * chunks)
     return {"tiles": tiles, "chunks": chunks, "units": tiles * chunks, "ctas": ctas,
-            "parts": tiles + ctas - 1}
+            "parts": chunks}
 
 
 def tail_schedule(n_rows: int, d_model: int, d_ff: int, dtype: torch.dtype,
                   sms: int = SMS) -> dict[str, int]:
     """The fused tail's persistent schedule (``fdiff::TailSchedule``): its
     units are (row tile, d_ff chunk), tile-major; ``ctas`` = min(SMs x
-    ``tail_ctas_per_sm``, units) CTAs each take a contiguous range of them,
-    and ``parts`` f2 partials of a row tile each (row tiles + CTAs - 1)
-    hold their segments' sums."""
+    ``tail_ctas_per_sm``, units) CTAs each take a contiguous range of them.
+    A row's FFN sum is the fold of its chunks' partials in chunk order,
+    (p0 + p1) + p2 ..., whatever CTAs hold them (``tail_partials``): the
+    partials go to ``parts`` (= chunks) planes of N x D, so a row's sum
+    does not depend on the batch it is in."""
     p = tail_plan(d_model, dtype)
     return _schedule(n_rows, p["tm"], p["fc"], d_ff, tail_ctas_per_sm(p), sms)
 
 
-def tail_segments(schedule: dict[str, int]) -> list[tuple[int, int, int, int, int]]:
-    """(CTA, row tile, first chunk, end chunk, partial slot) of every
-    segment of the schedule, in the kernel's order: CTA k takes the units
-    [k U / G, (k + 1) U / G), a row tile at a time, its partial to slot
-    tile + k."""
+def tail_segments(schedule: dict[str, int]) -> list[tuple[int, int, int, int, tuple]]:
+    """(CTA, row tile, first chunk, end chunk, partials) of every segment of
+    the schedule, in the kernel's order: CTA k takes the units [k U / G,
+    (k + 1) U / G), a row tile at a time. A segment that holds a tile's
+    chunk 0 folds its chunks in order and writes one partial, (slot c_hi -
+    1, chunks [0, c_hi)); any other writes each chunk's partial, (slot c,
+    chunks [c, c + 1)). Slot c is plane c of the partials, rows of tile t."""
     units, ctas, chunks = schedule["units"], schedule["ctas"], schedule["chunks"]
     out = []
     for k in range(ctas):
@@ -497,9 +503,21 @@ def tail_segments(schedule: dict[str, int]) -> list[tuple[int, int, int, int, in
         while u < end:
             tile = u // chunks
             c_lo, c_hi = u - tile * chunks, min(chunks, end - tile * chunks)
-            out.append((k, tile, c_lo, c_hi, tile + k))
+            parts = (((c_hi - 1, 0, c_hi),) if c_lo == 0 else
+                     tuple((c, c, c + 1) for c in range(c_lo, c_hi)))
+            out.append((k, tile, c_lo, c_hi, parts))
             u = tile * chunks + c_hi
     return out
+
+
+def tail_partials(schedule: dict[str, int]) -> dict[int, list[tuple[int, int, int]]]:
+    """Per row tile, its partials (slot, first chunk, end chunk) in the order
+    ``tail_finish_kernel`` adds them: the prefix that the tile's first
+    segment folded, then each later chunk's partial, one at a time."""
+    by_tile: dict[int, list] = {}
+    for _, tile, _, _, parts in tail_segments(schedule):
+        by_tile.setdefault(tile, []).extend(parts)
+    return {tile: sorted(parts, key=lambda p: p[1]) for tile, parts in sorted(by_tile.items())}
 
 
 @functools.cache
@@ -677,7 +695,7 @@ def int8_plan(batch: int, max_len: int, d_model: int, n_head: int, d_ff: int,
     # as few CTAs as keep the largest share: each takes ceil(U / G) units,
     # so at the flagship's 4 chunks a tile no CTA straddles two row tiles
     per_cta = -(-sched["units"] // sched["ctas"])
-    sched.update(ctas=-(-sched["units"] // per_cta), parts=sched["chunks"])
+    sched.update(ctas=-(-sched["units"] // per_cta))
     qkv_grid = (-(-n // QKV8_TILE), -(-d3 // QKV8_TILE))
     if level == 2:
         first = [("qkv_int8_kernel", qkv_grid, layer["qkv_bytes"]),
@@ -724,7 +742,7 @@ def _launch(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tor
         sched = tail_schedule(n, d, d_ff, x.dtype, sm_count(x.device))
         ctas = sched["ctas"]
         tail_ws[:2] = [torch.empty(n, d, device=x.device),
-                       torch.empty(sched["parts"] * plan.tm * d, device=x.device)]
+                       torch.empty(sched["parts"] * n * d, device=x.device)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fdiff_encoder_layer(
         DTYPES[x.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(), qkv.data_ptr(),

@@ -1,5 +1,5 @@
 """One post-LN encoder layer in training mode, forward and backward (port of
-``fourierdiffusion_tpu/ops/fused_encoder_train.py``), fp32.
+``fourierdiffusion_tpu/ops/fused_encoder_train.py``), fp32 and bf16.
 
 ``fused_encoder_layer_train(x, layer, seed, n_head=, rate=)`` runs the layer
 over activations ``(B, L, D)`` with dropout at four sites (attention
@@ -8,14 +8,27 @@ differentiable in ``x`` and the packed weights:
 
 * on a CUDA tensor it applies ``FusedEncoderLayerTrain``: the forward
   launches the hand-written kernels of B3 and the backward those of B4
-  (``csrc/fused_encoder_train.cu``, over all B*L rows on the tensor cores:
+  (``csrc/fused_encoder_train.cuh``, built for fp32 from
+  ``csrc/fused_encoder_train.cu`` and for bf16 from
+  ``csrc/fused_encoder_train_bf16.cu``, over all B*L rows on the tensor cores:
   B3 in 4 launches, 7 for layers wider than 256, ``train_fwd_plan``; B4 in
   17, or 20, ``train_bwd_plan``), which recompute the forward from ``x``
   with B3's launches on B3's plan, regenerate the masks and return ``dx``
   and the 12 weight gradients; ``fwd_launches`` and ``bwd_launches`` count
   one per call;
 * on a CPU tensor it runs ``fused_encoder_layer_train_reference``, the
-  plain PyTorch version, and autograd through it is the plain backward.
+  plain PyTorch version: in fp32 autograd through it is the plain backward;
+  in bf16 its backward is ``train_backward_staged``, which rounds where the
+  TPU kernel rounds.
+
+Numerics in bf16 are the TPU kernel's: x, the packed weight matrices and the
+output in bf16, every product on bf16 operands with fp32 sums, P times its
+keep factor rounded to bf16 before P V, LayerNorm and softmax in fp32, the
+residual around the FFN (LN1's output) in fp32; the backward recomputes the
+forward, rounds dO, P keep, dS and every other product operand to bf16,
+sums the weight gradients in fp32 and rounds each to its packed weight's
+dtype (bf16 for the four matrices, fp32 for the vectors), and returns dx in
+bf16.
 
 ``train_backward_staged`` is a plain PyTorch backward that follows B4's
 stages and sums (row slices, then their partials in slice order); the tests
@@ -113,12 +126,14 @@ def dropout_masks(
 
 
 def pack_encoder_layer_train(
-    layer: TransformerEncoderLayer, n_head: int
+    layer: TransformerEncoderLayer, n_head: int, dtype: torch.dtype | None = None
 ) -> dict[str, torch.Tensor]:
     """Pack one layer's parameters for the training kernels, with
-    differentiable operations and in the parameters' dtype (fp32; fp64 only
-    for reference computations): matrices ``(in, out)`` row-major, the q
-    columns of the QKV weight and bias scaled by ``1/sqrt(dh)``."""
+    differentiable operations: matrices ``(in, out)`` row-major in ``dtype``
+    (default: the parameters' dtype; bf16 casts of the fp32 parameters for a
+    bf16 model, as JAX packs them), the vectors in the parameters' dtype
+    (fp32; fp64 only for reference computations), the q columns of the QKV
+    weight and bias scaled by ``1/sqrt(dh)`` before any cast."""
     d_model = layer.norm1.weight.shape[0]
     w_in = layer.self_attn.in_proj_weight
     col_scale = torch.ones(3 * d_model, dtype=w_in.dtype, device=w_in.device)
@@ -127,7 +142,7 @@ def pack_encoder_layer_train(
     b_in = layer.self_attn.in_proj_bias * col_scale
 
     def mat(w: torch.Tensor) -> torch.Tensor:  # (out, in) -> (in, out)
-        return w.t().contiguous()
+        return w.t().to(dtype or w.dtype).contiguous()
 
     def vec(v: torch.Tensor) -> torch.Tensor:
         return v.contiguous()
@@ -152,29 +167,60 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain version computes in: fp32 for bf16 activations
+    (bf16 products are exact in fp32 and summed there), else the dtype."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _rounder(dtype: torch.dtype):
+    """``t -> t`` rounded to ``dtype`` and back to ``_acc(dtype)``: where the
+    TPU kernel casts to the activation dtype (nothing in fp32 or fp64)."""
+    acc = _acc(dtype)
+    return lambda t: t.to(dtype).to(acc)
+
+
 def fused_encoder_layer_train_reference(
     x: torch.Tensor, layer: dict[str, torch.Tensor], seed: int, *, n_head: int,
-    rate: float,
+    rate: float, gates: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the training layer (fp32), with the same masks."""
+    """Plain PyTorch version of the training layer, with the same masks. In
+    bf16 its backward is ``train_backward_staged`` (``PlainTrainLayer``),
+    with the TPU kernel's roundings; in fp32 (and fp64) autograd through it.
+    ``gates`` (B, L, F), if given, are the FFN's ReLU gates to take instead
+    of ``pre > 0`` (``chip_smoke.py``'s check, with a kernel's gates)."""
+    if x.dtype == torch.bfloat16:
+        return PlainTrainLayer.apply(x, int(seed), n_head, float(rate), gates,
+                                     *(layer[k] for k in LAYER_KEYS))
+    return _reference_forward(x, layer, seed, n_head, rate, gates)
+
+
+def _reference_forward(x, layer, seed: int, n_head: int, rate: float,
+                       gates: torch.Tensor | None = None) -> torch.Tensor:
     b, l, d = x.shape
+    rnd = _rounder(x.dtype)
     masks = dropout_masks(b, l, d, layer["w1"].shape[1], n_head, seed, rate, x.device)
     x1 = attention_sublayer(x, layer, masks, n_head)
-    return ffn_sublayer(x1, torch.relu(x1 @ layer["w1"] + layer["b1"]), layer, masks)
+    pre = rnd(x1) @ layer["w1"].to(x1.dtype) + layer["b1"]
+    hidden = torch.relu(pre) if gates is None else pre * gates
+    return ffn_sublayer(x1, hidden, layer, masks).to(x.dtype)
 
 
 def attention_sublayer(
     x: torch.Tensor, layer: dict[str, torch.Tensor], masks: dict[str, torch.Tensor],
     n_head: int,
 ) -> torch.Tensor:
-    """The plain version up to LN1: ``x1 = LN1(x + drop(attention(x)))``."""
+    """The plain version up to LN1: ``x1 = LN1(x + drop(attention(x)))``, in
+    ``_acc(x.dtype)`` (unrounded, as the residual around the FFN)."""
     b, l, d = x.shape
     dh = d // n_head
-    qkv = x @ layer["w_qkv"] + layer["b_qkv"]
+    acc, rnd = _acc(x.dtype), _rounder(x.dtype)
+    xa = x.to(acc)
+    qkv = rnd(xa @ layer["w_qkv"].to(acc) + layer["b_qkv"])
     q, k, v = (t.reshape(b, l, n_head, dh).transpose(1, 2) for t in qkv.split(d, -1))
     p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-    o = ((p * masks["attn"]) @ v).transpose(1, 2).reshape(b, l, d)
-    a = x + (o @ layer["w_out"] + layer["b_out"]) * masks["out"]
+    o = rnd(rnd(p * masks["attn"]) @ v).transpose(1, 2).reshape(b, l, d)
+    a = xa + (o @ layer["w_out"].to(acc) + layer["b_out"]) * masks["out"]
     return _ln(a, layer["ln1_s"], layer["ln1_b"])
 
 
@@ -183,40 +229,52 @@ def ffn_sublayer(
     masks: dict[str, torch.Tensor],
 ) -> torch.Tensor:
     """The plain version after the FFN's ReLU: ``hidden`` is
-    ``relu(x1 W1 + b1)``; returns ``LN2(x1 + drop(drop(hidden) W2 + b2))``."""
-    f2 = (hidden * masks["ff"]) @ layer["w2"] + layer["b2"]
+    ``relu(x1 W1 + b1)``; returns ``LN2(x1 + drop(drop(hidden) W2 + b2))``
+    in x1's dtype, the dropped hidden layer rounded to the dtype of W2."""
+    hd = (hidden * masks["ff"]).to(layer["w2"].dtype).to(x1.dtype)
+    f2 = hd @ layer["w2"].to(x1.dtype) + layer["b2"]
     return _ln(x1 + f2 * masks["ff2"], layer["ln2_s"], layer["ln2_b"])
 
 
 # ---- the kernels ----------------------------------------------------------------------
 
 
+#: The activation dtypes of the training layer and the sources of their kernels.
+DTYPES = {torch.float32: "fused_encoder_train", torch.bfloat16: "fused_encoder_train_bf16"}
+
+
 def _check(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> None:
-    """fp32 only; then the sampling layer's checks of shapes, dtypes and devices."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"the training layer is fp32 only, got x of {x.dtype}")
+    """float32 or bfloat16; then the sampling layer's checks of shapes,
+    dtypes (the matrices in x's dtype, the vectors fp32) and devices."""
+    if x.dtype not in DTYPES:
+        raise ValueError(f"the training layer takes float32 or bfloat16, got x of {x.dtype}")
     fe._check(x, layer, n_head)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """Build and load ``csrc/fused_encoder_train.cu``, with its C signatures."""
+def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """Build and load the kernels of ``dtype`` (``DTYPES``: one library per
+    activation dtype, with the same C functions; the fp32 one also holds the
+    dropout masks, the gradient size and B4's stage count), with their C
+    signatures."""
     from fourierdiffusion_tpu_torch.ops._build import load_library
 
-    lib = load_library("fused_encoder_train")
+    lib = load_library(DTYPES[dtype])
     i, u, p, f = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_float
     dropout = [i, u, u, f, p]  # group, seed, threshold, scale, stream
     lib.fdiff_train_fwd.argtypes = [p, p, p, p, ctypes.POINTER(FwdPlan)] + [i] * 5 + dropout
     lib.fdiff_train_bwd.argtypes = [p] * 6 + [ctypes.POINTER(BwdPlan)] + [i] * 6 + [u, u, f, p, p]
-    lib.fdiff_dropout_masks.argtypes = [p] * 4 + [i] * 5 + dropout
-    for name in ("fdiff_train_fwd", "fdiff_train_bwd", "fdiff_dropout_masks"):
+    for name in ("fdiff_train_fwd", "fdiff_train_bwd"):
         getattr(lib, name).restype = i
-    lib.fdiff_train_grad_floats.restype = i
-    lib.fdiff_train_grad_floats.argtypes = [i, i]
-    lib.fdiff_train_bwd_stages.restype = i
-    lib.fdiff_train_bwd_stages.argtypes = []
     lib.fdiff_train_error_string.restype = ctypes.c_char_p
     lib.fdiff_train_error_string.argtypes = [i]
+    if dtype == torch.float32:
+        lib.fdiff_dropout_masks.argtypes = [p] * 4 + [i] * 5 + dropout
+        lib.fdiff_dropout_masks.restype = i
+        lib.fdiff_train_grad_floats.restype = i
+        lib.fdiff_train_grad_floats.argtypes = [i, i]
+        lib.fdiff_train_bwd_stages.restype = i
+        lib.fdiff_train_bwd_stages.argtypes = []
     return lib
 
 
@@ -250,8 +308,8 @@ def _launch_fwd(x, layer, seed: int, n_head: int, rate: float) -> torch.Tensor:
     """B3 on contiguous CUDA tensors: its launches on ``train_fwd_plan``."""
     global fwd_launches
     b, l, d, h, f, group = _dims(x, layer, n_head)
-    lib = _library()
-    plan = train_fwd_plan(b, l, d, h, f, fe.sm_count(x.device))
+    lib = _library(x.dtype)
+    plan = train_fwd_plan(b, l, d, h, f, fe.sm_count(x.device), x.dtype)
     workspace = torch.empty(plan["workspace_floats"], device=x.device)
     out = torch.empty_like(x)
     err = lib.fdiff_train_fwd(
@@ -266,15 +324,21 @@ def _launch_fwd(x, layer, seed: int, n_head: int, rate: float) -> torch.Tensor:
 # ---- the forward's plan ----------------------------------------------------------------
 
 #: Workspace regions of the forward, in floats, in the kernel's order
-#: (``FwdPlan``): qkv (N x 3D), the attention output (N x D), x1 (N x D),
-#: the wide route's pre (N x D) and h (N x F), and the fused route's f2
-#: partials (``fe.tail_schedule``'s parts x tm x D), with N = B*L.
+#: (``FwdPlan``): qkv (N x 3D) and the attention output (N x D) in the
+#: activation dtype, x1 (N x D, fp32), the wide route's pre (N x D, fp32)
+#: and h (N x F, in the dtype), and the fused route's f2 partials
+#: (``fe.tail_schedule``'s parts planes of N x D), with N = B*L.
 FWD_WS_FIELDS = ("qkv", "attn", "x1", "pre", "h", "tail_part")
+
+
+def _floats(count: int, dtype: torch.dtype) -> int:
+    """Floats (4 bytes) that ``count`` elements of ``dtype`` take."""
+    return -(-count * (torch.finfo(dtype).bits // 8) // 4)
 
 
 class FwdPlan(ctypes.Structure):
     """B3's plan as the kernels take it (``FwdPlan`` of
-    ``csrc/fused_encoder_train.cu``): the tail's plan and CTAs, and the
+    ``csrc/fused_encoder_train.cuh``): the tail's plan and CTAs, and the
     workspace offsets (``FWD_WS_FIELDS``)."""
 
     _fields_ = ([("tail", fe.TailPlan), ("tail_ctas", ctypes.c_longlong)]
@@ -283,20 +347,20 @@ class FwdPlan(ctypes.Structure):
 
 @functools.lru_cache(maxsize=32)
 def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
-                   d_ff: int, sms: int = fe.SMS) -> dict:
-    """B3's plan on a card of ``sms`` SMs: the tail's plan and persistent
-    schedule (those of B4's forward stage, which ``train_bwd_plan`` takes
-    from here), the workspace offsets (in floats, 16-byte aligned), its
-    size, the CUDA launches of one call (4: the QKV product, attention, the
-    tail and its finish; 7 where the tail runs wide) and all of it as
-    ``FwdPlan`` (``struct``)."""
+                   d_ff: int, sms: int = fe.SMS, dtype: torch.dtype = torch.float32) -> dict:
+    """B3's plan on a card of ``sms`` SMs for activations in ``dtype``: the
+    tail's plan and persistent schedule (those of B4's forward stage, which
+    ``train_bwd_plan`` takes from here), the workspace offsets (in floats,
+    16-byte aligned), its size, the CUDA launches of one call (4: the QKV
+    product, attention, the tail and its finish; 7 where the tail runs wide)
+    and all of it as ``FwdPlan`` (``struct``)."""
     n, d, f = batch * max_len, d_model, d_ff
-    tail = fe.tail_plan(d, torch.float32)
+    tail = fe.tail_plan(d, dtype)
     wide = bool(tail["wide"])
-    sched = None if wide else fe.tail_schedule(n, d, f, torch.float32, sms)
-    sizes = {"qkv": 3 * n * d, "attn": n * d, "x1": n * d, "pre": n * d if wide else 0,
-             "h": n * f if wide else 0,
-             "tail_part": 0 if wide else sched["parts"] * tail["tm"] * d}
+    sched = None if wide else fe.tail_schedule(n, d, f, dtype, sms)
+    sizes = {"qkv": _floats(3 * n * d, dtype), "attn": _floats(n * d, dtype), "x1": n * d,
+             "pre": n * d if wide else 0, "h": _floats(n * f, dtype) if wide else 0,
+             "tail_part": 0 if wide else sched["parts"] * n * d}
     plan: dict = {"tail": tail, "tail_schedule": sched}
     offset = 0
     for k in FWD_WS_FIELDS:
@@ -314,11 +378,15 @@ def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
 #: Workspace regions of the backward, in floats, in the kernel's order
 #: (``BwdPlan``): qkv and dqkv (N x 3D), h and dh (N x F), the LN
 #: statistics inv1 and inv2 (N), the softmax statistics (N x H x 3), the
-#: partials of dh W1^T per d_ff slice (slices x N x D), the tail's f2
-#: partials (``fe.tail_schedule``'s parts x tm x D; none on the wide
-#: route), the rest N x D, with N = B*L.
+#: partials of dh W1^T per d_ff slice (slices x N x D), in bf16 the
+#: product operands x1t, df2t, daot (N x D), dht (N x F) and dqkvt (N x 3D)
+#: (none in fp32, whose products read x1, df2, dh, dao and dqkv), the
+#: tail's f2 partials (``fe.tail_schedule``'s parts planes of N x D; none
+#: on the wide route), the rest N x D, with N = B*L. qkv, attn, h and the
+#: operands hold the activation dtype, the rest fp32.
 WS_FIELDS = ("qkv", "attn", "x1", "xhat1", "inv1", "xhat2", "inv2", "g2", "df2", "h", "dh",
-             "dx1", "da", "dao", "dattn", "dqkv", "stats", "dx1p", "tail_part")
+             "dx1", "da", "dao", "dattn", "dqkv", "stats", "dx1p", "x1t", "df2t", "dht",
+             "daot", "dqkvt", "tail_part")
 #: Rows per slice of the column sums (bias and LayerNorm gradients).
 COLSUM_ROWS = 256
 #: The weight products over rows, by the gradient they make: (rows of the
@@ -332,7 +400,7 @@ BWD_STAGES = ("forward", "hidden", "ffn_products", "ln1_out_proj", "attention", 
 
 class BwdPlan(ctypes.Structure):
     """B4's plan as the kernels take it (``BwdPlan`` of
-    ``csrc/fused_encoder_train.cu``): the tail's plan and CTAs, the
+    ``csrc/fused_encoder_train.cuh``): the tail's plan and CTAs, the
     workspace offsets (``WS_FIELDS``, then the partials), rows per slice (``ks_``) and slices
     (``sp_``) of the weight products, of dh W1^T over d_ff and of the column
     sums, and per gradient the offset and number of its partials."""
@@ -359,23 +427,28 @@ def _row_slices(n_rows: int, out_rows: int, out_cols: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=32)
 def train_bwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
-                   d_ff: int, sms: int = fe.SMS) -> dict:
-    """B4's plan on a card of ``sms`` SMs: the tail's plan and schedule
-    (``train_fwd_plan``'s, so the recompute runs B3's launches), the
-    workspace offsets (in floats, 16-byte aligned), the row slices of
-    the four weight products and of the column sums, the d_ff slices of dh
-    W1^T, the offsets and counts of every gradient's partials, the
-    workspace size, the CUDA launches of one call (17; 20 where the tail
+                   d_ff: int, sms: int = fe.SMS, dtype: torch.dtype = torch.float32) -> dict:
+    """B4's plan on a card of ``sms`` SMs for activations in ``dtype``: the
+    tail's plan and schedule (``train_fwd_plan``'s, so the recompute runs
+    B3's launches), the workspace offsets (in floats, 16-byte aligned), the
+    row slices of the four weight products and of the column sums, the d_ff
+    slices of dh W1^T, the offsets and counts of every gradient's partials,
+    the workspace size, the CUDA launches of one call (17; 20 where the tail
     runs wide) and all of it as ``BwdPlan`` (``struct``)."""
     n, d, f = batch * max_len, d_model, d_ff
-    fwd = train_fwd_plan(batch, max_len, d_model, n_head, d_ff, sms)
+    fwd = train_fwd_plan(batch, max_len, d_model, n_head, d_ff, sms, dtype)
     tail = fwd["tail"]
     plan: dict = {"tail": tail, "dx1_slices": _row_slices(f, n, d),
                   "tail_schedule": fwd["tail_schedule"]}
+    bf16 = dtype == torch.bfloat16
     sizes = {k: n * d for k in WS_FIELDS}
-    sizes.update(qkv=3 * n * d, dqkv=3 * n * d, h=n * f, dh=n * f, inv1=n, inv2=n,
-                 stats=3 * n * n_head, dx1p=plan["dx1_slices"][1] * n * d,
-                 tail_part=0 if tail["wide"] else plan["tail_schedule"]["parts"] * tail["tm"] * d)
+    sizes.update(qkv=_floats(3 * n * d, dtype), attn=_floats(n * d, dtype), dqkv=3 * n * d,
+                 h=_floats(n * f, dtype), dh=n * f, inv1=n, inv2=n, stats=3 * n * n_head,
+                 dx1p=plan["dx1_slices"][1] * n * d,
+                 **{k: _floats(c, dtype) if bf16 else 0 for k, c in (
+                     ("x1t", n * d), ("df2t", n * d), ("dht", n * f), ("daot", n * d),
+                     ("dqkvt", 3 * n * d))},
+                 tail_part=0 if tail["wide"] else plan["tail_schedule"]["parts"] * n * d)
     offset = 0
     for k in WS_FIELDS:
         plan[k] = offset
@@ -428,52 +501,50 @@ def train_backward_staged(
 ) -> tuple[torch.Tensor, list[torch.Tensor], dict[str, torch.Tensor]]:
     """Plain PyTorch backward of the training layer that follows B4's
     stages over the N = B*L rows and its sums: the forward recomputed with
-    the FFN summed over the d_ff chunks of each segment of the tail's
-    schedule (``fe.tail_segments``, for an H100's 132 SMs), a row tile's
-    segments in order; LN2's backward; the
-    hidden layer and its gradient; the weight products summed per row slice
-    of ``train_bwd_plan`` and the slices added in order; dx1 summed over
-    d_ff chunks of ``GEMM_BK`` per d_ff slice, the slices added in order;
-    LN1's backward; attention per head; the
-    column sums per row slice. Returns ``dx``, the 12 gradients (packed
-    order) and the stages' outputs ``df2``, ``dx1``, ``da``, ``dqkv`` and
-    the FFN's ReLU ``gates`` (B, L, .). ``gates`` (B, L, F), if given, are
-    the ReLU gates to take in the backward instead of ``pre > 0`` (a
-    kernel's, where a gate's input lies within rounding of 0).
-    Used by tests and ``chip_smoke.py``, never on the main path."""
+    the FFN summed over the tail's d_ff chunks in chunk order; LN2's
+    backward; the hidden layer and its gradient; the weight products summed
+    per row slice of ``train_bwd_plan`` and the slices added in order; dx1
+    summed over d_ff chunks of ``GEMM_BK`` per d_ff slice, the slices added
+    in order; LN1's backward; attention per head; the column sums per row
+    slice. In bf16 it rounds where the TPU kernel rounds (the product
+    operands x1, h, dF2, dh, dao, dO, P keep, dS and dqkv; O recomputed in
+    fp32 for dO . O) and returns dx in bf16; the gradients stay fp32.
+    Returns ``dx``, the 12 gradients (packed order) and the stages' outputs
+    ``df2``, ``dx1``, ``da``, ``dqkv`` and the FFN's ReLU ``gates`` (B, L,
+    .). ``gates`` (B, L, F), if given, are the ReLU gates to take in the
+    backward instead of ``pre > 0`` (a kernel's, where a gate's input lies
+    within rounding of 0). Used by tests and ``chip_smoke.py``, and as the
+    bf16 plain version's backward; never on the main path."""
     b, l, d = x.shape
     f, h = layer["w1"].shape[1], n_head
     dh_ = d // h
     n = b * l
-    plan = train_bwd_plan(b, l, d, h, f)
+    acc, rnd = _acc(x.dtype), _rounder(x.dtype)
+    plan = train_bwd_plan(b, l, d, h, f, dtype=x.dtype if x.dtype in DTYPES else torch.float32)
     masks = dropout_masks(b, l, d, f, h, seed, rate, x.device)
     m_out, m_ff, m_ff2 = (masks[k].reshape(n, -1) for k in ("out", "ff", "ff2"))
-    w = layer
-    xf, dyf = x.reshape(n, d), dy.reshape(n, d)
+    w = {k: t.to(acc) for k, t in layer.items()}
+    xf, dyf = x.reshape(n, d).to(acc), dy.reshape(n, d).to(acc)
 
     # forward recompute
-    qkv = xf @ w["w_qkv"] + w["b_qkv"]
+    qkv = rnd(xf @ w["w_qkv"] + w["b_qkv"])
     q, k, v = (t.reshape(b, l, h, dh_).transpose(1, 2) for t in qkv.split(d, -1))
     p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-    attn = ((p * masks["attn"]) @ v).transpose(1, 2).reshape(n, d)
+    pk = rnd(p * masks["attn"])
+    o32 = pk @ v
+    attn = rnd(o32).transpose(1, 2).reshape(n, d)
     a = xf + (attn @ w["w_out"] + w["b_out"]) * m_out
     mean1, var1 = a.mean(-1, keepdim=True), a.var(-1, unbiased=False, keepdim=True)
     inv1 = torch.rsqrt(var1 + LN_EPS)
     xhat1 = (a - mean1) * inv1
     x1 = xhat1 * w["ln1_s"] + w["ln1_b"]
-    sched, tm, fc = plan["tail_schedule"], plan["tail"]["tm"], plan["tail"]["fc"]
-    if sched is None:  # the wide tail: one product over all of d_ff
-        f2 = (torch.relu(x1 @ w["w1"] + w["b1"]) * m_ff) @ w["w2"]
-    else:  # per segment, its chunks in order; a row tile's segments in CTA order
-        ys = [(torch.relu(x1 @ w["w1"][:, c:c + fc] + w["b1"][c:c + fc]) * m_ff[:, c:c + fc])
-              @ w["w2"][c:c + fc] for c in range(0, f, fc)]
-        f2 = torch.zeros_like(x1)
-        for _, tile, c_lo, c_hi, _ in fe.tail_segments(sched):
-            rows = slice(tile * tm, (tile + 1) * tm)
-            seg = ys[c_lo][rows]
-            for c in range(c_lo + 1, c_hi):
-                seg = seg + ys[c][rows]
-            f2[rows] = f2[rows] + seg
+    x1t = rnd(x1)
+    fc = plan["tail"]["fc"] if plan["tail_schedule"] is not None else f
+    f2 = None  # the chunks' partials in chunk order (one product on the wide tail)
+    for c in range(0, f, fc):
+        hd = rnd(torch.relu(x1t @ w["w1"][:, c:c + fc] + w["b1"][c:c + fc]) * m_ff[:, c:c + fc])
+        part = hd @ w["w2"][c:c + fc]
+        f2 = part if f2 is None else f2 + part
     y2 = x1 + (f2 + w["b2"]) * m_ff2
     mean2, var2 = y2.mean(-1, keepdim=True), y2.var(-1, unbiased=False, keepdim=True)
     inv2 = torch.rsqrt(var2 + LN_EPS)
@@ -486,38 +557,37 @@ def train_backward_staged(
     g2 = ln_bwd(dyf, xhat2, inv2, w["ln2_s"])
     df2 = g2 * m_ff2
     # the hidden layer and its gradient
-    pre = x1 @ w["w1"] + w["b1"]
+    pre = x1t @ w["w1"] + w["b1"]
     gate = pre > 0 if gates is None else gates.reshape(n, f)
     zero = torch.zeros_like(m_ff)
-    hid = torch.where(gate, pre, zero) * m_ff
-    dh = torch.where(gate, m_ff, zero) * (df2 @ w["w2"].t())
+    hid = rnd(torch.where(gate, pre, zero) * m_ff)
+    dh = torch.where(gate, m_ff, zero) * (rnd(df2) @ w["w2"].t())
     sl = {kk: per for kk, (per, _) in plan["slices"].items()}
-    dw1 = _slice_sum(x1, dh, sl["w1"])
-    dw2 = _slice_sum(hid, df2, sl["w2"])
-    acc = None
+    dw1 = _slice_sum(x1t, rnd(dh), sl["w1"])
+    dw2 = _slice_sum(hid, rnd(df2), sl["w2"])
+    acc_dx1 = None
     per_f = plan["dx1_slices"][0]
     for z in range(0, f, per_f):
         part = torch.zeros_like(x1)
         for c in range(z, min(f, z + per_f), fe.GEMM_BK):
-            part = part + dh[:, c:c + fe.GEMM_BK] @ w["w1"][:, c:c + fe.GEMM_BK].t()
-        acc = part if acc is None else acc + part
-    dx1 = g2 + acc
+            part = part + rnd(dh[:, c:c + fe.GEMM_BK]) @ w["w1"][:, c:c + fe.GEMM_BK].t()
+        acc_dx1 = part if acc_dx1 is None else acc_dx1 + part
+    dx1 = g2 + acc_dx1
     # LN1 backward, out projection
     da = ln_bwd(dx1, xhat1, inv1, w["ln1_s"])
     dao = da * m_out
-    dattn = dao @ w["w_out"].t()
-    dw_out = _slice_sum(attn, dao, sl["w_out"])
+    dattn = rnd(dao) @ w["w_out"].t()
+    dw_out = _slice_sum(attn, rnd(dao), sl["w_out"])
     # attention backward, per head
-    do = dattn.reshape(b, l, h, dh_).transpose(1, 2)
-    o_h = attn.reshape(b, l, h, dh_).transpose(1, 2)
-    dcol = (do * o_h).sum(-1, keepdim=True)
-    ds = p * ((do @ v.transpose(-1, -2)) * masks["attn"] - dcol)
+    do = rnd(dattn).reshape(b, l, h, dh_).transpose(1, 2)
+    dcol = (do * o32).sum(-1, keepdim=True)
+    ds = rnd(p * ((do @ v.transpose(-1, -2)) * masks["attn"] - dcol))
     dq, dk = ds @ k, ds.transpose(-1, -2) @ q
-    dv = (p * masks["attn"]).transpose(-1, -2) @ do
+    dv = pk.transpose(-1, -2) @ do
     dqkv = torch.cat([t.transpose(1, 2).reshape(n, d) for t in (dq, dk, dv)], -1)
     # QKV projection
-    dw_qkv = _slice_sum(xf, dqkv, sl["w_qkv"])
-    dx = da + dqkv @ w["w_qkv"].t()
+    dw_qkv = _slice_sum(xf, rnd(dqkv), sl["w_qkv"])
+    dx = (da + rnd(dqkv) @ w["w_qkv"].t()).to(x.dtype)
     cs = plan["cs_rows"]
     grads = {
         "w_qkv": dw_qkv, "b_qkv": _col_sum(dqkv, cs), "w_out": dw_out,
@@ -531,6 +601,30 @@ def train_backward_staged(
             {kk: t.reshape(b, l, -1) for kk, t in stages.items()})
 
 
+class PlainTrainLayer(torch.autograd.Function):
+    """The plain version in bf16: its forward, and ``train_backward_staged``
+    as its backward, which rounds where the TPU kernel rounds; each weight
+    gradient is rounded to its packed weight's dtype, dx is bf16. ``gates``:
+    None, or the ReLU gates both take (``fused_encoder_layer_train_reference``)."""
+
+    @staticmethod
+    def forward(ctx, x, seed: int, n_head: int, rate: float, gates, *weights):
+        layer = dict(zip(LAYER_KEYS, weights))
+        ctx.save_for_backward(x, *weights)
+        ctx.seed, ctx.n_head, ctx.rate, ctx.gates = seed, n_head, rate, gates
+        return _reference_forward(x, layer, seed, n_head, rate, gates)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *weights = ctx.saved_tensors
+        layer = dict(zip(LAYER_KEYS, weights))
+        gates = None if ctx.gates is None else ctx.gates > 0
+        dx, grads, _ = train_backward_staged(x, dy, layer, ctx.seed, n_head=ctx.n_head,
+                                             rate=ctx.rate, gates=gates)
+        return (dx, None, None, None, None,
+                *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
+
+
 def _launch_bwd(x, dy, layer, seed: int, n_head: int, rate: float, events=None,
                 stages: bool = False):
     """B4: ``dx`` and the 12 gradient views; with ``stages``, also the
@@ -540,15 +634,15 @@ def _launch_bwd(x, dy, layer, seed: int, n_head: int, rate: float, events=None,
     the stages."""
     global bwd_launches
     b, l, d, h, f, group = _dims(x, layer, n_head)
-    dy = dy.contiguous()
-    lib = _library()
-    plan = train_bwd_plan(b, l, d, h, f, fe.sm_count(x.device))
+    dy = dy.to(x.dtype).contiguous()
+    lib = _library(x.dtype)
+    plan = train_bwd_plan(b, l, d, h, f, fe.sm_count(x.device), x.dtype)
     workspace = torch.empty(plan["workspace_floats"], device=x.device)
-    grads = torch.empty(lib.fdiff_train_grad_floats(d, f), device=x.device)
+    grads = torch.empty(_library().fdiff_train_grad_floats(d, f), device=x.device)
     dx = torch.empty_like(x)
     handles = None
     if events is not None:
-        if len(events) != lib.fdiff_train_bwd_stages() + 1:
+        if len(events) != _library().fdiff_train_bwd_stages() + 1:
             raise ValueError(f"need {len(BWD_STAGES) + 1} events, got {len(events)}")
         for e in events:
             e.record()  # PyTorch creates an event's handle at its first record
@@ -570,10 +664,11 @@ def _launch_bwd(x, dy, layer, seed: int, n_head: int, rate: float, events=None,
     if not stages:
         return dx, views
     n_rows = b * l
-    widths = {"df2": d, "dx1": d, "da": d, "dqkv": 3 * d, "h": f}
+    widths = {"df2": d, "dx1": d, "da": d, "dqkv": 3 * d}
     ws = {k: workspace[plan[k]:plan[k] + n_rows * wdt].view(b, l, wdt)
           for k, wdt in widths.items()}
-    ws["gates"] = ws.pop("h") > 0
+    hidden = workspace[plan["h"]:plan["h"] + _floats(n_rows * f, x.dtype)].view(x.dtype)
+    ws["gates"] = hidden[:n_rows * f].view(b, l, f) > 0
     return dx, views, ws
 
 
@@ -616,7 +711,7 @@ class FusedEncoderLayerTrain(torch.autograd.Function):
         x, *weights = ctx.saved_tensors
         layer = dict(zip(LAYER_KEYS, weights))
         dx, grads = _launch_bwd(x, dy, layer, ctx.seed, ctx.n_head, ctx.rate)
-        return (dx, None, None, None, *grads)
+        return (dx, None, None, None, *(g.to(w.dtype) for g, w in zip(grads, weights)))
 
 
 def fused_encoder_layer_train(
@@ -638,6 +733,7 @@ def fused_encoder_layer_train(
 
 __all__ = [
     "FusedEncoderLayerTrain",
+    "PlainTrainLayer",
     "attention_sublayer",
     "dropout_masks",
     "dropout_masks_cuda",

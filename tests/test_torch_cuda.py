@@ -185,6 +185,68 @@ def test_training_kernels_match_plain_on_long_sequences(cuda, rate, b, l, d, n_h
     test_training_kernels_match_plain(cuda, rate, b, l, d, n_head, d_ff)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_layer_results_do_not_depend_on_the_batch(cuda, dtype) -> None:
+    """The tail groups a row's FFN sums by the d_ff chunk alone: chains 0-15
+    of one B1 call at 32 chains are bit for bit the same chains called
+    alone, and chains 0-31 of one B3 call at 64 chains, and the ReLU gates
+    B4's recompute takes there, those of a call at 32."""
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(72, 12, 2048).to(cuda)
+    g = torch.Generator().manual_seed(12)
+    h = torch.randn(32, 100, 72, generator=g).to(cuda, dtype)
+    packed = fe.pack_encoder_layer(layer, 12, dtype)
+    with torch.no_grad():
+        whole = fe.fused_encoder_layer(h, packed, n_head=12)[:16]
+        alone = fe.fused_encoder_layer(h[:16].contiguous(), packed, n_head=12)
+    assert torch.equal(whole, alone)
+    lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, 12, dtype).items()}
+    x = torch.randn(64, 100, 72, generator=g).to(cuda, dtype)
+    dy = torch.randn(64, 100, 72, generator=g).to(cuda, dtype)
+    assert torch.equal(fet._launch_fwd(x, lay, 7, 12, 0.1)[:32],
+                       fet._launch_fwd(x[:32].contiguous(), lay, 7, 12, 0.1))
+    gates = fet._launch_bwd(x, dy, lay, 7, 12, 0.1, stages=True)[2]["gates"][:32]
+    assert torch.equal(gates, fet._launch_bwd(x[:32].contiguous(), dy[:32].contiguous(), lay,
+                                              7, 12, 0.1, stages=True)[2]["gates"])
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", SHAPES + LONG_SHAPES[2:], ids=SHAPE_IDS +
+                         LONG_IDS[2:])
+def test_bf16_training_kernels_match_plain(cuda, b, l, d, n_head, d_ff) -> None:
+    """B3 and B4 in bf16 against their plain bf16 versions: the output to
+    2**-4; B4's dx and gradients to 2**-5 of each tensor's largest against
+    the staged plain backward with the kernel's ReLU gates (``chip_smoke.py``
+    phase 20 says why); the gradients the wrapper returns for the weight
+    matrices bf16, for the vectors fp32."""
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(d, n_head, d_ff).to(cuda)
+    packed = {k: t.detach().requires_grad_(True) for k, t in
+              fet.pack_encoder_layer_train(layer, n_head, torch.bfloat16).items()}
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, l, d, generator=g).to(cuda, torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(b, l, d, generator=g).to(cuda, torch.bfloat16)
+    seed = 2**31 - 5
+    out = fet.fused_encoder_layer_train(x, packed, seed, n_head=n_head, rate=0.1)
+    grads = torch.autograd.grad(out, [x, *packed.values()], dy)
+    ref = fet.fused_encoder_layer_train_reference(x, packed, seed, n_head=n_head, rate=0.1)
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    lay = {k: t.detach() for k, t in packed.items()}
+    xd = x.detach()
+    _, _, ws = fet._launch_bwd(xd, dy, lay, seed, n_head, 0.1, stages=True)
+    _, _, plain = fet.train_backward_staged(xd, dy, lay, seed, n_head=n_head, rate=0.1)
+    kept = fet.dropout_masks(b, l, d, d_ff, n_head, seed, 0.1, cuda)["ff"] > 0
+    gates = ws["gates"] | (~kept & plain["gates"])
+    ref_dx, ref_grads, _ = fet.train_backward_staged(xd, dy, lay, seed, n_head=n_head,
+                                                     rate=0.1, gates=gates)
+    for name, got, want in zip(["x", *packed], grads, [ref_dx, *ref_grads]):
+        assert got.dtype == (torch.bfloat16 if name in ("x", "w_qkv", "w_out", "w1", "w2")
+                             else torch.float32), name
+        rel = (got.float() - want.float()).abs().max().item() / max(
+            want.float().abs().max().item(), 1e-6)
+        assert rel <= 2.0**-5, (name, rel)
+
+
 def test_training_forward_is_bit_identical_across_calls(cuda) -> None:
     """B3 sums every product and the tail's partials in one fixed order."""
     lay = {k: t.detach() for k, t in _train_layer(72, 12, 2048, cuda).items()}
@@ -461,9 +523,9 @@ def test_attention_masks_are_bit_identical(cuda, l, seed) -> None:
 
 def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
     packed = _train_layer(24, 4, 64, cuda)
-    with pytest.raises(ValueError, match="fp32 only"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         fet.fused_encoder_layer_train(
-            torch.zeros(2, 19, 24, device=cuda, dtype=torch.bfloat16), packed, 1,
+            torch.zeros(2, 19, 24, device=cuda, dtype=torch.float16), packed, 1,
             n_head=4, rate=0.1,
         )
     q = torch.zeros(1, 2, 5, 6, device=cuda, dtype=torch.float16)

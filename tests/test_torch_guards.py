@@ -205,8 +205,8 @@ def test_nccl_is_never_asked_to_run_on_the_cpu(monkeypatch) -> None:
 def test_wrappers_check_dtype_before_device() -> None:
     layer = TransformerEncoderLayer(24, 4, 64)
     packed = fet.pack_encoder_layer_train(layer, 4)
-    x = torch.zeros(2, 19, 24, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="fp32 only"):
+    x = torch.zeros(2, 19, 24, dtype=torch.float16, device="meta")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         fet.fused_encoder_layer_train(x, packed, 1, n_head=4, rate=0.1)
     q = torch.zeros(1, 2, 5, 6, dtype=torch.float16, device="meta")
     with pytest.raises(ValueError, match="float32 or bfloat16"):

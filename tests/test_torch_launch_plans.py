@@ -67,9 +67,9 @@ def check_tail(plan: dict[str, int], n_rows: int, d_model: int, size: int) -> No
     assert plan["tm"] == (32 if d_model <= 128 else 16)
     regions = [("off_a", plan["tm"] * plan["sa"] * size),
                ("off_h", plan["tm"] * plan["sh"] * size),
-               ("off_ring", max(plan["slots"] * plan["slot"] * size,
-                                2 * plan["tm"] * plan["dn"] * 4)),
-               ("off_pre", plan["tm"] * d_model * 4)]
+               ("off_ring", plan["slots"] * plan["slot"] * size),
+               ("off_pre", plan["tm"] * plan["dn"] * 4),
+               ("off_run", plan["tm"] * plan["dn"] * 4)]
     end = 0
     for name, nbytes in regions:  # in order, aligned, not overlapping
         assert plan[name] >= end and plan[name] % 16 == 0, name
@@ -87,20 +87,23 @@ def check_tail(plan: dict[str, int], n_rows: int, d_model: int, size: int) -> No
 def check_schedule(sched: dict[str, int], n_rows: int, d_ff: int, tm: int, fc: int) -> None:
     """The tail's persistent schedule: every (row tile, chunk) unit in
     exactly one segment of one CTA, no CTA without work, each CTA within
-    one unit of the even share, partial slots unique and within ``parts``,
-    and each row tile's segments in CTA order, as the finish adds them."""
+    one unit of the even share, a tile's first segment folding its chunks
+    into one partial at the plane of its last chunk and every later one
+    writing each chunk's partial at its chunk's plane (``parts`` planes),
+    and each row tile's segments in CTA order, as the finish reads them."""
     assert sched["tiles"] == len(fe.row_tiles(n_rows, tm))
     assert sched["chunks"] == len(fe.row_tiles(d_ff, fc))
     assert 1 <= sched["ctas"] <= min(2 * fe.SMS, sched["units"])
     seen = torch.zeros(sched["tiles"], sched["chunks"], dtype=torch.int64)
     work = torch.zeros(sched["ctas"], dtype=torch.int64)
-    slots, by_tile = set(), {}
-    for k, tile, c_lo, c_hi, slot in fe.tail_segments(sched):
+    by_tile = {}
+    assert sched["parts"] == sched["chunks"]
+    for k, tile, c_lo, c_hi, parts in fe.tail_segments(sched):
         assert 0 <= c_lo < c_hi <= sched["chunks"]
         seen[tile, c_lo:c_hi] += 1
         work[k] += c_hi - c_lo
-        assert slot == tile + k and slot not in slots and slot < sched["parts"]
-        slots.add(slot)
+        assert parts == (((c_hi - 1, 0, c_hi),) if c_lo == 0 else
+                         tuple((c, c, c + 1) for c in range(c_lo, c_hi)))
         by_tile.setdefault(tile, []).append(k)
     assert bool((seen == 1).all())
     assert int(work.min()) >= sched["units"] // sched["ctas"]
@@ -136,8 +139,7 @@ def test_backward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     n = b * l
     check_tail(plan["tail"], n, d, 4)
     check_schedule(plan["tail_schedule"], n, f, plan["tail"]["tm"], plan["tail"]["fc"])
-    assert plan["tail_part"] + plan["tail_schedule"]["parts"] * plan["tail"]["tm"] * d \
-        <= plan["part"]
+    assert plan["tail_part"] + plan["tail_schedule"]["parts"] * n * d <= plan["part"]
     assert fe.gemm_smem_bytes(4) <= fe.SMEM_LIMIT
     for key, (per, slices) in plan["slices"].items():
         assert per % fe.GEMM_BK == 0, key
@@ -152,7 +154,8 @@ def test_backward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     offsets = [plan[k] for k in fet.WS_FIELDS] + [plan["part"]]
     assert offsets == sorted(offsets) and all(o % 4 == 0 for o in offsets)
     assert plan["stats"] + 3 * n * h <= plan["dx1p"]
-    assert plan["dx1p"] + slices * n * d <= plan["tail_part"]
+    assert plan["dx1p"] + slices * n * d <= plan["x1t"]
+    assert plan["x1t"] == plan["tail_part"]  # fp32: the products read the fp32 buffers
     numel = {"w_qkv": 3 * d * d, "b_qkv": 3 * d, "w_out": d * d, "w1": d * f, "b1": f,
              "w2": f * d}
     for k, off, count in zip(fet.LAYER_KEYS, plan["p_off"], plan["p_n"]):
@@ -179,7 +182,7 @@ def test_forward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     check_tail(plan["tail"], n, d, 4)
     check_schedule(plan["tail_schedule"], n, f, plan["tail"]["tm"], plan["tail"]["fc"])
     sizes = {"qkv": 3 * n * d, "attn": n * d, "x1": n * d, "pre": 0, "h": 0,
-             "tail_part": plan["tail_schedule"]["parts"] * plan["tail"]["tm"] * d}
+             "tail_part": plan["tail_schedule"]["parts"] * n * d}
     end = 0
     for k in fet.FWD_WS_FIELDS:
         assert plan[k] >= end and plan[k] % 4 == 0, k
@@ -249,6 +252,67 @@ def test_flagship_plans_fill_the_card() -> None:
         rows, cols = fet.WEIGHT_PRODUCTS[key](72, 2048)
         tiles = -(-rows // fe.GEMM_BM) * -(-cols // fe.GEMM_BN)
         assert tiles * slices >= fe.SMS, key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("widths", WIDTHS[:3], ids=[f"D{d}-F{f}" for d, _, f in WIDTHS[:3]])
+def test_tail_partials_depend_only_on_the_chunk(dtype, widths) -> None:
+    """A row's FFN sum in the fused tail (B1, B3, B4's forward stage) is the
+    fold of its chunks' partials in chunk order, (p0 + p1) + p2 ..., at 1,
+    16, 32 and 64 chains and on cards of 132, 114 and 7 SMs, though the
+    CTAs that hold a row tile's units change with both: the tile's first
+    segment folds chunks [0, e) and writes the fold at plane e - 1, and the
+    finish continues it over chunks e, e + 1, ..., one partial each, at
+    their own planes. (A segment's partial once went to slot tile + CTA and
+    the finish added whole segments: chains 0-15 of one call then summed
+    otherwise at 32 chains than at 16.)"""
+    d, _, f = widths
+    l = 100
+    ctas_of_tile0 = set()
+    for b, sms in itertools.product((1, 16, 32, 64), (fe.SMS, 114, 7)):
+        sched = fe.tail_schedule(b * l, d, f, dtype, sms)
+        order = fe.tail_partials(sched)
+        assert sorted(order) == list(range(sched["tiles"]))
+        for tile, parts in order.items():
+            (slot, lo, hi), *rest = parts
+            assert (lo, slot) == (0, hi - 1), (b, sms, tile)
+            assert rest == [(c, c, c + 1) for c in range(hi, sched["chunks"])], (b, sms, tile)
+        ctas_of_tile0.add(tuple(k for k, tile, *_ in fe.tail_segments(sched) if tile == 0))
+    assert len(ctas_of_tile0) > 1  # the schedule itself does depend on the batch
+
+
+@pytest.mark.parametrize("widths,b,l", [((72, 12, 2048), 64, 100), ((72, 12, 2048), 8, 365),
+                                        ((128, 8, 512), 8, 187), ((24, 4, 64), 3, 19),
+                                        ((264, 6, 512), 3, 17)],
+                         ids=["flagship", "L365", "D128-F512", "small", "D264-wide"])
+def test_bf16_backward_plan_holds_its_operands(widths, b, l) -> None:
+    """B4 in bf16: qkv, attn and h in bf16, and the bf16 operands of its
+    products (x1t, df2t, dht, daot, dqkvt) in regions of their own, in the
+    kernel's order, 16-byte aligned and not overlapping; the forward stage
+    is B3's bf16 plan."""
+    d, h, f = widths
+    n = b * l
+    plan = fet.train_bwd_plan(b, l, d, h, f, dtype=torch.bfloat16)
+    fwd = fet.train_fwd_plan(b, l, d, h, f, dtype=torch.bfloat16)
+    assert plan["tail"] == fe.tail_plan(d, torch.bfloat16) == fwd["tail"]
+    halves = {"qkv": 3 * n * d, "attn": n * d, "h": n * f, "x1t": n * d, "df2t": n * d,
+              "dht": n * f, "daot": n * d, "dqkvt": 3 * n * d}
+    sizes = {k: n * d for k in fet.WS_FIELDS}
+    sizes.update({k: -(-c // 2) for k, c in halves.items()}, dh=n * f, dqkv=3 * n * d,
+                 inv1=n, inv2=n, stats=3 * n * h, dx1p=plan["dx1_slices"][1] * n * d,
+                 tail_part=0 if plan["tail"]["wide"] else plan["tail_schedule"]["parts"] * n * d)
+    end = 0
+    for k in fet.WS_FIELDS:
+        assert plan[k] >= end and plan[k] % 4 == 0, k
+        end = plan[k] + sizes[k]
+    assert end <= plan["part"]
+    assert [getattr(plan["struct"], k) for k in fet.WS_FIELDS] == [plan[k] for k in
+                                                                   fet.WS_FIELDS]
+    fwd_sizes = {"qkv": -(-3 * n * d // 2), "attn": -(-n * d // 2), "x1": n * d}
+    end = 0
+    for k in ("qkv", "attn", "x1"):
+        assert fwd[k] >= end and fwd[k] % 4 == 0, k
+        end = fwd[k] + fwd_sizes[k]
 
 
 @pytest.mark.parametrize("d_model", [264, 384])

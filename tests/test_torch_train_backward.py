@@ -1,7 +1,7 @@
 """The plain staged backward of the training layer
 (``ops/fused_encoder_train.py::train_backward_staged``) on the CPU.
 
-It follows the stages and sums of the kernels of B4 (``csrc/fused_encoder_train.cu``):
+It follows the stages and sums of the kernels of B4 (``csrc/fused_encoder_train.cuh``):
 the forward recomputed over all B*L rows with the FFN summed over the
 tail's d_ff chunks, LN2's backward, the hidden layer and its gradient, the
 weight products summed per row slice and the slices added in order, dx1

@@ -182,8 +182,8 @@ def test_pack_train_is_differentiable_and_matches_sampling_pack() -> None:
 def test_layer_rejects_bad_input() -> None:
     _, layer, x, _ = _layer_case(0.1)
     packed = fet.pack_encoder_layer_train(layer, H)
-    with pytest.raises(ValueError, match="fp32"):
-        fet.fused_encoder_layer_train(torch.zeros(2, L, D, dtype=torch.bfloat16), packed, 1,
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fet.fused_encoder_layer_train(torch.zeros(2, L, D, dtype=torch.float16), packed, 1,
                                       n_head=H, rate=0.1)
     with pytest.raises(ValueError, match="rate"):
         fet.fused_encoder_layer_train(torch.from_numpy(x), packed, 1, n_head=H, rate=1.0)
