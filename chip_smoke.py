@@ -18,9 +18,10 @@ Phases, each printed with its seconds as it ends:
    -sass``, the instructions and tensor-core instructions (HMMA, and IMMA
    for the int8 products) of each kernel of B1, B2, B3, B4, B5/B6-bwd, B7
    and B8; every kernel that runs a tile product must have HMMA (an int8
-   one IMMA), B2's kernel, the two launches of B5/B6-bwd, the training
-   tail and B7/B8's three int8 kernels must be among them, and no kernel
-   of B7/B8 may hold a ``__dp4a`` (IDP4A).
+   one IMMA), B2's kernel, the two launches of B5/B6-bwd, their bf16
+   instances and B6-fwd's bf16 instance (BF16_ATTENTION_INSTANCES), the
+   training tail and B7/B8's three int8 kernels must be among them, and no
+   kernel of B7/B8 may hold a ``__dp4a`` (IDP4A).
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel (beside
@@ -81,10 +82,10 @@ Phases, each printed with its seconds as it ends:
    438 (dh 6 and 64: longer than a kernel that stages the whole head takes),
    against its plain version (bf16: to B2_BF16_ULPS ulps of the largest
    output), with its time, its plain version's and SDPA's.
-10. unfused attention kernels: B6-fwd (dropout 0.1; B2's kernel with the
-   keep factors) against its plain version at (64, 12, 100, 6), (8, 12,
-   365, 6) and (1, 8, 2048, 16), fp32, with the masks bit for bit, and B2's
-   fp32 time on the same heads beside SDPA's; B5 and
+10. unfused attention kernels, fp32 (bf16: phase 21): B6-fwd (dropout
+   0.1; B2's kernel with the keep factors) against its plain version at
+   (64, 12, 100, 6), (8, 12, 365, 6) and (1, 8, 2048, 16), with the masks
+   bit for bit, and B2's fp32 time on the same heads beside SDPA's; B5 and
    B6-bwd (two launches on the tensor cores each) there and at (8, 8, 187,
    16), (1, 8, 896, 16), (1, 12, 3616, 6) and (1, 2, 438, 64) against their
    plain versions (B5 also against autograd of the plain forward), launch
@@ -96,16 +97,17 @@ Phases, each printed with its seconds as it ends:
    the autograd backward of ``F.scaled_dot_product_attention`` for B5, SDPA
    with ``dropout_p=0.1`` forward and backward for B6 (the SDPA backend
    printed).
-11. unfused training check (``FDIFF_FUSED_TRAIN=0``): the first 3 steps of
-   the flagship's training configuration through the kernels and through
-   ``Trainer(plain=True)``, from the same weights, batches, ``t``, ``z`` and
-   generator (so the same attention seeds and FFN-site draws), at dropout
-   0.1 (B6) and 0 (B2 + B5): losses and the first step's gradients.
-12. unfused training main path: ``Trainer.fit`` as in phase 8, with
-   ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch (16 steps), at dropout 0.1 (B6-fwd
-   = B6-bwd = steps x 10 calls; a B5 or B6-bwd call is 2 CUDA launches)
-   and at dropout 0 (B5 = steps x 10), B2 for validation; all losses
-   finite; its steps/s beside phase 8's.
+11. unfused training check (``FDIFF_FUSED_TRAIN=0``; fp32, bf16 in phase
+   21): the first 3 steps of the flagship's training configuration through
+   the kernels and through ``Trainer(plain=True)``, from the same weights,
+   batches, ``t``, ``z`` and generator (so the same attention seeds and
+   FFN-site draws), at dropout 0.1 (B6) and 0 (B2 + B5): losses and the
+   first step's gradients.
+12. unfused training main path (fp32; bf16 in phase 21): ``Trainer.fit``
+   as in phase 8, with ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch (16 steps),
+   at dropout 0.1 (B6-fwd = B6-bwd = steps x 10 calls; a B5 or B6-bwd call
+   is 2 CUDA launches) and at dropout 0 (B5 = steps x 10), B2 for
+   validation; all losses finite; its steps/s beside phase 8's.
 13. int8 kernels: B7 (``FDIFF_FUSED_INT8=1``) and B8 (``=2``) against their
    plain versions on the trained flagship's layer 0 at L=100, B=64 and 32,
    fp32 and bf16, and at B=8 on phase 9's shapes (random weights). The
@@ -234,6 +236,34 @@ Phases, each printed with its seconds as it ends:
    bf16 form, the checkpoint fp32, each epoch's steps/s side by side; and
    ``fdiff-torch-sample`` of the bf16 run's checkpoint, 64 samples at K=100
    through B1 in bf16.
+21. bf16 on the unfused path, MLP and LSTM: (a) B6-fwd, B5 and B6-bwd in
+   bf16 (``attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh>`` and
+   the two launches ``<__nv_bfloat16, *, kDh>`` on bf16 ``mma.sync``)
+   against their plain bf16 versions at phase 10's shapes: B6-fwd's output
+   to B2_BF16_ULPS ulps of its largest, the masks bit for bit, dq, dk, dv
+   to BF16_ATTN_GRAD_TOL against the plain versions and the bf16 staged
+   plain backward, launch 1's statistics against the staged version (D
+   from O = P_used v recomputed, within ``bf16_d_err_over_bound``'s bound,
+   which D from the saved output must break), two calls bit for bit, 2 CUDA launches
+   per call by ``torch.profiler``; at (64, 12, 100, 6) the times of each
+   kernel, its plain version, its bound and SDPA in bf16 (its autograd
+   backward for B5; with ``dropout_p`` 0.1 forward for B6-fwd, backward
+   for B6-bwd); (b) phase 11 in bf16 at dropout 0.1 and 0 (losses, step-0
+   gradients, flipped gates located and matched, phase 20 (b)'s bf16
+   limits), and phase 12 in bf16 at both rates (B6-fwd = B6-bwd = steps x
+   10, or B5 = steps x 10, every B2 launch in its fast form), with the
+   steps/s beside phase 12's fp32; (c) ``fdiff-torch-train`` with
+   ``bf16_cli_overrides`` and ``FDIFF_FUSED_TRAIN=0``, cut to 1 epoch:
+   finite losses, B6-fwd = B6-bwd = steps x 10, B2 = 16 x 4 x 10 all in
+   the fast form, the checkpoint fp32, its steps/s beside phase 12's; (d)
+   ``fdiff-torch-train score_model=mlp`` and ``=lstm`` with
+   ``score_model.dtype=bfloat16`` on phase 8's data, 1 epoch each, then
+   ``fdiff-torch-sample`` of each, 64 samples at K=100: finite losses and
+   samples, fp32 checkpoints, no kernel launched; 3 steps of each network
+   on the card against the same steps on the CPU in bf16 (BF16_LOSS_TOL,
+   BF16_NET_GRAD_TOL); the bf16 LSTM's kernels from ``torch.profiler``
+   (cuDNN's names printed, an LSTM kernel among them, the layer's output
+   bf16).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero; it exits
@@ -353,10 +383,18 @@ PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
                    "attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
                    "attention_bwd_dkv_mma_kernel")
 # ... and these must be among them: B2's kernel, the two launches of B5 and
-# B6-bwd, and the tail that B3 runs.
+# B6-bwd, their bf16 instances and B6-fwd's (BF16_ATTENTION_INSTANCES), and
+# the tail that B3 runs.
+BF16_ATTENTION_INSTANCES = (
+    ("flash_attention", "attention_fwd_mma_kernel<__nv_bfloat16, false, true, 16>"),
+    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, false, 16>"),
+    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, false, 16>"),
+    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, true, 16>"),
+    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, true, 16>"))
 REQUIRED_PRODUCT_KERNELS = (("flash_attention", "attention_fwd_mma_kernel"),
                             ("flash_attention", "attention_bwd_dq_mma_kernel"),
                             ("flash_attention", "attention_bwd_dkv_mma_kernel"),
+                            *BF16_ATTENTION_INSTANCES,
                             ("fused_encoder_train", "layer_tail_kernel"),
                             ("fused_encoder_int8", "qkv_int8_kernel"),
                             ("fused_encoder_int8", "attention_int8_kernel"),
@@ -1653,18 +1691,27 @@ def unfused_training():
 
 def unfused_step0(trainer: Trainer, step: tuple, force: dict | None = None) -> tuple:
     """Step-0 gradients of the unfused path, drawing from a generator seeded
-    17, with every layer's FFN ReLU gates recorded by a hook on ``linear1``:
-    the gates (pre-activation > 0), the pre-activations and their sums of
-    |terms| (|x| |W1| + |b1|). ``force`` {layer: (where, open)} sets the gates
-    at ``where`` to ``open`` (the value keeps its size, the gradient passes
-    through an open gate and not a shut one)."""
+    17, with every layer's FFN ReLU gates recorded by a hook on ``linear1``
+    (``gated_step0``)."""
+    return gated_step0(trainer, step, [layer.linear1 for layer in trainer.model.backbone.layers],
+                       force)
+
+
+def gated_step0(trainer: Trainer, step: tuple, linears: list, force: dict | None = None) -> tuple:
+    """Step-0 gradients of the unfused path, drawing from a generator seeded
+    17, with the ReLU gates after each of ``linears`` recorded by a hook on
+    it: the gates (pre-activation > 0), the pre-activations and their sums
+    of |terms| (|x| |W| + |b|, in fp32), by the linear's index. ``force``
+    {index: (where, open)} sets the gates at ``where`` to ``open`` (the
+    value keeps its size, the gradient passes through an open gate and not
+    a shut one)."""
     gates, pres, terms, handles = {}, {}, {}, []
 
     def hook(i: int):
         def record(mod, inputs, out):
             pres[i] = out.detach()
             gates[i] = pres[i] > 0
-            terms[i] = (inputs[0].detach().abs() @ mod.weight.detach().abs().t()
+            terms[i] = (inputs[0].detach().float().abs() @ mod.weight.detach().abs().t()
                         + mod.bias.detach().abs())
             if force is not None and i in force:
                 where, want_open = force[i]
@@ -1674,8 +1721,8 @@ def unfused_step0(trainer: Trainer, step: tuple, force: dict | None = None) -> t
             return None
         return record
 
-    for i, layer in enumerate(trainer.model.backbone.layers):
-        handles.append(layer.linear1.register_forward_hook(hook(i)))
+    for i, linear in enumerate(linears):
+        handles.append(linear.register_forward_hook(hook(i)))
     try:
         x0, t0, z0, _ = step
         gen = torch.Generator(device=trainer.device).manual_seed(17)
@@ -1686,19 +1733,27 @@ def unfused_step0(trainer: Trainer, step: tuple, force: dict | None = None) -> t
     return grads, gates, pres, terms
 
 
-def check_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
-    """The first steps of unfused training through the kernels and through
+def check_unfused_training(dm: SyntheticDatamodule, rate: float,
+                           dtype: str = "float32") -> dict:
+    """The first steps of unfused training of the flagship computing in
+    ``dtype`` (fp32 parameters) through the kernels and through
     ``plain=True``, with generators seeded alike (the same attention seeds
-    and FFN-site draws). The step-0 gradients are held to GRAD_TOL per tensor
-    against the plain path's or, where FFN ReLU gates flipped between the
-    two paths, against the plain path with exactly those gates set as the
-    kernel path had them; every flip is located, printed and must lie within
-    GATE_BAND x sum |terms| of 0 (as B4's gate, above)."""
+    and FFN-site draws). The losses are held to LOSS_TOL (bf16:
+    BF16_LOSS_TOL) and the step-0 gradients per tensor to GRAD_TOL (bf16:
+    BF16_STEP_GRAD_TOL) against the plain path's or, where FFN ReLU gates
+    flipped between the two paths, against the plain path with exactly
+    those gates set as the kernel path had them; every flip is located,
+    printed and must lie within GATE_BAND (bf16: BF16_STEP_GATE_BAND) x sum
+    |terms| of 0 (as B4's gate, above). In bf16 the parameters and their
+    gradients must stay fp32."""
+    band, grad_tol, loss_tol = {
+        "float32": (GATE_BAND, GRAD_TOL, LOSS_TOL),
+        "bfloat16": (BF16_STEP_GATE_BAND, BF16_STEP_GRAD_TOL, BF16_LOSS_TOL)}[dtype]
     steps = draw_steps(dm, CHECK_STEPS)
     n_steps = dm.steps_per_epoch * TRAIN_EPOCHS
     with unfused_training():
-        kernel = flagship_trainer(rate=rate)
-        plain = flagship_trainer(plain=True, rate=rate)
+        kernel = flagship_trainer(rate=rate, dtype=dtype)
+        plain = flagship_trainer(plain=True, rate=rate, dtype=dtype)
         for trainer in (kernel, plain):
             trainer.start(n_steps)
         grads_k, gates_k, _, _ = unfused_step0(kernel, steps[0])
@@ -1711,9 +1766,9 @@ def check_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
                                 "pre_plain": pres[i][b, l, u].item(),
                                 "terms": terms[i][b, l, u].item(),
                                 "kernel_open": bool(gates_k[i][b, l, u])})
-        far = [f for f in located if abs(f["pre_plain"]) > GATE_BAND * f["terms"]]
+        far = [f for f in located if abs(f["pre_plain"]) > band * f["terms"]]
         if far:
-            raise AssertionError(f"unfused check: ReLU gates flipped away from 0: {far}")
+            raise AssertionError(f"unfused check {dtype}: ReLU gates flipped away from 0: {far}")
         grads_m = grads_p
         if flips:
             force = {i: (where, gates_k[i]) for i, where in flips.items()}
@@ -1725,25 +1780,33 @@ def check_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
             losses[name] = [trainer.train_step(x, t, z, generator=gen).item()
                             for x, t, z, _ in steps]
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"]))
-    print(f"  unfused, dropout {rate}: losses kernel {losses['kernel']} plain "
-          f"{losses['plain']}: max rel diff {rel_loss:.3e} (tol {LOSS_TOL:.0e})", flush=True)
+    what = f"unfused {dtype}, dropout {rate}"
+    print(f"  {what}: losses kernel {losses['kernel']} plain "
+          f"{losses['plain']}: max rel diff {rel_loss:.3e} (tol {loss_tol:.0e})", flush=True)
     if not all(math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
-        raise AssertionError(f"unfused check: losses not finite: {losses}")
-    if not rel_loss <= LOSS_TOL:
-        raise AssertionError(f"unfused check: losses disagree: {rel_loss}")
+        raise AssertionError(f"unfused check {dtype}: losses not finite: {losses}")
+    if not rel_loss <= loss_tol:
+        raise AssertionError(f"unfused check {dtype}: losses disagree: {rel_loss}")
+    if not (all(g.dtype == torch.float32 for g in grads_k + grads_p) and all(
+            p.dtype == torch.float32 for t in (kernel, plain) for p in t.params)):
+        raise AssertionError(f"unfused check {dtype}: parameters or gradients not fp32")
     rel = {n: {"vs_plain": rel_err(k, p), "vs_gate_matched": rel_err(k, m)}
            for n, k, p, m in zip(kernel.names, grads_k, grads_p, grads_m)}
     for n, r in rel.items():
-        if not (r["vs_plain"] <= GRAD_TOL or (flips and r["vs_gate_matched"] <= GRAD_TOL)):
-            raise AssertionError(f"unfused check: gradient {n} disagrees: {r}")
+        if not (r["vs_plain"] <= grad_tol or (flips and r["vs_gate_matched"] <= grad_tol)):
+            raise AssertionError(f"unfused check {dtype}: gradient {n} disagrees: {r}")
     worst = max(rel.items(), key=lambda kv: kv[1]["vs_plain"])
     worst_m = max(r["vs_gate_matched"] for r in rel.values())
-    print(f"  unfused, dropout {rate}: step-0 gradients, worst against plain {worst[0]} "
+    farthest = max((abs(f["pre_plain"]) / f["terms"] for f in located), default=0.0)
+    print(f"  {what}: step-0 gradients, worst against plain {worst[0]} "
           f"{json.dumps(worst[1])}, worst against gate-matched plain {worst_m:.3e} (tol "
-          f"{GRAD_TOL:.0e}); ReLU gates flipped between the paths: {len(located)}: "
-          f"{json.dumps(located)}; per tensor {json.dumps(rel)}", flush=True)
+          f"{grad_tol:.1e}); ReLU gates flipped between the paths: {len(located)}, the "
+          f"farthest {farthest:.3e} x sum |terms| from 0 (band {band:.1e}): "
+          f"{json.dumps(located[:20])}; per tensor {json.dumps(rel)}", flush=True)
     return {"loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_plain"],
-            "grad_rel_err_gate_matched": worst_m, "gate_flips": located}
+            "grad_rel_err_gate_matched": worst_m, "gate_flips": len(located),
+            "gate_flips_first": located[:20], "gate_flip_farthest": farthest,
+            "step_losses": losses}
 
 
 def reset_counts() -> None:
@@ -1760,9 +1823,12 @@ def read_counts() -> dict:
             "B7": fe.int8_launches, "B8": fe.int8_attn_launches}
 
 
-def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
-    """The unfused training main path; the counts are read around ``fit`` alone."""
-    trainer = flagship_trainer(rate=rate, epochs=UNFUSED_EPOCHS)
+def run_unfused_training(dm: SyntheticDatamodule, rate: float, dtype: str = "float32") -> dict:
+    """The unfused training main path of the flagship computing in ``dtype``
+    (fp32 parameters); the counts are read around ``fit`` alone. In bf16
+    every B2 launch takes its fast form (validation, and at rate 0 the
+    training forward, as JAX's ``_fast_fwd_kernel``), in fp32 none."""
+    trainer = flagship_trainer(rate=rate, epochs=UNFUSED_EPOCHS, dtype=dtype)
     with unfused_training():
         torch.cuda.synchronize()
         reset_counts()
@@ -1770,7 +1836,7 @@ def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
         history = trainer.fit(dm)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = read_counts()
+        counts = {**read_counts(), "B2 fast bf16": fa.fast_launches}
     steps = dm.steps_per_epoch * UNFUSED_EPOCHS
     train = steps * N_LAYERS
     val = UNFUSED_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH) * VAL_DRAWS * N_LAYERS
@@ -1779,23 +1845,25 @@ def run_unfused_training(dm: SyntheticDatamodule, rate: float) -> dict:
         expected.update({"B2": val, "B5": 0, "B6-fwd": train, "B6-bwd": train})
     else:
         expected.update({"B2": train + val, "B5": train, "B6-fwd": 0, "B6-bwd": 0})
+    expected["B2 fast bf16"] = expected["B2"] if dtype == "bfloat16" else 0
+    what = f"unfused {dtype}, dropout {rate}"
     for h in history:
-        print(f"  unfused, dropout {rate}, epoch {h['epoch']}: {json.dumps(h)}", flush=True)
+        print(f"  {what}, epoch {h['epoch']}: {json.dumps(h)}", flush=True)
     if counts != expected:
-        raise AssertionError(f"unfused training: launches {counts}, expected {expected}")
+        raise AssertionError(f"{what}: launches {counts}, expected {expected}")
     if len(history) != UNFUSED_EPOCHS or not all(
         math.isfinite(h["train/loss"]) and math.isfinite(h["val/loss"]) for h in history
     ):
-        raise AssertionError(f"unfused training: epochs or losses wrong: {history}")
-    if not all(torch.isfinite(p).all() for p in trainer.params):
-        raise AssertionError("unfused training: parameters are not finite")
+        raise AssertionError(f"{what}: epochs or losses wrong: {history}")
+    if not all(torch.isfinite(p).all() and p.dtype == torch.float32 for p in trainer.params):
+        raise AssertionError(f"{what}: parameters are not finite fp32")
     train_s = sum(h["train_seconds"] for h in history)
     r = {"launches": counts, "seconds": seconds, "steps": steps,
          "steps_per_s": steps / train_s, "step_ms": 1e3 * train_s / steps,
          "epoch_steps_per_sec": [h["steps_per_sec"] for h in history],
          "val_pass_s": sum(h["val_seconds"] for h in history) / UNFUSED_EPOCHS,
          "losses": [(h["train/loss"], h["val/loss"]) for h in history]}
-    print(f"  unfused, dropout {rate}: {steps} steps in {train_s:.3f} s = "
+    print(f"  {what}: {steps} steps in {train_s:.3f} s = "
           f"{r['steps_per_s']:.3f} steps/s ({r['step_ms']:.2f} ms/step); launches {counts} "
           f"(a B5 or B6-bwd call is {BWD_LAUNCHES} CUDA launches)", flush=True)
     return r
@@ -3284,6 +3352,337 @@ def check_bf16(flagship: ScoreTransformer) -> dict:
     return {"layers": layers, "training": training, "cli": cli, "seconds": seconds}
 
 
+# ---- phase 21: bf16 on the unfused path, MLP and LSTM ---------------------------------------
+
+# (a) B6-fwd, B5 and B6-bwd in bf16 against their plain bf16 versions, which
+# round where JAX's kernels and the bf16 kernels round (P keep, P_used and
+# dS rounded to bf16 before their products; dq, dk, dv written in bf16), at
+# phase 10's shapes. B6-fwd's output to B2_BF16_ULPS ulps of its largest,
+# as B2 bf16. dq, dk, dv to BF16_ATTN_GRAD_TOL of each tensor's largest,
+# against the plain version (JAX's _bwd_core) and the staged plain
+# backward: a rounding of P_used, dS or an output that flips between their
+# fp32 sum orders moves an entry by one bf16 ulp of itself, so four ulps of
+# the largest (2**-6), as B2 bf16's outputs; a lost key block or a wrong
+# rounding point misses by far more. Launch 1's m and l to STATS_TOL of the
+# largest (fp32 sums in other orders, the scores from exact bf16 products);
+# its D row by row within fa.bf16_d_err_over_bound's bound of the staged
+# version's (D_SUM_TOL of the row's sum of |terms|, and two bf16 ulps of each
+# term whose P keep lies within D_TIE_ULPS fp32 ulps of a bf16 rounding tie,
+# where the kernel's P and the staged version's may round to different
+# neighbours). The control: D = dO . o from the output the backward is
+# given (the dropout forward's, rounded to bf16; at rate 0 the fast form's)
+# must break that bound, or the bound could not tell the recompute from it.
+BF16_ATTN_GRAD_TOL = 2.0**-6
+# (b) phase 11 in bf16: BF16_STEP_GATE_BAND, BF16_STEP_GRAD_TOL and
+# BF16_LOSS_TOL, phase 20 (b)'s (against fp32's GATE_BAND, GRAD_TOL and
+# LOSS_TOL): each layer's input differs between the two paths by the bf16
+# roundings that flipped in the layers before.
+# (c) BF16_RUN's configuration with FDIFF_FUSED_TRAIN=0, cut to
+# UNFUSED_EPOCHS epochs (phase 12's) through fdiff-torch-train.
+# (d) fdiff-torch-train score_model=mlp and =lstm in bf16 on phase 8's
+# synthetic data, BF16_NET_EPOCHS epochs each, and fdiff-torch-sample of
+# each run, BF16_SAMPLES samples at BF16_SAMPLE_STEPS steps. Then
+# CHECK_STEPS steps of each network (the configs' widths, dropout 0, seed 0
+# weights, phase 8's batches) on the card against the same steps on the CPU
+# in bf16: the losses to BF16_LOSS_TOL relative and the step-0 gradients to
+# BF16_NET_GRAD_TOL of each tensor's largest, the MLP's ReLU gates that took
+# the other sign located (within BF16_STEP_GATE_BAND x sum |terms| of 0) and
+# matched: each gate of a block's unit covers one of only 64 rows (a chain,
+# the MLP flattens L x C), so one flip moves that unit's row of the weight
+# gradient by a large share (0.128 of the tensor's largest, unmatched). The
+# card runs cuBLAS and (the LSTM) cuDNN, which keeps its cell state in fp32,
+# the CPU PyTorch's own bf16 operations, each rounding to bf16 at its own
+# points, so the limits are phase 20 (b)'s for the bf16 flagship.
+BF16_NET_EPOCHS = 1
+BF16_NET_GRAD_TOL = BF16_STEP_GRAD_TOL
+
+
+def check_bf16_attention(b: int, h: int, l: int, dh: int, timed: bool) -> dict:
+    """Phase 21 (a) at one shape: B6-fwd (where ``(b, h, l, dh)`` is one of
+    DROPOUT_FWD_SHAPES) and B5 and B6-bwd (one of BWD_SHAPES) in bf16 on
+    random heads against their plain bf16 versions, the masks bit for bit;
+    launch 1's statistics against the bf16 staged plain backward, two calls
+    bit for bit and BWD_LAUNCHES CUDA launches per call by
+    ``torch.profiler``. With ``timed`` the times of each kernel, its plain
+    version and the PyTorch call (SDPA in bf16: its autograd backward for
+    B5, with ``dropout_p`` DROPOUT forward for B6-fwd and backward for
+    B6-bwd), and its bound (bf16 inputs read and outputs written once;
+    the backward does not read the forward's output in bf16)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, l, dh), generator=g, device="cuda").to(BF16)
+                   for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
+    shape = f"bf16 B={b} H={h} L={l} dh={dh}"
+    out: dict = {}
+    n = q.numel()
+    if not torch.equal(fa.attention_keep_cuda(b, h, l, seed, DROPOUT),
+                       fa.attention_keep(b, h, l, seed, DROPOUT, "cuda")):
+        raise AssertionError(f"B6 {shape}: the masks of the kernel and plain differ")
+    if (b, h, l, dh) in DROPOUT_FWD_SHAPES:
+        with torch.no_grad():
+            got = fa._launch_fwd(q, k, v, seed, DROPOUT)
+            plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
+            torch.cuda.synchronize()
+            r = {"max_abs_err": (got.float() - plain.float()).abs().max().item(),
+                 "tol": b2_tol(BF16, plain)}
+            if not (got.dtype == BF16 and torch.isfinite(got.float()).all()
+                    and r["max_abs_err"] <= r["tol"]):
+                raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
+            if timed:
+                r.update(ms=time_ms(lambda: fa._launch_fwd(q, k, v, seed, DROPOUT)),
+                         plain_ms=time_ms(lambda: fa.flash_attention_dropout_reference(
+                             q, k, v, seed, DROPOUT), iters=10),
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                             q, k, v, dropout_p=DROPOUT)))
+                r["bound_ms"], r["bound_by"] = bound(4 * b * h * l * l * dh, 4 * n * 2 + 8, BF16)
+        print(f"  B6-fwd {shape}: masks bit for bit; {json.dumps(r)}", flush=True)
+        out["B6-fwd"] = r
+    if (b, h, l, dh) not in BWD_SHAPES:
+        return out
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    for name, sd, rate in (("B5", None, 0.0), ("B6-bwd", seed, DROPOUT)):
+        keep = None if sd is None else fa.attention_keep(b, h, l, seed, rate, "cuda")
+        if sd is None:
+            o = fa.flash_attention_reference(q, k, v)
+            plain_fn = lambda: fa.flash_attention_bwd_reference(q, k, v, do)  # noqa: E731
+        else:
+            o = fa.flash_attention_dropout_reference(q, k, v, seed, rate)
+            plain_fn = lambda: fa.flash_attention_dropout_bwd_reference(  # noqa: E731
+                q, k, v, do, seed, rate)
+        call = lambda: fa._launch_bwd(q, k, v, o, do, sd, rate)  # noqa: E731
+        got, again, plain = call(), call(), plain_fn()
+        staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
+        torch.cuda.synchronize()
+        grads = ("dq", "dk", "dv")
+        r = {"max_rel_err": {t: rel_err(a.float(), p.float())
+                             for t, a, p in zip(grads, got, plain)},
+             "vs_staged": {t: rel_err(a.float(), p.float())
+                           for t, a, p in zip(grads, got, staged)},
+             "max_abs_err": max((a.float() - p.float()).abs().max().item()
+                                for a, p in zip(got, plain)),
+             "stats_rel_err": {t: rel_err(got[3][..., i], staged[3][..., i])
+                               for i, t in enumerate(("m", "l"))},
+             "D_err_over_bound": fa.bf16_d_err_over_bound(
+                 got[3][..., 2], staged[3][..., 2], q, k, v, do, keep).max().item(),
+             "saved_output_D_err_over_bound": fa.bf16_d_err_over_bound(
+                 (do.float() * o.float()).sum(-1), staged[3][..., 2], q, k, v, do,
+                 keep).max().item(),
+             "bit_identical": all(torch.equal(a, c) for a, c in zip(got, again))}
+        del again, plain
+        bad = [t for t, a in zip(grads, got)
+               if not (a.dtype == BF16 and torch.isfinite(a.float()).all())]
+        worst = max(*r["max_rel_err"].values(), *r["vs_staged"].values())
+        if bad or not worst <= BF16_ATTN_GRAD_TOL:
+            raise AssertionError(f"{name} {shape}: kernel disagrees with plain version "
+                                 f"(not finite bf16: {bad}): {r}")
+        if not (max(r["stats_rel_err"].values()) <= STATS_TOL and r["D_err_over_bound"] <= 1.0):
+            raise AssertionError(f"{name} {shape}: launch 1's statistics disagree with the "
+                                 f"staged plain version: {r}")
+        if not r["saved_output_D_err_over_bound"] > 1.0:
+            raise AssertionError(f"{name} {shape}: the D bound does not tell the saved "
+                                 f"output's D from the recomputed one: {r}")
+        if not r["bit_identical"]:
+            raise AssertionError(f"{name} {shape}: two calls on the same inputs differ")
+        prof = device_us_by_kernel(call, launches=BWD_LAUNCHES)
+        r["device_us_by_kernel"], r["launches_per_call"], r["profile_traces"] = \
+            prof.us_by_kernel, prof.launches, prof.traces
+        if r["launches_per_call"] != BWD_LAUNCHES:
+            raise AssertionError(f"{name} {shape}: {r['launches_per_call']} CUDA launches per "
+                                 f"call, expected {BWD_LAUNCHES}")
+        if timed:
+            sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
+            r.update(ms=time_ms(call), plain_ms=time_ms(plain_fn, iters=10),
+                     library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                                                    retain_graph=True)))
+            del sdpa
+            # The five products of 2 B H L^2 dh (S, dP, dq, dk, dv); q, k, v,
+            # dO read and dq, dk, dv written once, in bf16.
+            r["bound_ms"], r["bound_by"] = bound(10 * b * h * l * l * dh,
+                                                 7 * n * 2 + (0 if sd is None else 8), BF16)
+        print(f"  {name} {shape}: {json.dumps(r)} (gradients tol {BF16_ATTN_GRAD_TOL:.3e} of "
+              f"max; m, l tol {STATS_TOL:.0e} of max, D within its bound at <= 1, the saved "
+              f"output's D beyond it at > 1)", flush=True)
+        del got, staged, keep
+        out[name] = r
+    return out
+
+
+def cudnn_lstm_kernels(model) -> dict:
+    """The CUDA kernels of one forward and backward of ``model`` (the bf16
+    LSTM score network) on a batch of TRAIN_BATCH, from ``torch.profiler``:
+    the names and launches of each, and the dtypes of an LSTM layer's
+    output and of the score."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(TRAIN_BATCH, MAX_LEN, N_CHANNELS, device="cuda")
+    t = torch.rand(TRAIN_BATCH, device="cuda")
+    model.train()
+    for _ in range(2):
+        model(x, t).sum().backward()
+    torch.cuda.synchronize()
+    seen = []
+    hook = model.backbone[0].register_forward_hook(lambda m, i, o: seen.append(str(o.dtype)))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = model(x, t)
+        y.sum().backward()
+        torch.cuda.synchronize()
+    hook.remove()
+    names = {kernel_name(e.key): e.count for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0.0) > 0}
+    return {"kernels": names, "layer_dtype": seen[0], "score_dtype": str(y.dtype),
+            "cudnn": torch.backends.cudnn.enabled, "cudnn_version": torch.backends.cudnn.version()}
+
+
+def bf16_net_steps(model_type: str, dm: SyntheticDatamodule) -> dict:
+    """CHECK_STEPS steps of the bf16 ``model_type`` network (its config's
+    widths, dropout 0, seed 0 weights) on phase 8's batches through the
+    trainer on the card and on the CPU: the losses to BF16_LOSS_TOL, and
+    the step-0 gradients to BF16_NET_GRAD_TOL against the CPU's or, where
+    the MLP's ReLU gates (after each block's first linear) took the other
+    sign on the two, against the CPU's with the card's gates (every flip
+    located, within BF16_STEP_GATE_BAND x sum |terms| of 0); the parameters
+    and gradients fp32."""
+    cfg = compose("train", [f"score_model={model_type}"])["score_model"]
+    arch = {k: cfg[k] for k in ("d_model", "num_layers") + (("d_mlp",) if "d_mlp" in cfg else ())}
+    steps = draw_steps(dm, CHECK_STEPS)
+    losses, grads, gates = {}, {}, {}
+
+    def relu_linears(model) -> list:
+        return [block[0] for block in model.backbone] if model_type == "mlp" else []
+
+    for device in ("cuda", "cpu"):
+        model = ScoreModelConfig(model_type=model_type, dtype="bfloat16", dropout_rate=0.0,
+                                 **arch).build(N_CHANNELS, MAX_LEN, seed=0)
+        trainer = Trainer(model, VPScheduler(fourier_noise_scaling=True), lr_max=cfg["lr_max"],
+                          gradient_clip_val=1.0, ema_decay=0.999, device=device)
+        trainer.start(dm.steps_per_epoch)
+        batches = [tuple(a.to(device) for a in step[:3]) + (None,) for step in steps]
+        grads[device], gates[device], pres, terms = gated_step0(trainer, batches[0],
+                                                                relu_linears(model))
+        if device == "cpu":
+            flips = {i: gates["cuda"][i].cpu() != g for i, g in gates["cpu"].items()}
+            located = [{"block": i, "chain": b, "unit": u, "pre_cpu": pres[i][b, u].item(),
+                        "terms": terms[i][b, u].item()}
+                       for i, where in flips.items() for b, u in where.nonzero().tolist()]
+            grads["gate_matched"] = grads["cpu"] if not located else gated_step0(
+                trainer, batches[0], relu_linears(model),
+                {i: (where, gates["cuda"][i].cpu()) for i, where in flips.items()})[0]
+        losses[device] = [trainer.train_step(*step[:3]).item() for step in batches]
+        if not all(p.dtype == torch.float32 for p in trainer.params) or not all(
+                g.dtype == torch.float32 for g in grads[device]):
+            raise AssertionError(f"(d) {model_type} on {device}: parameters or gradients not fp32")
+    names = [n for n, _ in model.named_parameters()]
+    rel = {n: {"vs_cpu": rel_err(a.cpu(), b), "vs_gate_matched": rel_err(a.cpu(), m)}
+           for n, a, b, m in zip(names, grads["cuda"], grads["cpu"], grads["gate_matched"])}
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    worst = max(rel.items(), key=lambda kv: kv[1]["vs_cpu"])
+    worst_m = max(r["vs_gate_matched"] for r in rel.values())
+    farthest = max((abs(f["pre_cpu"]) / f["terms"] for f in located), default=0.0)
+    print(f"  (d) {model_type} bf16, {CHECK_STEPS} steps on the card against the CPU: losses "
+          f"{losses['cuda']} / {losses['cpu']}, max rel diff {rel_loss:.3e} (tol "
+          f"{BF16_LOSS_TOL:.0e}); step-0 gradients, worst against the CPU {worst[0]} "
+          f"{json.dumps(worst[1])}, worst against the CPU with the card's ReLU gates "
+          f"{worst_m:.3e} (tol {BF16_NET_GRAD_TOL:.3e}); gates flipped: {len(located)}, the "
+          f"farthest {farthest:.3e} x sum |terms| from 0 (band {BF16_STEP_GATE_BAND:.1e}), the "
+          f"first {json.dumps(located[:5])}; per tensor {json.dumps(rel)}", flush=True)
+    if not all(math.isfinite(x) for x in losses["cuda"] + losses["cpu"]):
+        raise AssertionError(f"(d) {model_type}: losses not finite: {losses}")
+    bad = {n: r for n, r in rel.items()
+           if not (r["vs_cpu"] <= BF16_NET_GRAD_TOL
+                   or (located and r["vs_gate_matched"] <= BF16_NET_GRAD_TOL))}
+    if not rel_loss <= BF16_LOSS_TOL or bad or farthest > BF16_STEP_GATE_BAND:
+        raise AssertionError(f"(d) {model_type}: the card and the CPU disagree: losses "
+                             f"{rel_loss}, gradients {bad}, gates up to {farthest} x terms")
+    return {"losses": losses, "loss_rel_err": rel_loss, "grad_rel_err": worst[1]["vs_cpu"],
+            "grad_rel_err_gate_matched": worst_m, "gate_flips": len(located),
+            "gate_flip_farthest": farthest}
+
+
+def checkpoint_dtypes(run_dir: Path) -> list[str]:
+    params = load_checkpoint(get_best_checkpoint(run_dir / "checkpoints"))
+    return sorted({str(t.dtype) for t in params.values()})
+
+
+def check_bf16_unfused(phase12: dict) -> dict:
+    """Phase 21 (a)-(d); the seconds of each."""
+    seconds, attn = {}, {}
+    t0 = time.perf_counter()
+    for b, h, l, dh in dict.fromkeys(DROPOUT_FWD_SHAPES + BWD_SHAPES):
+        attn[f"B={b} H={h} L={l} dh={dh}"] = check_bf16_attention(
+            b, h, l, dh, timed=(b, l) == (TRAIN_BATCH, MAX_LEN))
+    seconds["a"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dm = synthetic_data(str(root / "check"))
+        t0 = time.perf_counter()
+        check = {rate: check_unfused_training(dm, rate, "bfloat16") for rate in (DROPOUT, 0.0)}
+        fit = {rate: run_unfused_training(dm, rate, "bfloat16") for rate in (DROPOUT, 0.0)}
+        print(f"  (b) unfused steps/s, train seconds only (C3's steps_per_sec in brackets): "
+              + "; ".join(f"dropout {rate}: bf16 {fit[rate]['steps_per_s']:.3f} "
+                          f"({fit[rate]['epoch_steps_per_sec']}), fp32 (phase 12) "
+                          f"{phase12[rate]['steps_per_s']:.3f} "
+                          f"({phase12[rate]['epoch_steps_per_sec']})" for rate in fit),
+              flush=True)
+        seconds["b"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        steps = UNFUSED_EPOCHS * -(-TRAIN_SERIES // TRAIN_BATCH)
+        val = steps * VAL_DRAWS * N_LAYERS
+        expected = {**{k: 0 for k in read_counts()}, "B2": val,
+                    "B6-fwd": steps * N_LAYERS, "B6-bwd": steps * N_LAYERS}
+        with unfused_training():
+            cli = train_with_cli(bf16_cli_overrides(root, "bfloat16")
+                                 + [f"trainer.max_epochs={UNFUSED_EPOCHS}"],
+                                 "(c) unfused bf16", expected=expected)
+        cli["B2 fast bf16"] = fa.fast_launches
+        run_dir = Path(cli["run_dir"])
+        records = [json.loads(s) for s in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        cli["steps_per_sec"] = [r["steps_per_sec"] for r in records if "epoch" in r]
+        cli["checkpoint_dtypes"] = checkpoint_dtypes(run_dir)
+        print(f"  (c) unfused bf16 through fdiff-torch-train: B2 fast {cli['B2 fast bf16']} of "
+              f"{cli['launches']['B2']}; steps/s per epoch (C3) {cli['steps_per_sec']} beside "
+              f"phase 12's fp32 {phase12[DROPOUT]['epoch_steps_per_sec']}; checkpoint "
+              f"{cli['checkpoint_dtypes']}", flush=True)
+        if cli["B2 fast bf16"] != val or cli["checkpoint_dtypes"] != ["torch.float32"]:
+            raise AssertionError(f"(c) unfused bf16: B2 fast {cli['B2 fast bf16']} of {val}, "
+                                 f"checkpoint {cli['checkpoint_dtypes']}")
+        seconds["c"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        none = {k: 0 for k in read_counts()}
+        nets = {}
+        for model_type in ("mlp", "lstm"):
+            run = train_with_cli(
+                [f"run_dir={root / 'runs'}", f"score_model={model_type}", "datamodule=synthetic",
+                 f"datamodule.data_dir={root / 'data'}", "fourier_transform=true",
+                 "score_model.dtype=bfloat16", "trainer.callbacks.sampling.enabled=false",
+                 f"trainer.max_epochs={BF16_NET_EPOCHS}"], f"(d) {model_type} bf16",
+                expected=none)
+            run["checkpoint_dtypes"] = checkpoint_dtypes(Path(run["run_dir"]))
+            sampled = sample_with_cli(Path(run["run_dir"]), BF16_SAMPLES, BF16_SAMPLE_STEPS,
+                                      QUALITY_SEED, f"(d) {model_type} bf16", none,
+                                      (MAX_LEN, N_CHANNELS))
+            sampled.pop("results")
+            nets[model_type] = {"train": run, "sample": sampled,
+                                "steps": bf16_net_steps(model_type, dm)}
+            if run["checkpoint_dtypes"] != ["torch.float32"]:
+                raise AssertionError(f"(d) {model_type}: checkpoint {run['checkpoint_dtypes']}")
+        lstm = ScoreModelConfig(model_type="lstm", dtype="bfloat16").build(
+            N_CHANNELS, MAX_LEN, seed=0).to("cuda")
+        nets["lstm"]["kernels"] = cudnn_lstm_kernels(lstm)
+        print(f"  (d) the bf16 LSTM's kernels, one forward and backward at B={TRAIN_BATCH}: "
+              f"{json.dumps(nets['lstm']['kernels'])}", flush=True)
+        lstm_run = nets["lstm"]["kernels"]
+        if lstm_run["layer_dtype"] != "torch.bfloat16" or not any(
+                "lstm" in k.lower() or "rnn" in k.lower() for k in lstm_run["kernels"]):
+            raise AssertionError(f"(d) lstm: the layer did not run an LSTM kernel in bf16: "
+                                 f"{lstm_run}")
+        seconds["d"] = time.perf_counter() - t0
+    print("  seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in seconds.items()), flush=True)
+    return {"attention": attn, "check": check, "fit": fit, "cli": cli, "nets": nets,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3442,6 +3841,10 @@ def main() -> int:
     bf16 = check_bf16(flagship)
     phase("20 bf16 training", t0)
 
+    t0 = time.perf_counter()
+    bf16_unfused = check_bf16_unfused(unfused)
+    phase("21 bf16 on the unfused path, MLP and LSTM", t0)
+
     kernels = []
     for dtype, by_batch in checks.items():
         r = by_batch[SAMPLE_CHAINS]  # the main path's shape
@@ -3563,6 +3966,38 @@ def main() -> int:
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train_bf16: ")},
             "checked_lengths": {k: v[key] for k, v in bf16["layers"].items()},
         })
+    main_attn = bf16_unfused["attention"][
+        f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD}"]
+    for key, name, replaces, launches in (
+        ("B5", "flash_attention_bwd/bfloat16", FLASH_BWD_REPLACES,
+         bf16_unfused["fit"][0.0]["launches"]["B5"]),
+        ("B6-fwd", "flash_attention_dropout_fwd/bfloat16", DROPOUT_FWD_REPLACES,
+         bf16_unfused["fit"][DROPOUT]["launches"]["B6-fwd"]),
+        ("B6-bwd", "flash_attention_dropout_bwd/bfloat16", DROPOUT_BWD_REPLACES,
+         bf16_unfused["fit"][DROPOUT]["launches"]["B6-bwd"]),
+    ):
+        r = main_attn[key]
+        checked = {k: a[key] for k, a in bf16_unfused["attention"].items() if key in a}
+        extra = {"functions": ["attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh>"]} if (
+            key == "B6-fwd") else {
+            "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh>"
+                          for f in BWD_FUNCTIONS],
+            "launches_per_call": r["launches_per_call"],
+            "device_us_by_kernel": r["device_us_by_kernel"],
+            "profile_traces": r["profile_traces"]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], **extra,
+            "shape": f"B={TRAIN_BATCH} H={N_HEAD} L={MAX_LEN} dh={72 // N_HEAD} bfloat16"
+                     + ("" if key == "B5" else f" dropout {DROPOUT}"),
+            "launches_cli": bf16_unfused["cli"]["launches"].get(key, 0),
+            "sass": {k: v for k, v in sass.items() if k.startswith("flash_attention: ")
+                     and "__nv_bfloat16" in k and ("attention_bwd" in k) == (key != "B6-fwd")},
+            "checked_shapes": checked,
+        })
     breakdown8 = int8_checks["breakdown"]
     for level in INT8_LEVELS:
         by_shape = int8_checks[level]
@@ -3600,7 +4035,8 @@ def main() -> int:
     cli_names = {"fused_encoder_layer/float32": "B1", "flash_attention": "B2",
                  "fused_encoder_layer_train_fwd": "B3", "fused_encoder_layer_train_bwd": "B4"}
     for k in kernels:
-        k["launches_cli"] = cli_counts[cli_names[k["name"]]] if k["name"] in cli_names else 0
+        if "launches_cli" not in k:  # phase 21's rows hold their own CLI run's
+            k["launches_cli"] = cli_counts[cli_names[k["name"]]] if k["name"] in cli_names else 0
     # The launches of phase 18's dataset paths ((b) ECG, (c) NASDAQ, NASA,
     # droughts), by dataset.
     by_dataset = {"ecg": {k: datasets["ecg_train"]["launches"][k]
@@ -3626,6 +4062,8 @@ def main() -> int:
     print(f"datasets: {json.dumps(datasets)}", flush=True)
     print(f"parallel: {json.dumps(parallel)}", flush=True)
     print(f"bf16: {json.dumps({k: v for k, v in bf16.items() if k != 'layers'})}", flush=True)
+    print("bf16 unfused: "
+          + json.dumps({k: v for k, v in bf16_unfused.items() if k != "attention"}), flush=True)
     print(f"C1: {json.dumps(c1)}", flush=True)
     print(f"training: {json.dumps({**training, **train_check})}", flush=True)
     unfused_all = {str(r): {**unfused[r], **unfused_check[r]} for r in unfused}

@@ -19,10 +19,10 @@
 //     factors (keep / (1 - rate)) multiplied into P before P v, and into dP
 //     and P^T in the backward.
 // attention_fwd_mma_kernel<T, kFast, kDrop, kDh> serves B2 (kDrop false:
-// fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true, fp32); the two
-// launches attention_bwd_dq_mma_kernel<kDrop, kDh> and
-// attention_bwd_dkv_mma_kernel<kDrop, kDh> serve B5 (kDrop false: every keep
-// factor is the constant 1) and B6-bwd. The training kernels are fp32 only.
+// fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true: fp32, and bf16
+// in the exact form); the two launches attention_bwd_dq_mma_kernel<T, kDrop,
+// kDh> and attention_bwd_dkv_mma_kernel<T, kDrop, kDh> serve B5 (kDrop
+// false: every keep factor is the constant 1) and B6-bwd, in fp32 and bf16.
 //
 // Dropout masks: the TPU kernels' interpret-mode _keep_scale. Head h of
 // chain b is keyed by tag = seed + b*131071 + g0 (uint32), where g0 = h - h %
@@ -44,8 +44,9 @@
 // saved o) against 8 x 1.8 MB (q, k, v, o, dO in; dq, dk, dv out), so
 // operations bound both in fp32 (2.7 us and 6.9 us at 67 TFLOP/s on the
 // CUDA cores; as 3xTF32 on the tensor cores, three times the products at
-// 495 TFLOP/s, 1.1 us and 2.8 us); bytes bound the bf16 forward (1.1 us at
-// 3.35 TB/s).
+// 495 TFLOP/s, 1.1 us and 2.8 us); bytes bound both in bf16 (1.1 us and
+// 2.2 us at 3.35 TB/s: the backward's products, 0.47 us at 989 TFLOP/s,
+// are fewer than its 7.4 MB take).
 //
 // B2's design (attention_fwd_mma_kernel): one CTA per (chain, head) and 128
 // query rows, a warp per 16 query rows (one m16 tile), up to 8 warps. The
@@ -65,12 +66,14 @@
 // A-operand layout, and V's rows are read in the same permutation). At these
 // head widths recomputing S costs one small mma per key tile. The launch's
 // plan (AttnFwdPlan) is computed by the Python wrapper and passed in.
-// B6-fwd is the kDrop instance of the same kernel, in fp32 on B2's fp32
-// plan: the first pass does not change (the row max and sum do not depend
-// on the mask), and the second multiplies each normalised P entry by its
-// keep factor, hashed per (i, j) as B6-bwd's launches hash it, before P v:
-// JAX's rounding points (softmax, then keep, then P v). Its shared memory,
-// like B2's, does not grow with L, so every length runs.
+// B6-fwd is the kDrop instance of the same kernel, on B2's plan of its
+// dtype (in bf16 the exact form, whatever dh: JAX's _dropout_fwd_kernel
+// takes no fast form): the first pass does not change (the row max and sum
+// do not depend on the mask), and the second multiplies each normalised P
+// entry by its keep factor, hashed per (i, j) as B6-bwd's launches hash it,
+// before P is rounded to T and multiplied by V: JAX's rounding points
+// (softmax, then keep, then the round, then P v). Its shared memory, like
+// B2's, does not grow with L, so every length runs.
 //
 // B5/B6-bwd's design: JAX's _bwd_core, dq = dS k scale, dk = dS^T q scale,
 // dv = P_used^T dO with dS = P o (dP o keep - D), as two launches on B2's
@@ -79,25 +82,39 @@
 //   Launch 1, attention_bwd_dq_mma_kernel: a CTA per (chain, head, 128 query
 //   rows), a warp per 16 rows, K and V streamed through B2's ring of two
 //   key blocks of 64. Pass 1 keeps each row's running max and rescaled sum
-//   (B2's first pass); D = dO . O takes the O the forward wrote (JAX
-//   recomputes O = P_used v, which in fp32 differs only in summation
-//   order); pass 2 computes S = q k^T scale and dP = dO v^T, forms P and
-//   dS with the keep factors, and adds dS K from the accumulator registers
-//   (the n8 tile's keys permuted as B2 feeds P into P v). It writes dq and
-//   each row's (m, l, D) to a (B, H, L, 3) scratch.
+//   (B2's first pass); in fp32 D = dO . O takes the O the forward wrote
+//   (JAX recomputes O = P_used v, which in fp32 differs only in summation
+//   order), in bf16 a second pass recomputes O (below); the last pass
+//   computes S = q k^T scale and dP = dO v^T, forms P and dS with the keep
+//   factors, and adds dS K from the accumulator registers (in fp32 the n8
+//   tile's keys permuted as B2 feeds P into P v). It writes dq and each
+//   row's (m, l, D) to a (B, H, L, 3) fp32 scratch.
 //   Launch 2, attention_bwd_dkv_mma_kernel: a CTA per (chain, head, 128
 //   keys), a warp per 16 keys, Q, dO and the rows' statistics streamed
 //   through the ring in blocks of 64 query rows: S^T = k q^T scale and dP^T
 //   = v dO^T, P^T from the statistics (0 for query rows at or past L, whose
 //   statistics were never written), then dk += dS^T q and dv += (P o
 //   keep)^T dO.
-// Every product is 3xTF32 on mma.sync, with mma_tile.cuh's fragments. The
-// keep factors are hashed per (i, j) in both launches, as B4's attention
-// stage does. Shared memory is two stages of two blocks and the statistics
-// of 64 rows whatever L (AttnBwdPlan, from the Python wrapper), so every
-// length runs. Scores and probabilities never reach device memory.
+// In fp32 every product is 3xTF32 on mma.sync, with mma_tile.cuh's
+// fragments. In bf16 every product is bf16 m16n8k16 on mma.sync with fp32
+// accumulation, at JAX's rounding points (_bwd_core): P is the exact
+// softmax in fp32; P_used = bf16(P keep) before P_used^T dO; dP = dO V^T
+// from bf16 operands, times keep; dS = bf16(P (dP keep - D)) before dS K and
+// dS^T Q; dq, dk scaled in fp32 and dq, dk, dv rounded to bf16 as they are
+// written. Two n8 tiles of P_used or dS in the accumulator layout are one
+// A fragment, and the staged block's rows are its B operand through
+// ldmatrix.trans, as B2's bf16 P v. The saved bf16 output is rounded (and at
+// rate 0 comes from B2's fast max-free form), so in bf16 launch 1 takes D
+// from O = P_used V recomputed unrounded, in fp32, from the exact softmax,
+// as JAX's _bwd_core does: a pass over K and V between the statistics and
+// dq (three passes over the key blocks in all). The keep factors are
+// hashed per (i, j) in both launches, as B4's attention stage does. Shared
+// memory is two stages of two blocks and the fp32 statistics of 64 rows
+// whatever L (AttnBwdPlan, from the Python wrapper), so every length runs.
+// Scores and probabilities never reach device memory.
 
 #include <cmath>
+#include <type_traits>
 
 #include "encoder_layer.cuh"
 #include "mma_tile.cuh"
@@ -123,12 +140,12 @@ struct AttnFwdPlan {
 // takes them as keys and streams blocks of query rows (Q, dO and their
 // statistics).
 struct AttnBwdPlan {
-  int kdh;     // head width of the instance: dh padded to the mma's k step (8), doubled
+  int kdh;     // head width of the instance: dh padded to the mma's k step (8, bf16 16), doubled
   int warps;   // per CTA: one per 16 rows, at most 8
   int tiles;   // CTAs per head (grid.y): tiles of 128 rows
   int blocks;  // blocks of 64 rows streamed through the ring
-  int stride;  // row stride (floats) of a staged block
-  int stage;   // floats of a stage of the ring: two blocks and 64 rows of statistics
+  int stride;  // row stride (elements) of a staged block
+  int stage;   // elements of a stage of the ring: two blocks and 64 rows of fp32 statistics
   int bytes;   // dynamic shared memory: two stages
 };
 
@@ -254,14 +271,14 @@ __device__ __forceinline__ void acc_times_block(float (&acc)[NO][4], const float
 // B2 over (B, H, L, dh) tensors: grid (B * H, p.q_tiles); blockDim p.warps
 // warps. kFast: the max-free bf16 form; `scale` (rounded to bf16 by the
 // caller) then scales q as it is loaded, rounded to bf16, in place of S.
-// kDrop (B6-fwd, fp32): P o keep before P v, with the mask of `drop`.
+// kDrop (B6-fwd): P o keep before P v, with the mask of `drop`.
 template <typename T, bool kFast, bool kDrop, int kDh>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o, int H, int L, int dh,
                          float scale, AttnDropout drop, AttnFwdPlan p) {
   constexpr bool kF32 = sizeof(T) == 4;
-  static_assert(!kDrop || (kF32 && !kFast), "dropout runs in the exact fp32 form only");
+  static_assert(!kDrop || !kFast, "dropout runs in the exact form only");
   constexpr int KS = kDh / (kF32 ? 8 : 16);  // k steps of q k^T
   constexpr int NO = kDh / 8;                 // n8 tiles of O
   extern __shared__ __align__(16) unsigned char fwd_smem[];
@@ -487,8 +504,8 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, int B, 
   return (int)cudaGetLastError();
 }
 
-// B2's exact forms (fp32; bf16 with dh >= 16) and B6-fwd (kDrop, fp32),
-// the instance by the plan's head width.
+// B2's exact forms (fp32; bf16 with dh >= 16) and B6-fwd (kDrop; fp32 and
+// bf16), the instance by the plan's head width.
 template <typename T, bool kDrop>
 int launch_fwd_exact(const void* q, const void* k, const void* v, void* o, int B, int H, int L,
                      int dh, float scale, const AttnDropout& drop, const AttnFwdPlan& p,
@@ -531,6 +548,31 @@ struct RowFrags {
   }
 };
 
+// The same rows of bf16 as m16n8k16 A fragments (element e of k step ks:
+// row g + 8 (e & 1), columns 16 ks + 2t + 8 (e >> 1) and the next, the
+// first in the low half), zero past L and dh.
+template <int kDh>
+struct RowFragsBf16 {
+  uint32_t a[kDh / 16][4];
+
+  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ x, int r0, int L,
+                                       int dh) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    auto at = [&](int r, int c) { return r < L && c < dh ? to_f(x[(size_t)r * dh + c]) : 0.0f; };
+#pragma unroll
+    for (int ks = 0; ks < kDh / 16; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e & 1), c = 16 * ks + 2 * t + 8 * (e >> 1);
+        a[ks][e] = pack_bf16(at(r, c), at(r, c + 1));
+      }
+  }
+};
+
+// A warp's 16 rows of T as the A fragments of its products.
+template <typename T, int kDh>
+using RowFragsOf = std::conditional_t<sizeof(T) == 4, RowFrags<kDh>, RowFragsBf16<kDh>>;
+
 // c = (the 16 rows of a) . (rows n .. n + 7 of the staged block s)^T over the
 // head width, as 3xTF32: element e at (row g + 8 (e >> 1), block row n + 2t
 // + (e & 1)). The block's rows are split into TF32 hi and lo as they are read.
@@ -554,11 +596,55 @@ __device__ __forceinline__ void rows_dot_block(float (&c)[4], const RowFrags<kDh
   }
 }
 
-// out[r0 + row, col] = acc * scale for the warp's rows below L and columns
-// below dh (element e of tile n at row g + 8 (e >> 1), column 8n + 2t + (e
-// & 1)).
+// The same over a staged bf16 block, on bf16 m16n8k16 with fp32 sums: the
+// block row n + g's pairs of columns are the B fragment as they lie (B2's
+// bf16 scores).
+template <int kDh>
+__device__ __forceinline__ void rows_dot_block(float (&c)[4], const RowFragsBf16<kDh>& a,
+                                               const __nv_bfloat16* __restrict__ s, int S,
+                                               int n, int dh) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* r = s + (n + g) * S + 2 * t;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < kDh / 16; ++ks) {
+    if (16 * ks >= dh) break;
+    const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(r + 16 * ks),
+                           *reinterpret_cast<const uint32_t*>(r + 16 * ks + 8)};
+    tc::mma_bf16(c, a.a[ks], b);
+  }
+}
+
+// acc[n] += (x0 | x1) . (rows n0 .. n0 + 15 of the staged bf16 block s,
+// columns 8n .. 8n + 7) for the head width's NO n8 tiles, on bf16
+// m16n8k16: x0 and x1 are two tiles in the accumulator layout over block
+// rows n0 .. n0 + 7 and n0 + 8 .. n0 + 15 (element e at row g + 8 (e >> 1),
+// block row 2t + (e & 1) of its eight), rounded to bf16 as they are packed
+// into one A fragment, and the block's rows are the B operand through
+// ldmatrix.trans (B2's bf16 P v; B5/B6-bwd's dS K, dS^T Q and P_used^T dO).
 template <int NO>
-__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&acc)[NO][4],
+__device__ __forceinline__ void pair_times_block(float (&acc)[NO][4], const float (&x0)[4],
+                                                 const float (&x1)[4],
+                                                 const __nv_bfloat16* __restrict__ s, int S,
+                                                 int n0, int dh) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a[4] = {pack_bf16(x0[0], x0[1]), pack_bf16(x0[2], x0[3]),
+                         pack_bf16(x1[0], x1[1]), pack_bf16(x1[2], x1[3])};
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (8 * n >= dh) break;
+    uint32_t b[2];
+    tc::ldmatrix_x2_trans(b, s + (n0 + (lane & 15)) * S + 8 * n);
+    tc::mma_bf16(acc[n], a, b);
+  }
+}
+
+// out[r0 + row, col] = acc * scale, rounded to T, for the warp's rows below
+// L and columns below dh (element e of tile n at row g + 8 (e >> 1), column
+// 8n + 2t + (e & 1)).
+template <typename T, int NO>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&acc)[NO][4],
                                            int r0, int L, int dh, float scale) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -566,32 +652,36 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out, const float 
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
-      if (r < L && c < dh) out[(size_t)r * dh + c] = acc[n][e] * scale;
+      if (r < L && c < dh) out[(size_t)r * dh + c] = from_f<T>(acc[n][e] * scale);
     }
 }
 
-// Launch 1 over (B, H, L, dh) fp32 heads: grid (B * H, p.tiles), p.warps
+// Launch 1 over (B, H, L, dh) heads of T: grid (B * H, p.tiles), p.warps
 // warps, a warp per 16 query rows. dq = scale dS K, and (m, l, D) of each
-// row into stats (B, H, L, 3).
-template <bool kDrop, int kDh>
+// row into stats (B, H, L, 3) in fp32. The passes over the key blocks:
+// the statistics (K), in bf16 O = P_used V for D (K and V), then dq (K and
+// V). In bf16 `o` is not read.
+template <typename T, bool kDrop, int kDh>
 __global__ void __launch_bounds__(kMmaWarps * 32)
-attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ o,
-                            const float* __restrict__ dout, float* __restrict__ dq,
+attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ o,
+                            const T* __restrict__ dout, T* __restrict__ dq,
                             float* __restrict__ stats, int H, int L, int dh, float scale,
                             AttnDropout drop, AttnBwdPlan p) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int NO = kDh / 8;  // n8 tiles of a row of dq (and of O)
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  float* ring = reinterpret_cast<float*>(bwd_smem);
-  const int S = p.stride, nb = p.blocks, steps = 2 * nb;
+  T* ring = reinterpret_cast<T*>(bwd_smem);
+  const int S = p.stride, nb = p.blocks, steps = (kF32 ? 2 : 3) * nb;
   const size_t base = (size_t)blockIdx.x * L * dh;
 
-  // Step s of 2 nb stages key block s % nb: K in pass 1 (s < nb), K and V
-  // in pass 2; zero past L keys and dh columns.
+  // Step s stages key block s % nb: K in pass 1 (s < nb), K and V in the
+  // passes after; zero past L keys and dh columns.
   auto load = [&](int s) {
-    float* sK = ring + (s % kRingStages) * p.stage;
+    T* sK = ring + (s % kRingStages) * p.stage;
     const int j0 = (s % nb) * kKeyBlock;
-    stage_keys<float, kDh>(sK, S, k + base, j0, L, dh);
-    if (s >= nb) stage_keys<float, kDh>(sK + kKeyBlock * S, S, v + base, j0, L, dh);
+    stage_keys<T, kDh>(sK, S, k + base, j0, L, dh);
+    if (s >= nb) stage_keys<T, kDh>(sK + kKeyBlock * S, S, v + base, j0, L, dh);
   };
   load(0);
   tc::cp_async_commit();
@@ -600,12 +690,12 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict
   const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
   const bool live = r0 < L;  // a warp past L still stages and waits at the barriers
   const HeadMask mask = head_mask<kDrop>(drop, blockIdx.x / H, blockIdx.x % H);
-  RowFrags<kDh> qf, df;
+  RowFragsOf<T, kDh> qf, df;
   if (live) qf.load(q + base, r0, L, dh);
 
   // S of the n8 tile at key n of the block staged at sK, whose first key is
   // j0, scaled; keys past L give -inf (0 weight).
-  auto scores = [&](const float* sK, int j0, int n, float (&c)[4]) {
+  auto scores = [&](const T* sK, int j0, int n, float (&c)[4]) {
     if (j0 + n < L) rows_dot_block(c, qf, sK, S, n, dh);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -616,7 +706,7 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict
   // max) rescaled as the max grows, over this thread's keys of the block;
   // then over the row's four threads.
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
-  auto pass1 = [&](const float* sK, int j0) {
+  auto pass1 = [&](const T* sK, int j0) {
     float sc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) scores(sK, j0, 8 * j, sc[j]);
@@ -636,14 +726,14 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict
       for (int e = 0; e < 4; ++e) l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
   };
   for (int s = 0; s < nb; ++s) {
-    const float* sK = ring_begin(ring, p.stage, s, steps, load);
+    const T* sK = ring_begin(ring, p.stage, s, steps, load);
     if (live) pass1(sK, s * kKeyBlock);
     __syncthreads();
   }
 
-  // The row statistics over the quad, and D = dO . O of each row (a quad
-  // thread per fourth column, then over the quad), both the same in all
-  // four threads.
+  // The row statistics over the quad, and in fp32 D = dO . O of each row
+  // from the forward's O (a quad thread per fourth column, then over the
+  // quad), both the same in all four threads.
   float D[2] = {0.0f, 0.0f};
   if (live) {
 #pragma unroll
@@ -655,42 +745,113 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict
         l[r] = l[r] * expf(m[r] - mn) + lo * expf(mo - mn);
         m[r] = mn;
       }
-      const int row = r0 + g + 8 * r;
-      if (row < L)
-        for (int c = t; c < dh; c += 4)
-          D[r] = fmaf(dout[base + (size_t)row * dh + c], o[base + (size_t)row * dh + c], D[r]);
-      D[r] += __shfl_xor_sync(0xffffffffu, D[r], 1);
-      D[r] += __shfl_xor_sync(0xffffffffu, D[r], 2);
+      if constexpr (kF32) {
+        const int row = r0 + g + 8 * r;
+        if (row < L)
+          for (int c = t; c < dh; c += 4)
+            D[r] = fmaf(to_f(dout[base + (size_t)row * dh + c]),
+                        to_f(o[base + (size_t)row * dh + c]), D[r]);
+        D[r] += __shfl_xor_sync(0xffffffffu, D[r], 1);
+        D[r] += __shfl_xor_sync(0xffffffffu, D[r], 2);
+      }
     }
     df.load(dout + base, r0, L, dh);
   }
 
-  // Pass 2: S and dP = dO V^T again per n8 tile of keys, P = exp(s - m) /
-  // l, dS = P (dP keep - D), and dq += dS K from the accumulator registers.
-  float acc[kDh / 8][4];
+  // bf16, pass 2: O = P_used V in fp32 from the accumulator registers, with
+  // P_used = bf16(P keep) (JAX's _bwd_core), then D = dO . O per row (each
+  // thread over its columns, then over the quad).
+  if constexpr (!kF32) {
+    float oacc[NO][4];
 #pragma unroll
-  for (int n = 0; n < kDh / 8; ++n)
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+    auto pass_o = [&](const T* sK, const T* sV, int j0) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (j0 + 16 * jj >= L) break;
+        float pk[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = 16 * jj + 8 * h;
+          scores(sK, j0, n, pk[h]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            pk[h][e] = expf(pk[h][e] - m[r]) / l[r] *
+                       keep<kDrop>(mask, r0 + g + 8 * r, j0 + n + 2 * t + (e & 1));
+          }
+        }
+        pair_times_block(oacc, pk[0], pk[1], reinterpret_cast<const __nv_bfloat16*>(sV), S,
+                         16 * jj, dh);
+      }
+    };
+    for (int s = nb; s < 2 * nb; ++s) {
+      const T* sK = ring_begin(ring, p.stage, s, steps, load);
+      if (live) pass_o(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
+      __syncthreads();
+    }
+    if (live) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+          if (row < L && c < dh)
+            D[e >> 1] = fmaf(to_f(dout[base + (size_t)row * dh + c]), oacc[n][e], D[e >> 1]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        D[r] += __shfl_xor_sync(0xffffffffu, D[r], 1);
+        D[r] += __shfl_xor_sync(0xffffffffu, D[r], 2);
+      }
+    }
+  }
+
+  // The last pass: S and dP = dO V^T again per n8 tile of keys, P = exp(s -
+  // m) / l, dS = P (dP keep - D) (in bf16 rounded as it is packed), and dq
+  // += dS K from the accumulator registers.
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  auto pass2 = [&](const float* sK, const float* sV, int j0) {
+  auto ds_tile = [&](const T* sK, const T* sV, int j0, int n, float (&ds)[4]) {
+    float sc[4], dp[4];
+    scores(sK, j0, n, sc);
+    rows_dot_block(dp, df, sV, S, n, dh);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j0 + 8 * j >= L) break;
-      float sc[4], dp[4], ds[4];
-      scores(sK, j0, 8 * j, sc);
-      rows_dot_block(dp, df, sV, S, 8 * j, dh);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = r0 + g + 8 * r, jj = j0 + 8 * j + 2 * t + (e & 1);
-        const float pr = expf(sc[e] - m[r]) / l[r];
-        ds[e] = pr * (dp[e] * keep<kDrop>(mask, i, jj) - D[r]);
-      }
-      acc_times_block(acc, ds, sK, S, 8 * j, dh);
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, i = r0 + g + 8 * r, jj = j0 + n + 2 * t + (e & 1);
+      const float pr = expf(sc[e] - m[r]) / l[r];
+      ds[e] = pr * (dp[e] * keep<kDrop>(mask, i, jj) - D[r]);
     }
   };
-  for (int s = nb; s < steps; ++s) {
-    const float* sK = ring_begin(ring, p.stage, s, steps, load);
-    if (live) pass2(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
+  auto pass_dq = [&](const T* sK, const T* sV, int j0) {
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j0 + 8 * j >= L) break;
+        float ds[4];
+        ds_tile(sK, sV, j0, 8 * j, ds);
+        acc_times_block(acc, ds, reinterpret_cast<const float*>(sK), S, 8 * j, dh);
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (j0 + 16 * jj >= L) break;
+        float ds[2][4];
+        ds_tile(sK, sV, j0, 16 * jj, ds[0]);
+        ds_tile(sK, sV, j0, 16 * jj + 8, ds[1]);
+        pair_times_block(acc, ds[0], ds[1], reinterpret_cast<const __nv_bfloat16*>(sK), S,
+                         16 * jj, dh);
+      }
+    }
+  };
+  for (int s = steps - nb; s < steps; ++s) {
+    const T* sK = ring_begin(ring, p.stage, s, steps, load);
+    if (live) pass_dq(sK, sK + kKeyBlock * S, (s - (steps - nb)) * kKeyBlock);
     __syncthreads();
   }
   if (!live) return;
@@ -713,27 +874,28 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict
 // Launch 2 over the same heads: grid (B * H, p.tiles), p.warps warps, a
 // warp per 16 keys. dk = scale dS^T Q and dv = (P o keep)^T dO, with P^T
 // formed from launch 1's statistics.
-template <bool kDrop, int kDh>
+template <typename T, bool kDrop, int kDh>
 __global__ void __launch_bounds__(kMmaWarps * 32)
-attention_bwd_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
-                             const float* __restrict__ stats, float* __restrict__ dk,
-                             float* __restrict__ dv, int H, int L, int dh, float scale,
+attention_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ stats, T* __restrict__ dk,
+                             T* __restrict__ dv, int H, int L, int dh, float scale,
                              AttnDropout drop, AttnBwdPlan p) {
+  constexpr bool kF32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  float* ring = reinterpret_cast<float*>(bwd_smem);
+  T* ring = reinterpret_cast<T*>(bwd_smem);
   const int S = p.stride, nb = p.blocks;
   const size_t base = (size_t)blockIdx.x * L * dh;
   const float* head_stats = stats + (size_t)blockIdx.x * L * kStatCols;
 
   // Step s stages query block s: its rows of Q and dO (zero past L rows and
-  // dh columns) and their statistics (zero past L).
+  // dh columns) and their fp32 statistics (zero past L).
   auto load = [&](int s) {
-    float* sQ = ring + (s % kRingStages) * p.stage;
+    T* sQ = ring + (s % kRingStages) * p.stage;
     const int i0 = s * kKeyBlock;
-    stage_keys<float, kDh>(sQ, S, q + base, i0, L, dh);
-    stage_keys<float, kDh>(sQ + kKeyBlock * S, S, dout + base, i0, L, dh);
-    float* st = sQ + 2 * kKeyBlock * S;
+    stage_keys<T, kDh>(sQ, S, q + base, i0, L, dh);
+    stage_keys<T, kDh>(sQ + kKeyBlock * S, S, dout + base, i0, L, dh);
+    float* st = reinterpret_cast<float*>(sQ + 2 * kKeyBlock * S);
     for (int c = threadIdx.x; c < kKeyBlock * kStatCols; c += blockDim.x) {
       const bool in = i0 + c / kStatCols < L;
       tc::cp_async4(st + c, in ? head_stats + (size_t)i0 * kStatCols + c : head_stats,
@@ -747,7 +909,7 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, const float* __restric
   const int r0 = blockIdx.y * kTileRows + warp * kWarpRows;
   const bool live = r0 < L;
   const HeadMask mask = head_mask<kDrop>(drop, blockIdx.x / H, blockIdx.x % H);
-  RowFrags<kDh> kf, vf;
+  RowFragsOf<T, kDh> kf, vf;
   if (live) {
     kf.load(k + base, r0, L, dh);
     vf.load(v + base, r0, L, dh);
@@ -760,31 +922,50 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, const float* __restric
 
   // Per n8 tile of query rows: S^T and dP^T, P^T = exp(s - m) / l (0 past
   // L, in either direction), dS^T = P^T (dP^T keep - D), then dk += dS^T Q
-  // and dv += (P^T keep) dO from the accumulator registers.
-  auto block = [&](const float* sQ, int i0) {
-    const float* sD = sQ + kKeyBlock * S;
-    const float* st = sQ + 2 * kKeyBlock * S;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (i0 + 8 * j >= L) break;
-      float sc[4], dp[4], ds[4], pk[4];
-      rows_dot_block(sc, kf, sQ, S, 8 * j, dh);
-      rows_dot_block(dp, vf, sD, S, 8 * j, dh);
+  // and dv += (P^T keep) dO from the accumulator registers (in bf16 both
+  // rounded as they are packed, two tiles to a fragment).
+  auto block = [&](const T* sQ, int i0) {
+    const T* sD = sQ + kKeyBlock * S;
+    const float* st = reinterpret_cast<const float*>(sQ + 2 * kKeyBlock * S);
+    auto tile = [&](int n, float (&ds)[4], float (&pk)[4]) {
+      float sc[4], dp[4];
+      rows_dot_block(sc, kf, sQ, S, n, dh);
+      rows_dot_block(dp, vf, sD, S, n, dh);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = r0 + g + 8 * (e >> 1), il = 8 * j + 2 * t + (e & 1), i = i0 + il;
+        const int key = r0 + g + 8 * (e >> 1), il = n + 2 * t + (e & 1), i = i0 + il;
         const float* sti = st + il * kStatCols;
         const float pr = i < L && key < L ? expf(sc[e] * scale - sti[0]) / sti[1] : 0.0f;
         const float kp = keep<kDrop>(mask, i, key);
         ds[e] = pr * (dp[e] * kp - sti[2]);
         pk[e] = pr * kp;
       }
-      acc_times_block(dka, ds, sQ, S, 8 * j, dh);
-      acc_times_block(dva, pk, sD, S, 8 * j, dh);
+    };
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (i0 + 8 * j >= L) break;
+        float ds[4], pk[4];
+        tile(8 * j, ds, pk);
+        acc_times_block(dka, ds, reinterpret_cast<const float*>(sQ), S, 8 * j, dh);
+        acc_times_block(dva, pk, reinterpret_cast<const float*>(sD), S, 8 * j, dh);
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (i0 + 16 * jj >= L) break;
+        float ds[2][4], pk[2][4];
+        tile(16 * jj, ds[0], pk[0]);
+        tile(16 * jj + 8, ds[1], pk[1]);
+        pair_times_block(dka, ds[0], ds[1], reinterpret_cast<const __nv_bfloat16*>(sQ), S,
+                         16 * jj, dh);
+        pair_times_block(dva, pk[0], pk[1], reinterpret_cast<const __nv_bfloat16*>(sD), S,
+                         16 * jj, dh);
+      }
     }
   };
   for (int s = 0; s < nb; ++s) {
-    const float* sQ = ring_begin(ring, p.stage, s, nb, load);
+    const T* sQ = ring_begin(ring, p.stage, s, nb, load);
     if (live) block(sQ, s * kKeyBlock);
     __syncthreads();
   }
@@ -805,22 +986,24 @@ __global__ void attention_masks_kernel(float* __restrict__ out, int B, int H, in
   }
 }
 
-// B5 (kDrop false) or B6-bwd at the instance's head width: launch 1, then
-// launch 2 on the same stream.
-template <bool kDrop, int kDh>
+// B5 (kDrop false) or B6-bwd in T at the instance's head width: launch 1,
+// then launch 2 on the same stream. A stage holds two blocks of T and the
+// fp32 statistics of kKeyBlock rows.
+template <typename T, bool kDrop, int kDh>
 int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, void* stats, int B, int H,
                    int L, int dh, float scale, const AttnDropout& drop, const AttnBwdPlan& p,
                    cudaStream_t stream) {
+  constexpr int kStatElems = kKeyBlock * kStatCols * (int)(sizeof(float) / sizeof(T));
   if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
       (p.tiles - 1) * kTileRows + p.warps * kWarpRows < L || p.blocks * kKeyBlock < L ||
-      p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride + kKeyBlock * kStatCols ||
-      p.bytes < kRingStages * p.stage * (int)sizeof(float) || p.bytes > kMaxSmem)
+      p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride + kStatElems ||
+      p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  auto in = [](const void* x) { return static_cast<const float*>(x); };
-  auto out = [](void* x) { return static_cast<float*>(x); };
-  auto dq_kernel = attention_bwd_dq_mma_kernel<kDrop, kDh>;
-  auto dkv_kernel = attention_bwd_dkv_mma_kernel<kDrop, kDh>;
+  auto in = [](const void* x) { return static_cast<const T*>(x); };
+  auto out = [](void* x) { return static_cast<T*>(x); };
+  auto dq_kernel = attention_bwd_dq_mma_kernel<T, kDrop, kDh>;
+  auto dkv_kernel = attention_bwd_dkv_mma_kernel<T, kDrop, kDh>;
   cudaError_t err =
       cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
   if (err == cudaSuccess)
@@ -828,30 +1011,33 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, p.tiles);
   dq_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(in(q), in(k), in(v), in(o), in(dout),
-                                                     out(dq), out(stats), H, L, dh, scale, drop,
-                                                     p);
+                                                     out(dq), static_cast<float*>(stats), H, L,
+                                                     dh, scale, drop, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(in(q), in(k), in(v), in(dout), in(stats),
-                                                      out(dk), out(dv), H, L, dh, scale, drop,
-                                                      p);
+  dkv_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(in(q), in(k), in(v), in(dout),
+                                                      static_cast<const float*>(stats), out(dk),
+                                                      out(dv), H, L, dh, scale, drop, p);
   return (int)cudaGetLastError();
 }
 
-// The instance by the plan's head width.
-template <bool kDrop>
+// The instance by the plan's head width (bf16 from 16).
+template <typename T, bool kDrop>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                void* dq, void* dk, void* dv, void* stats, int B, int H, int L, int dh,
                float scale, const AttnDropout& drop, const AttnBwdPlan& p, cudaStream_t s) {
   switch (p.kdh) {
-    case 8: return launch_bwd_mma<kDrop, 8>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
-                                            scale, drop, p, s);
-    case 16: return launch_bwd_mma<kDrop, 16>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
-                                              scale, drop, p, s);
-    case 32: return launch_bwd_mma<kDrop, 32>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
-                                              scale, drop, p, s);
-    case 64: return launch_bwd_mma<kDrop, 64>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
-                                              scale, drop, p, s);
+    case 8:
+      if constexpr (sizeof(T) == 4)
+        return launch_bwd_mma<T, kDrop, 8>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                           scale, drop, p, s);
+      break;
+    case 16: return launch_bwd_mma<T, kDrop, 16>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L,
+                                                 dh, scale, drop, p, s);
+    case 32: return launch_bwd_mma<T, kDrop, 32>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L,
+                                                 dh, scale, drop, p, s);
+    case 64: return launch_bwd_mma<T, kDrop, 64>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L,
+                                                 dh, scale, drop, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -860,12 +1046,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 extern "C" {
 
-// variant 0: fp32 exact; 1: bf16 exact (dh >= 16); 2: bf16 max-free (q
-// pre-scaled). plan: the launch (ops/flash_attention.py: attention_fwd_plan,
-// in fp32 with dropout). seed: null for no dropout (B2), else one int64 in
-// device memory (B6-fwd, variant 0 only); thr, keep_scale and group as in
-// AttnDropout. B chains of H heads of (L, dh). Returns cudaGetLastError()
-// after the launch (0 on success), or the error that stopped it before.
+// variant 0: fp32 exact; 1: bf16 exact (B2 with dh >= 16, and B6-fwd); 2:
+// bf16 max-free (q pre-scaled). plan: the launch (ops/flash_attention.py:
+// attention_fwd_plan, of the variant's dtype, with dropout too). seed: null
+// for no dropout (B2), else one int64 in device memory (B6-fwd, variant 0
+// or 1); thr, keep_scale and group as in AttnDropout. B chains of H heads
+// of (L, dh). Returns cudaGetLastError() after the launch (0 on success),
+// or the error that stopped it before.
 int fdiff_attention_fwd(int variant, const void* q, const void* k, const void* v, void* o,
                         int B, int H, int L, int dh, float scale, const AttnFwdPlan* plan,
                         const void* seed, unsigned int thr, float keep_scale, int group,
@@ -875,8 +1062,12 @@ int fdiff_attention_fwd(int variant, const void* q, const void* k, const void* v
   const AttnFwdPlan& p = *plan;
   const AttnDropout drop{static_cast<const long long*>(seed), thr, keep_scale, group};
   if (seed != nullptr) {
-    if (variant != 0 || group < 1) return (int)cudaErrorInvalidValue;
-    return launch_fwd_exact<float, true>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+    if (group < 1) return (int)cudaErrorInvalidValue;
+    if (variant == 0)
+      return launch_fwd_exact<float, true>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+    if (variant == 1)
+      return launch_fwd_exact<__nv_bfloat16, true>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (variant == 0)
     return launch_fwd_exact<float, false>(q, k, v, o, B, H, L, dh, scale, drop, p, s);
@@ -888,25 +1079,33 @@ int fdiff_attention_fwd(int variant, const void* q, const void* k, const void* v
   return (int)cudaErrorInvalidValue;
 }
 
-// fp32 backward (B5 with seed null, else B6-bwd): dq, dk, dv from q, k, v,
-// the forward's output o and dO (all (B, H, L, dh)), in two launches
-// (plan: ops/flash_attention.py: attention_bwd_plan), with the rows'
-// softmax max, sum and D = dO . o written to stats (B, H, L, 3); seed,
-// thr, keep_scale and group as in fdiff_attention_fwd.
-int fdiff_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
-                        int H, int L, int dh, float scale, const AttnBwdPlan* plan,
-                        const void* seed, unsigned int thr, float keep_scale, int group,
-                        void* stream) {
+// The backward (B5 with seed null, else B6-bwd) in fp32 (variant 0) or bf16
+// (variant 1): dq, dk, dv from q, k, v, the forward's output o (read in
+// fp32 only; null in bf16) and dO (all (B, H, L, dh) of the variant's dtype), in two
+// launches (plan: ops/flash_attention.py: attention_bwd_plan, of that
+// dtype), with the rows' softmax max, sum and D = dO . O written to stats
+// (B, H, L, 3), fp32; seed, thr, keep_scale and group as in
+// fdiff_attention_fwd.
+int fdiff_attention_bwd(int variant, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, void* dq, void* dk, void* dv,
+                        void* stats, int B, int H, int L, int dh, float scale,
+                        const AttnBwdPlan* plan, const void* seed, unsigned int thr,
+                        float keep_scale, int group, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (plan == nullptr || (seed != nullptr && group < 1)) return (int)cudaErrorInvalidValue;
   const AttnDropout drop{static_cast<const long long*>(seed), thr, keep_scale, group};
-  if (seed == nullptr)
-    return launch_bwd<false>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh, scale, drop,
-                             *plan, s);
-  if (group < 1) return (int)cudaErrorInvalidValue;
-  return launch_bwd<true>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh, scale, drop, *plan,
-                          s);
+  const bool drops = seed != nullptr;
+  if (variant == 0)
+    return drops ? launch_bwd<float, true>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                           scale, drop, *plan, s)
+                 : launch_bwd<float, false>(q, k, v, o, dout, dq, dk, dv, stats, B, H, L, dh,
+                                            scale, drop, *plan, s);
+  if (variant == 1)
+    return drops ? launch_bwd<__nv_bfloat16, true>(q, k, v, o, dout, dq, dk, dv, stats, B, H,
+                                                   L, dh, scale, drop, *plan, s)
+                 : launch_bwd<__nv_bfloat16, false>(q, k, v, o, dout, dq, dk, dv, stats, B, H,
+                                                    L, dh, scale, drop, *plan, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The (B, H, L, L) keep factors of fdiff_attention_fwd's dropout, for checking.

@@ -14,10 +14,15 @@ with Pallas, with "on CUDA" in place of "on TPU":
   activations' device, as the JAX module draws it from its dropout rng
   (under a data mesh made for this rank's chains, ``draw_seed``);
 * on CPU tensors, and with ``plain=True`` on any device (the card's check
-  of the kernels), the plain versions, differentiated by autograd:
+  of the kernels), the plain versions: in fp32 differentiated by autograd,
   ``dot_product_attention`` (the JAX module's route off the TPU) and
   ``flash_attention_dropout_reference``, with the same seed and the same
-  hashed mask as the kernels.
+  hashed mask as the kernels; in bf16 the kernels' plain versions with
+  their own backward (``PlainAttention``, ``PlainAttentionDropout``), so
+  that the plain route rounds where the kernels and the JAX module's Pallas
+  route round: the fast form forward at dh < 16 and JAX's ``_bwd_core``
+  (autograd through ``dot_product_attention`` would take the exact softmax
+  forward and round dP, not dS, to bf16).
 """
 
 from __future__ import annotations
@@ -81,15 +86,17 @@ class MultiHeadSelfAttention(nn.Module):
             t.reshape(b, l, self.n_head, dh).transpose(1, 2)
             for t in qkv.split(d, dim=-1)
         )
-        on_card = x.device.type == "cuda" and not plain
+        if x.device.type == "cuda" and not plain:
+            attend, attend_dropout = fa.flash_attention, fa.flash_attention_dropout
+        elif x.dtype == torch.bfloat16:
+            attend, attend_dropout = fa.PlainAttention.apply, fa.PlainAttentionDropout.apply
+        else:
+            attend, attend_dropout = dot_product_attention, fa.flash_attention_dropout_reference
         if self.training and self.dropout_rate > 0.0:
             seed = draw_seed(generator, x.device, b)
-            route = fa.flash_attention_dropout if on_card else fa.flash_attention_dropout_reference
-            out = route(q, k, v, seed, self.dropout_rate)
-        elif on_card:
-            out = fa.flash_attention(q, k, v)
+            out = attend_dropout(q, k, v, seed, self.dropout_rate)
         else:
-            out = dot_product_attention(q, k, v)
+            out = attend(q, k, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
 
 

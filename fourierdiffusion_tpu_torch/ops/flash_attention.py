@@ -3,22 +3,24 @@ with and without dropout on the attention weights (port of
 ``fourierdiffusion_tpu/ops/flash_attention.py``).
 
 ``flash_attention(q, k, v)`` computes ``softmax(q k^T / sqrt(dh)) v`` and is
-differentiable (``FlashAttention``):
+differentiable:
 
-* on CUDA tensors the forward launches the hand-written kernel B2 (on the
-  tensor cores, ``attention_fwd_plan``) and the backward the kernel B5 (two
-  launches on the tensor cores, ``attention_bwd_plan``; it takes the
-  forward's output, which the Function saves beside q, k and v)
-  (``csrc/flash_attention.cu``); ``launches`` and ``bwd_launches`` count
-  them, one per call;
-* on CPU tensors it runs ``flash_attention_reference`` and, for the
-  gradient, ``flash_attention_bwd_reference``, the plain PyTorch versions.
+* on CUDA tensors (``FlashAttention``) the forward launches the
+  hand-written kernel B2 (on the tensor cores, ``attention_fwd_plan``) and
+  the backward the kernel B5 (two launches on the tensor cores,
+  ``attention_bwd_plan``; in fp32 it takes the forward's output, which the
+  Function saves beside q, k and v) (``csrc/flash_attention.cu``);
+  ``launches`` and ``bwd_launches`` count them, one per call;
+* on CPU tensors (``PlainAttention``) it runs ``flash_attention_reference``
+  and, for the gradient, ``flash_attention_bwd_reference``, the plain
+  PyTorch versions.
 
-``flash_attention_dropout(q, k, v, seed, rate)`` (``FlashAttentionDropout``)
-is the same with dropout on the normalised attention weights: the kernels
-B6-fwd (B2's kernel with the keep factors, on B2's fp32 plan) and B6-bwd
-(``dropout_fwd_launches``, ``dropout_bwd_launches``), or
-``flash_attention_dropout_reference`` and ``..._bwd_reference``. Its mask is
+``flash_attention_dropout(q, k, v, seed, rate)`` is the same with dropout
+on the normalised attention weights: the kernels B6-fwd (B2's kernel with
+the keep factors, on B2's plan of the dtype) and B6-bwd
+(``FlashAttentionDropout``; ``dropout_fwd_launches``,
+``dropout_bwd_launches``), or ``flash_attention_dropout_reference`` and
+``..._bwd_reference`` (``PlainAttentionDropout``). Its mask is
 ``attention_keep``: the TPU kernels' interpret-mode hash at tag
 ``seed + chain*131071 + g0`` (uint32), g0 the first head of the head group
 (``attention_group``, the same in forward and backward), so the kernels,
@@ -26,17 +28,25 @@ the plain versions and the JAX package in interpret mode draw bit-identical
 masks. ``seed`` is an int or an integer tensor on the inputs' device (read
 there by the kernels, so drawing it does not synchronise).
 
-Numerics, as the TPU kernels: fp32, and bf16 with ``dh >= 16``, take
-``S = (q k^T) * scale`` in fp32 and the exact softmax; bf16 with
-``dh < 16`` takes the max-free forward (q pre-scaled and rounded to bf16, S
-clamped to +-60, exp, reciprocal of the row sum). P is rounded to the
-input dtype and ``O = P v`` accumulates in fp32. The backward recomputes P
-with the exact softmax in fp32. The kernels of the backward and of the
-dropout forward are fp32 only: a bf16 tensor on the card raises there.
-``attention_bwd_staged`` is the plain version of the backward as its two
-launches split the work (row statistics over key blocks, then dq; then dk
-and dv over blocks of query rows), beside the plain versions of JAX's
-``_bwd_core``.
+Numerics, as the TPU kernels, in fp32 and bf16 alike: fp32, and bf16 with
+``dh >= 16``, take ``S = (q k^T) * scale`` in fp32 and the exact softmax;
+bf16 with ``dh < 16`` takes the max-free forward (q pre-scaled and rounded
+to bf16, S clamped to +-60, exp, reciprocal of the row sum); the dropout
+forward takes the exact form in either dtype. P (times keep) is rounded to
+the input dtype and ``O = P v`` accumulates in fp32. The backward
+(``_bwd_core``) recomputes P with the exact softmax in fp32, D = dO . O
+from ``O = P_used v`` unrounded, and rounds P_used and dS to the input
+dtype before their products; dq, dk and dv come out in it. The bf16
+backward kernel recomputes that O (the saved output is rounded, and at a
+rate of 0 comes from the fast form); the fp32 one takes D from the saved
+output, which differs only in summation order. ``attention_bwd_staged`` is
+the plain version of the backward as its two launches split the work (row
+statistics over key blocks, in bf16 O, then dq; then dk and dv over blocks
+of query rows), beside the plain versions of JAX's ``_bwd_core``.
+``PlainAttention`` and ``PlainAttentionDropout`` are the plain versions as
+differentiable functions on any device: the CPU route of the wrappers, and
+the bf16 plain route of the unfused module on the card
+(``models/attention.py``, ``plain=True``).
 """
 
 from __future__ import annotations
@@ -197,11 +207,16 @@ def flash_attention_dropout_bwd_reference(q, k, v, do, seed, rate: float):
 
 def attention_bwd_staged(q, k, v, o, do, keep: torch.Tensor | None = None):
     """Plain PyTorch version of B5 (``keep`` None) and B6-bwd as their two
-    launches split the work, fp32: launch 1 keeps each query row's running
-    max and rescaled sum over key blocks of 64, takes D = dO . o from the
-    forward's output ``o``, and adds dq block by block; launch 2 forms P
-    from those statistics and adds dk and dv over blocks of 64 query rows.
-    Returns ``(dq, dk, dv, stats)``, stats ``(B, H, L, 3)``: m, l, D."""
+    launches split the work: launch 1 keeps each query row's running max
+    and rescaled sum over key blocks of 64, takes D = dO . O (fp32: O the
+    forward's output ``o``; bf16: ``o`` unused, O = P_used v recomputed in
+    fp32 over the key blocks from the exact softmax, P_used = P keep rounded
+    to bf16, as JAX's ``_bwd_core`` forms it) and adds dq block by block;
+    launch 2 forms P from those statistics and adds dk and dv over blocks of
+    64 query rows. In bf16 dS and P_used are rounded to bf16 before their
+    products, and dq, dk, dv come out in bf16. Returns ``(dq, dk, dv,
+    stats)``, stats ``(B, H, L, 3)`` fp32: m, l, D."""
+    dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     n = q.shape[-2]
@@ -210,6 +225,12 @@ def attention_bwd_staged(q, k, v, o, do, keep: torch.Tensor | None = None):
     def scores(qb, kb):
         return (qb @ kb.transpose(-1, -2)) * scale
 
+    def rounded(x: torch.Tensor) -> torch.Tensor:
+        return x.to(dtype).float()
+
+    def kept(rows: slice, cols: slice):
+        return 1.0 if keep is None else keep[..., rows, cols]
+
     m = torch.full(q.shape[:-1] + (1,), torch.finfo(torch.float32).min, device=q.device)
     total = torch.zeros_like(m)
     for j0, j1 in blocks:
@@ -217,23 +238,94 @@ def attention_bwd_staged(q, k, v, o, do, keep: torch.Tensor | None = None):
         mb = torch.maximum(m, s.amax(-1, keepdim=True))
         total = total * torch.exp(m - mb) + torch.exp(s - mb).sum(-1, keepdim=True)
         m = mb
-    d_col = (dof * of).sum(-1, keepdim=True)
+    if dtype == torch.float32:
+        d_col = (dof * of).sum(-1, keepdim=True)
+    else:
+        o_acc = torch.zeros_like(qf)
+        for j0, j1 in blocks:
+            p = torch.exp(scores(qf, kf[..., j0:j1, :]) - m) / total
+            o_acc = o_acc + rounded(p * kept(slice(None), slice(j0, j1))) @ vf[..., j0:j1, :]
+        d_col = (dof * o_acc).sum(-1, keepdim=True)
     dq = torch.zeros_like(qf)
     for j0, j1 in blocks:
         p = torch.exp(scores(qf, kf[..., j0:j1, :]) - m) / total
         dp = dof @ vf[..., j0:j1, :].transpose(-1, -2)
-        ds = p * (dp * (1.0 if keep is None else keep[..., j0:j1]) - d_col)
+        ds = rounded(p * (dp * kept(slice(None), slice(j0, j1)) - d_col))
         dq = dq + ds @ kf[..., j0:j1, :]
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for i0, i1 in blocks:
         rows = slice(i0, i1)
         p = torch.exp(scores(qf[..., rows, :], kf) - m[..., rows, :]) / total[..., rows, :]
-        kp = 1.0 if keep is None else keep[..., rows, :]
+        kp = kept(rows, slice(None))
         dp = dof[..., rows, :] @ vf.transpose(-1, -2)
-        ds = p * (dp * kp - d_col[..., rows, :])
+        ds = rounded(p * (dp * kp - d_col[..., rows, :]))
         dk = dk + ds.transpose(-1, -2) @ qf[..., rows, :]
-        dv = dv + (p * kp).transpose(-1, -2) @ dof[..., rows, :]
-    return dq * scale, dk * scale, dv, torch.cat([m, total, d_col], dim=-1)
+        dv = dv + rounded(p * kp).transpose(-1, -2) @ dof[..., rows, :]
+    return ((dq * scale).to(dtype), (dk * scale).to(dtype), dv.to(dtype),
+            torch.cat([m, total, d_col], dim=-1))
+
+
+# The bound of bf16_d_err_over_bound: the fp32 sums' share of the row's
+# sum of |terms|, and the fp32 ulps from a bf16 rounding tie within which
+# an entry of P keep may round to the other neighbour in another fp32 order.
+D_SUM_TOL = 2.0**-16
+D_TIE_ULPS = 256
+
+
+def bf16_d_err_over_bound(d, d_ref, q, k, v, do, keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Per query row, ``|d - d_ref|`` over the bound that two bf16
+    backward statistics D meet when both are JAX's ``D = dO . (P_used v)``
+    (P_used = bf16(P keep), O unrounded) and differ only in fp32 roundings:
+    D_SUM_TOL of the row's sum of |terms| ``sum_j P_used,ij sum_c
+    |dO_ic v_jc|`` (fp32 sums in other orders), plus 2**-6 (two bf16 ulps
+    at least: an entry moves by one) of each term ``P_used,ij (dO_i . v_j)``
+    whose ``P keep`` lies within D_TIE_ULPS fp32 ulps of a bf16 rounding tie
+    (an entry the two P's may round to different neighbours). A value up to 1
+    holds the bound; D taken from a bf16 output (the forward's, rounded, or
+    the fast form's) reads far above it."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.softmax((qf @ kf.transpose(-1, -2)) / math.sqrt(q.shape[-1]), -1)
+    if keep is not None:
+        p = p * keep
+    near_tie = ((p.view(torch.int32) & 0xFFFF) - 0x8000).abs() <= D_TIE_ULPS
+    p = p.to(torch.bfloat16).float()
+    sums = (p * (dof.abs() @ vf.abs().transpose(-1, -2))).sum(-1)
+    ties = (p * near_tie * (dof @ vf.transpose(-1, -2)).abs()).sum(-1)
+    limit = (D_SUM_TOL * sums + 2.0**-6 * ties).clamp_min(torch.finfo(torch.float32).tiny)
+    return (d - d_ref).abs() / limit
+
+
+class PlainAttention(torch.autograd.Function):
+    """The plain versions of B2 and B5 as one differentiable function on
+    tensors on any device, never a kernel: the forward
+    ``flash_attention_reference`` (in bf16 with dh < 16 the fast form), the
+    backward ``flash_attention_bwd_reference`` (JAX's ``_bwd_core``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_reference(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd_reference(*ctx.saved_tensors, do)
+
+
+class PlainAttentionDropout(torch.autograd.Function):
+    """The plain versions of B6-fwd and B6-bwd as one differentiable
+    function on tensors on any device, never a kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, rate: float):
+        seed = _seed_tensor(seed, q.device)
+        ctx.save_for_backward(q, k, v, seed)
+        ctx.rate = rate
+        return flash_attention_dropout_reference(q, k, v, seed, rate)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seed = ctx.saved_tensors
+        return (*flash_attention_dropout_bwd_reference(q, k, v, do, seed, ctx.rate), None, None)
 
 
 # ---- the kernels ---------------------------------------------------------------------
@@ -252,7 +344,7 @@ class AttnFwdPlan(ctypes.Structure):
 @functools.lru_cache(maxsize=64)
 def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
     """B2's launch at length ``max_len`` and head width ``dh`` in ``dtype``
-    (for every chain and head alike; B6-fwd takes the fp32 one): the head
+    (for every chain and head alike; B6-fwd takes the same): the head
     width of the instance (``kdh``: the mma's k step, 8 in fp32 and 16 in
     bf16, doubled up to cover dh), the warps of a CTA (one per 16 query rows of the first tile,
     at most 8), the CTAs per head (tiles of 128 query rows), the key blocks
@@ -284,26 +376,28 @@ class AttnBwdPlan(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def attention_bwd_plan(max_len: int, dh: int) -> dict:
-    """B5/B6-bwd's launches at length ``max_len`` and head width ``dh``
-    (fp32, every chain and head alike). Both take tiles of 128 rows (query
-    rows in launch 1, keys in launch 2), a warp per 16 of them (at most 8),
-    and stream blocks of 64 rows (keys, then query rows) through a ring of
-    FWD_STAGES stages: ``kdh`` (8 doubled up to cover dh), ``warps``,
-    ``tiles``, ``blocks``, the row ``stride`` of a staged block, the floats
-    of a ``stage`` (two blocks and 64 rows of STAT_COLS statistics), the
+def attention_bwd_plan(max_len: int, dh: int, dtype: torch.dtype = torch.float32) -> dict:
+    """B5/B6-bwd's launches at length ``max_len`` and head width ``dh`` in
+    ``dtype`` (every chain and head alike). Both take tiles of 128 rows
+    (query rows in launch 1, keys in launch 2), a warp per 16 of them (at
+    most 8), and stream blocks of 64 rows (keys, then query rows) through a
+    ring of FWD_STAGES stages: ``kdh`` (the mma's k step, 8 in fp32 and 16
+    in bf16, doubled up to cover dh), ``warps``, ``tiles``, ``blocks``, the
+    row ``stride`` of a staged block, the elements of ``dtype`` of a
+    ``stage`` (two blocks and 64 rows of STAT_COLS fp32 statistics), the
     shared memory in ``bytes`` (whatever L) and all of it as
     ``AttnBwdPlan`` (``struct``)."""
     from fourierdiffusion_tpu_torch.ops.fused_encoder import tile_stride  # (import cycle)
 
-    kdh = 8
+    size = torch.finfo(dtype).bits // 8
+    kdh = 8 if size == 4 else 16
     while kdh < dh:
         kdh *= 2
-    stride = tile_stride(4, kdh, True)
-    stage = 2 * KEY_BLOCK * stride + KEY_BLOCK * STAT_COLS
+    stride = tile_stride(size, kdh, True)
+    stage = 2 * KEY_BLOCK * stride + KEY_BLOCK * STAT_COLS * 4 // size
     plan = {"kdh": kdh, "warps": min(MAX_WARPS, -(-max_len // WARP_ROWS)),
             "tiles": -(-max_len // TILE_ROWS), "blocks": -(-max_len // KEY_BLOCK),
-            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * 4}
+            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * size}
     return {**plan, "struct": AttnBwdPlan(**plan)}
 
 
@@ -333,7 +427,7 @@ def _library() -> ctypes.CDLL:
     lib.fdiff_attention_fwd.restype = i
     lib.fdiff_attention_fwd.argtypes = [i] + [p] * 4 + [i] * 4 + [f, p] + dropout
     lib.fdiff_attention_bwd.restype = i
-    lib.fdiff_attention_bwd.argtypes = [p] * 9 + [i] * 4 + [f, p] + dropout
+    lib.fdiff_attention_bwd.argtypes = [i] + [p] * 9 + [i] * 4 + [f, p] + dropout
     lib.fdiff_attention_dropout_masks.restype = i
     lib.fdiff_attention_dropout_masks.argtypes = [p] + [i] * 3 + dropout
     lib.fdiff_attention_error_string.restype = ctypes.c_char_p
@@ -363,20 +457,12 @@ def _dropout_args(q: torch.Tensor, seed: torch.Tensor | None, rate: float) -> li
     return [seed.data_ptr(), thr, scale, attention_group(q.shape[1], q.shape[2]), stream]
 
 
-def _fp32_only(q: torch.Tensor, what: str) -> None:
-    if q.dtype != torch.float32:
-        raise ValueError(f"the {what} kernel is fp32 only, got {q.dtype}")
-
-
 def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
     """B2 (seed None) or B6-fwd on contiguous CUDA tensors."""
     global launches, fast_launches, dropout_fwd_launches
     b, h, l, dh = _dims(q)
     scale = 1.0 / math.sqrt(dh)
-    if seed is not None:
-        _fp32_only(q, "dropout attention")
-        variant = 0
-    elif _fast(q):
+    if _fast(q) and seed is None:
         variant, scale = 2, _bf16_scale(dh)
     else:
         variant = 0 if q.dtype == torch.float32 else 1
@@ -397,17 +483,21 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
 
 def _launch_bwd(q, k, v, o, do, seed: torch.Tensor | None = None, rate: float = 0.0):
     """B5 (seed None) or B6-bwd on contiguous CUDA tensors, from the
-    forward's output ``o``: ``(dq, dk, dv, stats)``, stats the rows' (m, l,
-    D) that launch 1 wrote for launch 2."""
+    forward's output ``o`` (read in fp32 only: the bf16 kernels recompute
+    O): ``(dq, dk, dv, stats)``, stats the rows' (m, l, D) that launch 1
+    wrote for launch 2."""
     global bwd_launches, dropout_bwd_launches
-    _fp32_only(q, "attention backward")
     b, h, l, dh = _dims(q)
-    o, do = (t.to(q.dtype).contiguous() for t in (o, do))
-    plan = attention_bwd_plan(l, dh)["struct"]
+    fp32 = q.dtype == torch.float32
+    o = o.to(q.dtype).contiguous() if fp32 else None
+    do = do.to(q.dtype).contiguous()
+    plan = attention_bwd_plan(l, dh, q.dtype)["struct"]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((b, h, l, STAT_COLS), dtype=torch.float32, device=q.device)
     err = _library().fdiff_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        0 if fp32 else 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr() if fp32 else None, do.data_ptr(),
+        dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, l, dh, 1.0 / math.sqrt(dh),
         ctypes.byref(plan), *_dropout_args(q, seed, rate),
     )
@@ -434,41 +524,33 @@ def attention_keep_cuda(
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with its backward: B2 and B5 on CUDA tensors, the plain
-    versions on CPU tensors. Saves q, k, v and the output; the backward
-    recomputes P (B5 takes D = dO . O from the saved output)."""
+    """Attention with its backward on CUDA tensors: B2 and B5. Saves q, k, v
+    and the output; the backward recomputes P (B5 in fp32 takes D = dO . O
+    from the saved output)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.device.type == "cuda":
-            q, k, v = (t.contiguous() for t in (q, k, v))
-            out = _launch_fwd(q, k, v)
-        else:
-            out = flash_attention_reference(q, k, v)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out = _launch_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, out)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out = ctx.saved_tensors
-        if q.device.type == "cuda":
-            return _launch_bwd(q, k, v, out, do)[:3]
-        return flash_attention_bwd_reference(q, k, v, do)
+        return _launch_bwd(q, k, v, out, do)[:3]
 
 
 class FlashAttentionDropout(torch.autograd.Function):
     """Attention with dropout on the weights, and its backward with the mask
-    regenerated: B6-fwd and B6-bwd on CUDA tensors, the plain versions on CPU
-    tensors. Saves q, k, v, the output and the seed."""
+    regenerated, on CUDA tensors: B6-fwd and B6-bwd. Saves q, k, v, the
+    output and the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate: float):
         seed = _seed_tensor(seed, q.device)
-        if q.device.type == "cuda":
-            q, k, v = (t.contiguous() for t in (q, k, v))
-            out = _launch_fwd(q, k, v, seed, rate)
-        else:
-            out = flash_attention_dropout_reference(q, k, v, seed, rate)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out = _launch_fwd(q, k, v, seed, rate)
         ctx.save_for_backward(q, k, v, out, seed)
         ctx.rate = rate
         return out
@@ -476,18 +558,15 @@ class FlashAttentionDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, seed = ctx.saved_tensors
-        if q.device.type == "cuda":
-            grads = _launch_bwd(q, k, v, out, do, seed, ctx.rate)[:3]
-        else:
-            grads = flash_attention_dropout_bwd_reference(q, k, v, do, seed, ctx.rate)
-        return (*grads, None, None)
+        return (*_launch_bwd(q, k, v, out, do, seed, ctx.rate)[:3], None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Attention over ``(B, H, L, dh)``, differentiable: the kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
+    tensors (``FlashAttention``), the plain versions on CPU tensors
+    (``PlainAttention``)."""
     _check(q, k, v)
-    return FlashAttention.apply(q, k, v)
+    return (FlashAttention if q.device.type == "cuda" else PlainAttention).apply(q, k, v)
 
 
 def flash_attention_dropout(
@@ -496,15 +575,19 @@ def flash_attention_dropout(
 ) -> torch.Tensor:
     """Attention with dropout at ``rate`` on the attention weights, keyed by
     the int32 ``seed``, differentiable in q, k and v: the kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
+    tensors (``FlashAttentionDropout``), the plain versions on CPU tensors
+    (``PlainAttentionDropout``)."""
     _check(q, k, v)
     keep_threshold(rate)
-    return FlashAttentionDropout.apply(q, k, v, seed, float(rate))
+    fn = FlashAttentionDropout if q.device.type == "cuda" else PlainAttentionDropout
+    return fn.apply(q, k, v, seed, float(rate))
 
 
 __all__ = [
     "FlashAttention",
     "FlashAttentionDropout",
+    "PlainAttention",
+    "PlainAttentionDropout",
     "attention_bwd_plan",
     "attention_bwd_staged",
     "attention_fwd_plan",

@@ -53,10 +53,12 @@ run would have (on the CPU; on the card as far as its kernels repeat).
 A model of ``dtype`` bfloat16 trains as JAX's does: its parameters, the
 clip, AdamW, the EMA, the rollback guard and the all-reduced gradients
 stay fp32, the DSM loss takes the score in fp32, and the score network
-computes in bf16 (on the fused path B3 and B4 in bf16, and the validation
-forward's attention B2's bf16 kernel). The unfused path
-(``FDIFF_FUSED_TRAIN=0``) and the MLP and LSTM are not yet ported in bf16:
-``start`` and every step raise a ValueError for them.
+computes in bf16 on every path: on the fused path B3 and B4 in bf16; on
+the unfused path (``FDIFF_FUSED_TRAIN=0``) the module's attention through
+B6 in bf16, or B2's fast form and B5 in bf16 at a rate of 0; the MLP in
+plain PyTorch and the LSTM on ``torch.lstm`` (cuDNN on the card), neither
+with a kernel, as in JAX; the validation forward's attention through B2's
+fast bf16 form.
 
 With ``mesh=`` (``parallel/mesh.py``) the run is data-parallel over the
 ranks of the process group and computes what the one-process run computes:
@@ -185,23 +187,8 @@ class Trainer:
         ``FDIFF_FUSED_TRAIN=0``."""
         return use_fused_train() and isinstance(self.model, ScoreTransformer)
 
-    def check_path(self) -> None:
-        """Raise a ValueError where the path the steps take is not yet ported
-        in the model's compute dtype: bf16 runs on the fused path only."""
-        if self.model.dtype != torch.bfloat16:
-            return
-        if not isinstance(self.model, ScoreTransformer):
-            raise ValueError(f"training a {type(self.model).__name__} is not yet ported in "
-                             "bf16 (score_model.dtype: bfloat16); train it in float32")
-        if not self.fused():
-            raise ValueError("training on the unfused path (FDIFF_FUSED_TRAIN=0) is not yet "
-                             "ported in bf16 (score_model.dtype: bfloat16): its attention "
-                             "kernels B5 and B6 are fp32 only; take the fused path")
-
     def start(self, num_training_steps: int) -> None:
-        """Fresh optimiser state, EMA and step count for a run of this length,
-        after ``check_path``."""
-        self.check_path()
+        """Fresh optimiser state, EMA and step count for a run of this length."""
         self.num_training_steps = num_training_steps
         self.optimizer = make_optimizer(
             self.params, self.lr_max, num_training_steps,
@@ -221,7 +208,6 @@ class Trainer:
         """DSM loss of one batch in training mode: on the fused path with one
         dropout seed per layer (``layer_seeds``), on the unfused path with
         the dropout drawn from ``generator`` (on the model's device)."""
-        self.check_path()
         if self.fused():
             if layer_seeds is None:
                 raise ValueError("the fused training path needs layer_seeds")

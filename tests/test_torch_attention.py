@@ -13,8 +13,13 @@ fp32 backward arithmetic, summed in other orders: JAX over 128 padded
 lanes, the port over exactly L keys). bf16 2**-5 absolute on outputs of
 size up to ~2: both round q, P and O to bf16 at the same points, and a
 different fp32 sum order can flip one rounding, which moves an output by
-one bf16 ulp (2**-7 to 2**-6 at these sizes). The dropout masks bit for
-bit (the same hash of the same positions).
+one bf16 ulp (2**-7 to 2**-6 at these sizes). bf16 gradients (dq, dk, dv
+in bf16) 2**-8 of each tensor's largest entry: both round P_used, dS and
+the outputs at the same points, and an fp32 sum taken in another order
+(JAX over 128 padded lanes, the port over L keys or in blocks of 64) now
+and then rounds one of them the other way, which moves that entry by one
+bf16 ulp of itself and a sum over it by less (measured up to 9.5e-4). The
+dropout masks bit for bit (the same hash of the same positions).
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2.0**-5, rtol=0.0)}
 GRAD_REL = 1e-5
+BF16_GRAD_REL = 2.0**-8
 RATE = 0.1
+BF16 = torch.bfloat16
 
 
 def _qkv(shape, seed=3):
@@ -68,11 +75,23 @@ def test_fast_form_only_for_bf16_below_dh16() -> None:
     assert not fa._fast(torch.zeros(1, 1, 2, 6))
 
 
-def _assert_grads_close(ours, ref, names=("dq", "dk", "dv")) -> None:
+def _f32(x) -> np.ndarray:
+    """A port tensor or a JAX or numpy array, of any float dtype, as fp32."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _assert_grads_close(ours, ref, names=("dq", "dk", "dv"), rel: float = GRAD_REL) -> None:
     for name, got, want in zip(names, ours, ref):
-        want = np.asarray(want, np.float32)
-        err = float(np.abs(got.detach().numpy() - want).max()) / float(np.abs(want).max())
-        assert err <= GRAD_REL, (name, err)
+        got, want = _f32(got), _f32(want)
+        err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        assert err <= rel, (name, err)
+
+
+def _bf16(a: np.ndarray) -> tuple[torch.Tensor, jax.Array]:
+    """The same bf16 values for the port and for JAX."""
+    return torch.from_numpy(a).to(BF16), jnp.asarray(a).astype(jnp.bfloat16)
 
 
 def _port_vjp(fn, q, k, v, do):
@@ -100,6 +119,28 @@ def test_flash_attention_backward_matches_jax(shape) -> None:
     assert (fa.launches, fa.bwd_launches) == before  # CPU tensors never reach a kernel
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **TOL["float32"])
     _assert_grads_close(grads, vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 12, 100, 4), (2, 12, 365, 4), (1, 2, 775, 16)],
+    ids=["L100", "L365", "L775-dh16"],
+)
+def test_bf16_flash_attention_backward_matches_jax(shape) -> None:
+    """B5's plain version in bf16 (the forward's fast form below dh 16, the
+    backward ``_bwd_core`` rounding P_used and dS to bf16): the output and
+    dq, dk, dv (bf16) against ``jax.vjp`` of JAX's ``flash_attention`` in
+    bf16 (``_fast_fwd_kernel`` or ``_fwd_kernel``, and ``_bwd_kernel``)."""
+    do = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+    q, k, v, do = (_bf16(a) for a in (*_qkv(shape, seed=4), do))
+    out_ref, vjp = jax.vjp(jax_flash, q[1], k[1], v[1])
+    qt, kt, vt = (a[0].requires_grad_(True) for a in (q, k, v))
+    before = (fa.launches, fa.bwd_launches)
+    out = fa.flash_attention(qt, kt, vt)
+    grads = torch.autograd.grad(out, (qt, kt, vt), do[0])
+    assert (fa.launches, fa.bwd_launches) == before
+    assert out.dtype == BF16 and all(g.dtype == BF16 for g in grads)
+    np.testing.assert_allclose(_f32(out), _f32(out_ref), **TOL["bfloat16"])
+    _assert_grads_close(grads, vjp(do[1]), rel=BF16_GRAD_REL)
 
 
 def _jax_bwd(q, k, v, do, seed: int | None):
@@ -135,6 +176,45 @@ def test_staged_backward_matches_jax(l: int, seed: int | None) -> None:
     want = torch.stack([m, torch.exp(s - m[..., None]).sum(-1), (dot * o).sum(-1)], dim=-1)
     assert stats.shape == (2, 3, l, fa.STAT_COLS)
     torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [None, 2**31 - 2], ids=["B5", "B6-bwd"])
+@pytest.mark.parametrize("l", [19, 100, 187, 365], ids=lambda l: f"L{l}")
+def test_bf16_staged_backward_matches_jax(l: int, seed: int | None) -> None:
+    """The plain staged version of the bf16 launches (statistics over key
+    blocks, O = P_used v recomputed over them for D, dq; then dk and dv over
+    blocks of query rows; P_used and dS rounded to bf16) against the port's
+    ``_bwd_core`` and JAX's ``_bwd_call`` / ``_dropout_bwd_call`` in bf16
+    (interpret mode); its statistics against the softmax max and sum taken
+    whole (1e-5) and D against dO . (P_used v) taken in fp64, within
+    ``bf16_d_err_over_bound``'s bound (P from the blocks' statistics and P
+    from the whole row may round an entry of P_used the other way), which
+    D from the saved bf16 output breaks."""
+    q, k, v, do = _qkv((2, 3, l, 6), seed=l) + [
+        np.random.default_rng(l + 1).normal(size=(2, 3, l, 6)).astype(np.float32)]
+    qt, kt, vt, dot = (_bf16(a)[0] for a in (q, k, v, do))
+    if seed is None:
+        keep, o = None, fa.flash_attention_reference(qt, kt, vt)
+        ref = jax_fa._bwd_call(*(_bf16(a)[1] for a in (q, k, v, do)))
+    else:
+        keep = fa.attention_keep(2, 3, l, seed, RATE)
+        o = fa.flash_attention_dropout_reference(qt, kt, vt, seed, RATE)
+        ref = jax_fa._dropout_bwd_call(*(_bf16(a)[1] for a in (q, k, v)),
+                                       jnp.asarray(seed, jnp.int32), RATE, _bf16(do)[1])
+    *grads, stats = fa.attention_bwd_staged(qt, kt, vt, o, dot, keep)
+    assert all(g.dtype == BF16 for g in grads) and stats.dtype == torch.float32
+    _assert_grads_close(grads, fa._bwd_core(qt, kt, vt, dot, keep), rel=BF16_GRAD_REL)
+    _assert_grads_close(grads, ref, rel=BF16_GRAD_REL)
+    s = (qt.float() @ kt.float().transpose(-1, -2)) / 6**0.5
+    m = s.amax(-1)
+    p = torch.softmax(s, dim=-1)
+    p_used = (p if keep is None else p * keep).to(BF16).float()
+    d = (dot.double() * (p_used.double() @ vt.double())).sum(-1).float()
+    want = torch.stack([m, torch.exp(s - m[..., None]).sum(-1)], dim=-1)
+    torch.testing.assert_close(stats[..., :2], want, rtol=1e-5, atol=1e-5)
+    assert fa.bf16_d_err_over_bound(stats[..., 2], d, qt, kt, vt, dot, keep).max() <= 1.0
+    saved = (dot.float() * o.float()).sum(-1)
+    assert fa.bf16_d_err_over_bound(saved, d, qt, kt, vt, dot, keep).max() > 1.0
 
 
 def test_flash_attention_backward_takes_noncontiguous_heads() -> None:
@@ -210,6 +290,27 @@ def test_flash_attention_dropout_matches_jax(l: int, seed: int) -> None:
     assert (fa.dropout_fwd_launches, fa.dropout_bwd_launches) == before
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), **TOL["float32"])
     _assert_grads_close(grads, vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize("l,seed", [(100, 2**31 - 2), (365, 99)], ids=["L100", "L365"])
+def test_bf16_flash_attention_dropout_matches_jax(l: int, seed: int) -> None:
+    """B6's plain versions in bf16 (the exact forward with P keep rounded
+    to bf16, the backward ``_bwd_core`` with keep): the output and dq, dk,
+    dv against JAX's ``flash_attention_dropout`` in bf16, interpret mode."""
+    shape = (2, 12, l, 4)
+    do = np.random.default_rng(8).normal(size=shape).astype(np.float32)
+    q, k, v, do = (_bf16(a) for a in (*_qkv(shape, seed=7), do))
+    jseed = jnp.asarray(seed, jnp.int32)
+    out_ref, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention_dropout(a, b, c, jseed, RATE),
+                           q[1], k[1], v[1])
+    qt, kt, vt = (a[0].requires_grad_(True) for a in (q, k, v))
+    before = (fa.dropout_fwd_launches, fa.dropout_bwd_launches)
+    out = fa.flash_attention_dropout(qt, kt, vt, seed, RATE)
+    grads = torch.autograd.grad(out, (qt, kt, vt), do[0])
+    assert (fa.dropout_fwd_launches, fa.dropout_bwd_launches) == before
+    assert out.dtype == BF16 and all(g.dtype == BF16 for g in grads)
+    np.testing.assert_allclose(_f32(out), _f32(out_ref), **TOL["bfloat16"])
+    _assert_grads_close(grads, vjp(do[1]), rel=BF16_GRAD_REL)
 
 
 def test_dropout_seed_may_be_a_tensor() -> None:

@@ -2,8 +2,10 @@
 parameters) against the JAX package, on the CPU: one training layer
 (``ops/fused_encoder_train.py``), one whole step of the fused path
 (``models/fused.py``, ``losses.py``, ``training/trainer.py``) and the eval
-forward that validation runs; and the paths that are not yet ported in
-bf16 refuse before a step.
+forward that validation runs; and that the other paths (the unfused
+path, ``FDIFF_FUSED_TRAIN=0``, and the MLP and LSTM) start and take a bf16
+step with fp32 parameters and gradients (their parity with JAX:
+``tests/test_torch_unfused_training.py``, ``tests/test_torch_mlp_lstm.py``).
 
 The JAX side runs its Pallas training kernels in interpret mode in bf16;
 the port, given CPU tensors, runs its plain versions, whose backward in
@@ -172,21 +174,29 @@ def test_bf16_eval_forward_matches_jax() -> None:
 
 @pytest.mark.parametrize("model_type,fused", [("transformer", "0"), ("mlp", "1"),
                                               ("lstm", "1")])
-def test_paths_not_ported_in_bf16_refuse_before_a_step(monkeypatch, model_type, fused) -> None:
-    """The unfused path (``FDIFF_FUSED_TRAIN=0``) and the MLP and LSTM are
-    not yet ported in bf16: the trainer raises when it sets out, before a
-    step, and at a step; in float32 the same configurations train."""
+def test_every_path_takes_a_bf16_step(monkeypatch, model_type, fused) -> None:
+    """The unfused path (``FDIFF_FUSED_TRAIN=0``) and the MLP and LSTM (which
+    take it whatever the variable says) train in bf16: the trainer sets out
+    and takes steps at dropout 0.1, the losses finite, the parameters,
+    their gradients and the EMA fp32, and the parameters moved by the second
+    step (the schedule's rate is 0 at the first update)."""
     monkeypatch.setenv("FDIFF_FUSED_TRAIN", fused)
     arch = dict(d_model=8, num_layers=1, n_head=2, dim_feedforward=16, d_mlp=16)
     model = ScoreModelConfig(model_type=model_type, dtype="bfloat16", **arch).build(C, L, seed=0)
     trainer = Trainer(model, VPScheduler(), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported in bf16"):
-        trainer.start(4)
+    trainer.start(4)
+    assert not trainer.fused()
     x, t = (torch.from_numpy(a) for a in numpy_inputs(2, L, C))
-    with pytest.raises(ValueError, match="not yet ported in bf16"):
-        trainer.train_loss(x, t, torch.zeros_like(x), [1])
-    fp32 = ScoreModelConfig(model_type=model_type, **arch).build(C, L, seed=0)
-    Trainer(fp32, VPScheduler(), device="cpu").start(4)
+    z = torch.from_numpy(np.random.default_rng(4).normal(size=x.shape).astype(np.float32))
+    before = [p.detach().clone() for p in trainer.params]
+    _, grads = trainer.loss_and_grads(x, t, z, generator=torch.Generator().manual_seed(1))
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
+    for seed in (1, 2):
+        loss = trainer.train_step(x, t, z, generator=torch.Generator().manual_seed(seed))
+        assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(v.dtype == torch.float32 for v in trainer.ema.values())
+    assert any(not torch.equal(p.detach(), b) for p, b in zip(trainer.params, before))
 
 
 def test_chip_smoke_trains_the_bf16_runs_configuration(tmp_path) -> None:

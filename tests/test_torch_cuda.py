@@ -30,7 +30,11 @@ B1, B2, B3, B4 and B5/B6-bwd run on the tensor cores
 and bf16, and up to L 3616 (in bf16 to 4 ulps of its largest output,
 ``B2_BF16_ULPS``); B5 and B6-bwd up to L 3616 and at dh 16 and 64, and two
 calls bit for bit; B6-fwd (B2's kernel with the keep factors) up to L
-3616 and at L 2048, dh 16; B3 at rate 0 and 0.1
+3616 and at L 2048, dh 16; B5, B6-fwd and B6-bwd in bf16 at the same
+shapes against their plain bf16 versions (outputs to B2_BF16_ULPS ulps of
+the largest, gradients to BF16_ATTN_GRAD_TOL of each tensor's largest,
+launch 1's statistics against the bf16 staged plain backward), and the
+unfused trainer in bf16 through them; B3 at rate 0 and 0.1
 at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is checked
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
@@ -515,6 +519,93 @@ def test_dropout_forward_matches_plain_at_every_length(cuda, b, h, l, dh) -> Non
                        fa.attention_keep(b, h, l, seed, 0.1, device=cuda))
 
 
+# B5, B6-fwd and B6-bwd in bf16 against their plain bf16 versions (which
+# round P keep, P_used and dS to bf16 where the kernels and JAX's kernels
+# do): dq, dk, dv to BF16_ATTN_GRAD_TOL of each tensor's largest (a rounding
+# that flips between their fp32 sum orders moves an entry by one bf16 ulp
+# of itself: four ulps of the largest, as B2_BF16_ULPS for outputs).
+BF16_ATTN_GRAD_TOL = 2.0**-6
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B5", "B6"])
+@pytest.mark.parametrize("b,h,l,dh", BWD_SHAPES, ids=BWD_IDS)
+def test_bf16_attention_kernels_match_plain(cuda, rate, b, h, l, dh) -> None:
+    """B2 (fast form at dh < 16) and B5 at rate 0, B6-fwd and B6-bwd at 0.1,
+    in bf16 on heads transposed out of (B, L, H, dh): the output and dq, dk,
+    dv (bf16) against the plain versions, one launch of each wrapper."""
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(b, l, h, dh, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    do = torch.randn(b, h, l, dh, generator=g).to(cuda, torch.bfloat16)
+    seed = 2**31 - 3
+    if rate:
+        kernel = lambda *t: fa.flash_attention_dropout(*t, seed, rate)  # noqa: E731
+        plain = lambda *t: fa.PlainAttentionDropout.apply(*t, seed, rate)  # noqa: E731
+        counts = ("dropout_fwd_launches", "dropout_bwd_launches")
+    else:
+        kernel, plain = fa.flash_attention, fa.PlainAttention.apply
+        counts = ("launches", "bwd_launches")
+    before = [getattr(fa, c) for c in counts]
+    out, grads = _attention_grads(kernel, q, k, v, do)
+    torch.cuda.synchronize()
+    assert [getattr(fa, c) for c in counts] == [n + 1 for n in before]
+    ref, ref_grads = _attention_grads(plain, q, k, v, do)
+    assert out.dtype == torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in grads)
+    assert (out.float() - ref.float()).abs().max().item() <= b2_tol(torch.bfloat16, ref)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got.float(), want.float()) <= BF16_ATTN_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B5", "B6-bwd"])
+@pytest.mark.parametrize("b,h,l,dh", [(8, 12, 100, 6), (2, 8, 187, 16)], ids=["L100", "L187"])
+def test_bf16_attention_backward_repeats_bit_for_bit(cuda, rate, b, h, l, dh) -> None:
+    """Two calls of the bf16 B5 (and B6-bwd) give the same bits; launch 1's
+    row statistics against the bf16 staged plain backward (m and l to 1e-4
+    of the largest; D, from O = P_used v recomputed, within
+    ``bf16_d_err_over_bound``'s bound of it, which D from the output the
+    backward is given breaks); dq, dk, dv against it to
+    BF16_ATTN_GRAD_TOL."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, l, dh, generator=g).to(cuda, torch.bfloat16)
+                   for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda) if rate else None
+    keep = fa.attention_keep(b, h, l, seed, rate, cuda) if rate else None
+    o = (fa.flash_attention_dropout_reference(q, k, v, seed, rate) if rate
+         else fa.flash_attention_reference(q, k, v))
+    first = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    second = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
+    for i in range(2):
+        assert _rel(first[3][..., i], staged[3][..., i]) <= 1e-4, i
+    d = staged[3][..., 2]
+    assert fa.bf16_d_err_over_bound(first[3][..., 2], d, q, k, v, do, keep).max() <= 1.0
+    saved = (do.float() * o.float()).sum(-1)
+    assert fa.bf16_d_err_over_bound(saved, d, q, k, v, do, keep).max() > 1.0
+    for name, got, want in zip(("dq", "dk", "dv"), first, staged):
+        assert _rel(got.float(), want.float()) <= BF16_ATTN_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("b,h,l,dh", DROPOUT_FWD_SHAPES, ids=DROPOUT_FWD_IDS)
+def test_bf16_dropout_forward_matches_plain_at_every_length(cuda, b, h, l, dh) -> None:
+    """B6-fwd in bf16 (the exact form, P keep rounded to bf16) against
+    ``flash_attention_dropout_reference`` to B2_BF16_ULPS ulps of the
+    largest output, one launch per call."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda)
+    before = fa.dropout_fwd_launches
+    with torch.no_grad():
+        out = fa.flash_attention_dropout(q, k, v, seed, 0.1)
+    torch.cuda.synchronize()
+    assert fa.dropout_fwd_launches == before + 1
+    ref = fa.flash_attention_dropout_reference(q, k, v, seed, 0.1)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= b2_tol(torch.bfloat16, ref)
+
+
 @pytest.mark.parametrize("l,seed", [(100, 2**31 - 2), (365, 5)], ids=["L100", "L365"])
 def test_attention_masks_are_bit_identical(cuda, l, seed) -> None:
     ours = fa.attention_keep_cuda(3, 12, l, seed, 0.1, device=cuda)
@@ -522,6 +613,8 @@ def test_attention_masks_are_bit_identical(cuda, l, seed) -> None:
 
 
 def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
+    """fp16 is refused; bf16 runs every attention kernel (B2, B5, B6-fwd,
+    B6-bwd), each counting one launch of its wrapper."""
     packed = _train_layer(24, 4, 64, cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fet.fused_encoder_layer_train(
@@ -532,10 +625,13 @@ def test_kernel_wrappers_raise_on_wrong_dtype(cuda) -> None:
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 5, 6, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(ValueError, match="fp32 only"):
-        fa.flash_attention(q, q, q).sum().backward()
-    with pytest.raises(ValueError, match="fp32 only"):
-        fa.flash_attention_dropout(q, q, q, 1, 0.1)
+    counts = ("launches", "bwd_launches", "dropout_fwd_launches", "dropout_bwd_launches")
+    before = [getattr(fa, c) for c in counts]
+    fa.flash_attention(q, q, q).sum().backward()
+    fa.flash_attention_dropout(q, q, q, 1, 0.1).sum().backward()
+    torch.cuda.synchronize()
+    assert [getattr(fa, c) for c in counts] == [n + 1 for n in before]
+    assert q.grad.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -567,6 +663,42 @@ def test_unfused_trainer_runs_every_layer_through_the_kernels(cuda, rate, monkey
         assert (fa.dropout_fwd_launches, fa.bwd_launches) == (0, train)
         assert fa.launches == train + 2 * steps * 2
     assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert len(history) == 1 and history[0]["step"] == steps
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_unfused_trainer_runs_every_layer_through_the_kernels(cuda, rate,
+                                                                    monkeypatch) -> None:
+    """A bf16 model (fp32 parameters) on the unfused path: every layer of
+    every step through B6 in bf16, or B2's fast form and B5 at rate 0, and
+    validation through B2's fast form; the parameters stay finite fp32."""
+    from fourierdiffusion_tpu_torch.data import DummyDatamodule
+    from fourierdiffusion_tpu_torch.schedulers import VPScheduler
+    from fourierdiffusion_tpu_torch.training import Trainer
+
+    monkeypatch.setenv("FDIFF_FUSED_TRAIN", "0")
+    torch.manual_seed(3)
+    model = ScoreModelConfig(
+        d_model=24, n_head=4, num_layers=2, dim_feedforward=64, dropout_rate=rate,
+        dtype="bfloat16",
+    ).build(2, 19)
+    dm = DummyDatamodule(batch_size=8, n_channels=2, max_len=19, standardize=True)
+    dm.prepare_data()
+    dm.setup()
+    trainer = Trainer(model, VPScheduler(), max_epochs=1, val_noise_draws=2, device=cuda)
+    fet.fwd_launches = fet.bwd_launches = fa.launches = fa.bwd_launches = 0
+    fa.dropout_fwd_launches = fa.dropout_bwd_launches = fa.fast_launches = 0
+    history = trainer.fit(dm)
+    steps = dm.steps_per_epoch
+    train, val = steps * 2, 2 * steps * 2  # steps x layers; draws x batches x layers
+    assert (fet.fwd_launches, fet.bwd_launches) == (0, 0)
+    if rate:
+        assert (fa.dropout_fwd_launches, fa.dropout_bwd_launches, fa.bwd_launches,
+                fa.launches) == (train, train, 0, val)
+    else:
+        assert (fa.dropout_fwd_launches, fa.bwd_launches, fa.launches) == (0, train, train + val)
+    assert fa.fast_launches == fa.launches
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all() for p in model.parameters())
     assert len(history) == 1 and history[0]["step"] == steps
 
 

@@ -663,6 +663,91 @@ def test_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
         plan[k] for k, _ in fa.AttnBwdPlan._fields_]
 
 
+@pytest.mark.parametrize("dh", [6, 12, 16, 64])
+@pytest.mark.parametrize("l", [19, 100, 365, 775, 896, 3616])
+def test_bf16_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
+    """The bf16 launches: the same tiles and blocks as fp32's, the
+    instance's width covering dh in steps of 16 (bf16 m16n8k16's k), strides
+    of 2-byte elements with S % 16 == 8 (ldmatrix rows of 16 bytes in
+    distinct banks), a stage of two bf16 blocks and the fp32 statistics of
+    64 rows (192 floats, 384 bf16 elements; the second stage starts on 16
+    bytes), and shared memory that does not depend on L, at most fp32's and
+    within 232,448 bytes."""
+    plan = fa.attention_bwd_plan(l, dh, torch.bfloat16)
+    fp32 = fa.attention_bwd_plan(l, dh)
+    assert {k: plan[k] for k in ("warps", "tiles", "blocks")} == {
+        k: fp32[k] for k in ("warps", "tiles", "blocks")}
+    assert plan["kdh"] >= dh and plan["kdh"] % 16 == 0 and plan["kdh"] < 2 * max(dh, 16)
+    assert plan["stride"] >= plan["kdh"] and plan["stride"] % 16 == 8
+    assert plan["stride"] * 2 % 16 == 0
+    assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"] + fa.KEY_BLOCK * fa.STAT_COLS * 2
+    assert 2 * fa.KEY_BLOCK * plan["stride"] * 2 % 16 == 0  # the statistics' first byte
+    assert plan["stage"] * 2 % 16 == 0  # the second stage's first byte
+    assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * 2
+    assert plan["bytes"] == fa.attention_bwd_plan(19, dh, torch.bfloat16)["bytes"]
+    assert plan["bytes"] <= fp32["bytes"] <= fe.SMEM_LIMIT
+    struct = plan["struct"]
+    assert [getattr(struct, k) for k, _ in struct._fields_] == [
+        plan[k] for k, _ in fa.AttnBwdPlan._fields_]
+
+
+class _BwdPlanRecorder:
+    """Stands in for the built library: records the variant and the plan
+    that ``fdiff_attention_bwd`` is given and reports success."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple] = []
+
+    def fdiff_attention_bwd(self, variant, *args) -> int:
+        plan = args[14]._obj  # ctypes.byref(AttnBwdPlan)
+        self.calls.append((variant, {k: getattr(plan, k) for k, _ in plan._fields_}, args[15]))
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_backward_launch_takes_the_plan_of_its_dtype(dtype, monkeypatch) -> None:
+    """B5 and B6-bwd hand the kernels the variant (0 fp32, 1 bf16) and the
+    plan of the tensors' dtype, with and without the seed's pointer; a bf16
+    tensor is not refused."""
+    recorder = _BwdPlanRecorder()
+    monkeypatch.setattr(fa, "_library", lambda: recorder)
+    monkeypatch.setattr(fa, "_dropout_args", lambda q, seed, rate: [
+        None if seed is None else 1, 0, 1.0, 1, 0])
+    monkeypatch.setattr(fa, "bwd_launches", 0)
+    monkeypatch.setattr(fa, "dropout_bwd_launches", 0)
+    q = torch.zeros(1, 2, 100, 6, dtype=dtype)
+    grads = fa._launch_bwd(q, q, q, q, q)
+    fa._launch_bwd(q, q, q, q, q, torch.tensor([5]), 0.1)
+    want = fa.attention_bwd_plan(100, 6, dtype)
+    for (variant, plan, _), seed in zip(recorder.calls, (None, 1)):
+        assert variant == (0 if dtype == torch.float32 else 1)
+        assert plan == {k: want[k] for k, _ in fa.AttnBwdPlan._fields_}
+    assert [c[2] for c in recorder.calls] == [None, 1]
+    assert all(g.dtype == dtype for g in grads[:3]) and grads[3].dtype == torch.float32
+    assert (fa.bwd_launches, fa.dropout_bwd_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("l", [19, 365, 2048])
+def test_bf16_dropout_forward_launch_takes_b2_bf16_plan(l, monkeypatch) -> None:
+    """B6-fwd in bf16 takes the exact form (variant 1, the seed's pointer
+    set) on B2's bf16 plan at the call's L and dh, where B2 at dh 6 takes the
+    fast form (variant 2) on the same plan."""
+    recorder = _PlanRecorder()
+    monkeypatch.setattr(fa, "_library", lambda: recorder)
+    monkeypatch.setattr(fa, "_dropout_args", lambda q, seed, rate: [
+        None if seed is None else 1, 0, 1.0, 1, 0])
+    monkeypatch.setattr(fa, "launches", 0)
+    monkeypatch.setattr(fa, "dropout_fwd_launches", 0)
+    q = torch.zeros(1, 2, l, 6, dtype=torch.bfloat16)
+    fa._launch_fwd(q, q, q, torch.tensor([5]), 0.1)
+    fa._launch_fwd(q, q, q)
+    (variant, plan, seed), (b2_variant, b2_plan, b2_seed) = recorder.calls
+    bf16 = fa.attention_fwd_plan(l, 6, torch.bfloat16)
+    assert (variant, seed, b2_variant, b2_seed) == (1, 1, 2, None)
+    assert plan == b2_plan == {k: bf16[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert (fa.dropout_fwd_launches, fa.launches) == (1, 1)
+
+
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi = tf32_rna(x)
     return hi, tf32_trunc(x - hi)

@@ -10,6 +10,22 @@ and the two entry points.
   (``runs_reference/ref-lstm-*/model.pt``) loaded into both likewise.
 * One training step at dropout 0 with JAX's ``t`` and ``z``: the loss to
   1e-5 relative, each gradient to 1e-5 of its tensor's largest entry.
+* The same step in bf16 (``dtype`` bfloat16, fp32 parameters, as JAX's
+  ``score_model.dtype: bfloat16`` trains): the loss to 1e-3 relative, each
+  gradient to BF16_GRAD_REL of its tensor's largest entry (the MLP 2**-6,
+  the LSTM 2**-5), and parameters and gradients fp32. The two libraries
+  round bf16 at other points: JAX's linear layers round ``x W`` to bf16
+  before adding the bias in bf16, PyTorch adds it to the fp32 sum; JAX's
+  gradient of a broadcast bias sums its bf16 cotangents in bf16 (up to
+  1.1e-2 of the largest on 80 random rows); the MLP's ReLU gates near 0
+  may take the other sign; and the LSTM's recurrence rounds every gate
+  operation, h and c to bf16 at each of the L steps in JAX (its
+  ``lax.scan``) and at the points of ``torch.lstm`` in the port (on the
+  card cuDNN, which keeps its cell state in fp32), so its roundings
+  compound over the steps. Over three draws
+  (``scripts/bf16_parity_probe.py mlp lstm``) the MLP read 7.6e-3 to
+  1.3e-2 and the LSTM 8.1e-3 to 2.4e-2 (the embedder's bias), the losses
+  8.3e-5 to 7.1e-4.
 * The MLP's dropout at 0.1 draws from the generator: the same generator
   seed gives the same output, another seed another.
 * A 20-step ``em`` run of ``ScoreLSTM`` on JAX's noise: to 1e-5 of the
@@ -88,15 +104,15 @@ FULL = dict(d_model=72, num_layers=10, d_mlp=1024)
 
 
 def _models(model_type: str, max_len: int, n_channels: int, dropout_rate: float = 0.1,
-            seed: int = 0, **arch):
+            seed: int = 0, dtype: str = "float32", **arch):
     """A JAX network with initialised variables (numpy) and the port's
-    network holding the same weights."""
-    jmodel = JaxConfig(model_type=model_type, dropout_rate=dropout_rate, **arch).build(
-        n_channels=n_channels, max_len=max_len)
+    network holding the same weights, both computing in ``dtype``."""
+    jmodel = JaxConfig(model_type=model_type, dropout_rate=dropout_rate, dtype=dtype,
+                       **arch).build(n_channels=n_channels, max_len=max_len)
     variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
         jax.random.PRNGKey(seed), jnp.zeros((1, max_len, n_channels)), jnp.zeros((1,))))
-    model = ScoreModelConfig(model_type=model_type, dropout_rate=dropout_rate, **arch).build(
-        n_channels, max_len)
+    model = ScoreModelConfig(model_type=model_type, dropout_rate=dropout_rate, dtype=dtype,
+                             **arch).build(n_channels, max_len)
     model.load_state_dict(state_dict_from_jax(variables, arch["num_layers"]), strict=True)
     return jmodel, variables, model.eval()
 
@@ -178,6 +194,45 @@ def test_training_step_matches_jax(model_type: str) -> None:
     assert set(ref) == set(trainer.names)
     for name, grad in zip(trainer.names, grads):
         _assert_close(grad.numpy(), ref[name].numpy())
+
+
+BF16_LOSS_REL = 1e-3
+BF16_GRAD_REL = {"mlp": 2.0**-6, "lstm": 2.0**-5}
+
+
+@pytest.mark.parametrize("model_type", ["mlp", "lstm"])
+def test_bf16_training_step_matches_jax(model_type: str) -> None:
+    """``test_training_step_matches_jax`` with both networks computing in
+    bf16 (fp32 parameters): the loss and every gradient against JAX's, the
+    parameters and gradients fp32."""
+    max_len, n_channels = 12, 2
+    jmodel, variables, model = _models(model_type, max_len, n_channels, dropout_rate=0.0,
+                                       dtype="bfloat16", **SMALL)
+    x, _ = _inputs(4, max_len, n_channels, seed=3)
+    jsched, sched = JaxVP(fourier_noise_scaling=True), VPScheduler(fourier_noise_scaling=True)
+    key = jax.random.PRNGKey(5)
+
+    def loss_fn(params):
+        return jax_sde_loss(
+            lambda b: jmodel.apply({"params": params, "constants": variables["constants"]},
+                                   b.X, b.timesteps, deterministic=False),
+            jsched, JaxBatch(X=jnp.asarray(x)), key)
+
+    ref_loss, ref_grads = jax.value_and_grad(loss_fn)(variables["params"])
+    t, z = _jax_loss_draws(key, x.shape, jsched)
+    trainer = Trainer(model, sched, device="cpu")
+    trainer.start(4)
+    loss, grads = trainer.loss_and_grads(
+        torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(z),
+        generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=BF16_LOSS_REL)
+    ref = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, ref_grads)},
+                              SMALL["num_layers"])
+    assert set(ref) == set(trainer.names)
+    for name, grad in zip(trainer.names, grads):
+        assert grad.dtype == torch.float32, name
+        _assert_close(grad.numpy(), ref[name].numpy(), BF16_GRAD_REL[model_type])
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_mlp_dropout_draws_from_the_generator() -> None:

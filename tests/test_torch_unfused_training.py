@@ -14,6 +14,36 @@ port's draws are held to repeat from one generator state.
 
 Tolerances: the loss 1e-5 relative, gradients 1e-4 of each tensor's largest
 entry (the same fp32 arithmetic summed in other orders).
+
+In bf16 (a model of ``dtype`` bfloat16, fp32 parameters) the step at rate 0
+is held to JAX's with the FFN ReLU gates located and matched. The two
+libraries round bf16 at other points (JAX's linear layers round ``x W`` to
+bf16 and then add the bias in bf16, PyTorch adds it to the fp32 sum; the
+LayerNorm and residual casts differ too), so a pre-activation within a few
+bf16 ulps of 0 can take the other sign: at the test's shapes 3 to 11 gates
+per layer do, each within BF16_GATE_BAND of its sum of |terms| from 0, and
+each moves a row of ``linear1.weight``'s gradient by its whole share
+(7.5e-2 of that tensor's largest entry unmatched). The port's gates are
+forced to JAX's (``chip_smoke.unfused_step0``), and then (the ranges over
+four draws, ``scripts/bf16_parity_probe.py unfused``):
+
+* the loss, 1e-3 relative (a mean of squared terms, each within a few bf16
+  ulps; 5.7e-5 to 3.0e-4);
+* every weight matrix and LayerNorm parameter, 2**-6 of each tensor's
+  largest (two bf16 ulps: the cotangents that meet in their sums differ by
+  an ulp here and there through those rounding points; at most 9.6e-3);
+* the bias of every linear layer, 2**-6 against the sum in fp32 of JAX's
+  own cotangents of that layer's output in the same step (taken by
+  ``flax.linen.intercept_methods``), not against JAX's gradient: JAX sums a
+  broadcast bias's bf16 cotangents over the B*L rows in bf16 (XLA's CPU
+  reduction), where PyTorch's autograd sums in fp32 and rounds once. JAX's
+  worst bias gradient per draw lies 1.7e-2 to 5.0e-2 from that fp32 sum
+  (the 5.0e-2 in the v third of ``in_proj_bias``), the port's at most
+  9.4e-3;
+* the positional embedding, 2**-5 (7.5e-3 to 1.4e-2): each entry of its
+  gradient sums only the B rows of the cotangent at the backbone's input,
+  which has come back through every layer's bf16 roundings, where a
+  weight's gradient sums B*L rows and averages those differences down.
 """
 
 from __future__ import annotations
@@ -80,6 +110,117 @@ def test_unfused_step_at_rate_0_matches_jax(unfused) -> None:
     assert set(ref) == set(trainer.names)
     for name, g in zip(trainer.names, grads):
         assert_grads_close(g, ref[name].numpy(), name)
+
+
+BF16_GATE_BAND = 2.0**-5
+BF16_LOSS_REL = 1e-3
+BF16_GRAD_REL = 2.0**-6
+BF16_POS_EMBEDDING_REL = 2.0**-5
+
+
+def jax_step_with_linear_cotangents(jtrainer, variables, x: np.ndarray, key) -> tuple:
+    """JAX's loss, parameter gradients and, by module path ("a/b/c"), the
+    cotangent of every ``TorchLinear``'s output in one training step: a
+    zero of the output's shape and dtype is added to each output by
+    ``flax.linen.intercept_methods`` and differentiated with the
+    parameters."""
+    import flax.linen as nn
+
+    from fourierdiffusion_tpu.models.blocks import TorchLinear
+
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    constants = jax.tree_util.tree_map(jnp.asarray, variables["constants"])
+    batch = JaxBatch(X=jnp.asarray(x))
+
+    def loss(p, zeros):
+        def add_zero(call, args, kwargs, context):
+            y = call(*args, **kwargs)
+            if context.method_name != "__call__" or not isinstance(context.module, TorchLinear):
+                return y
+            path = "/".join(context.module.path)
+            if zeros is None:
+                shapes[path] = jax.ShapeDtypeStruct(y.shape, y.dtype)
+                return y
+            return y + zeros[path]
+
+        with nn.intercept_methods(add_zero):
+            return jtrainer._loss(p, constants, batch, key, True)
+
+    shapes: dict = {}
+    jax.eval_shape(loss, params, None)
+    zeros = {k: jnp.zeros(s.shape, s.dtype) for k, s in shapes.items()}
+    value, (grads, cotangents) = jax.value_and_grad(loss, argnums=(0, 1))(params, zeros)
+    return value, grads, cotangents
+
+
+def linear_bias_sums(cotangents: dict) -> dict:
+    """The port's name of each linear layer's bias, with the sum in fp32 of
+    the layer's output cotangents over every row."""
+    out = {}
+    for path, c in cotangents.items():
+        name = path.replace("/", ".").replace("layers_", "layers.")
+        name = name.replace("self_attn.in_proj", "self_attn.in_proj_bias")
+        name = name if name.endswith("in_proj_bias") else name + ".bias"
+        c = np.asarray(c.astype(jnp.float32))
+        out[name] = c.reshape(-1, c.shape[-1]).sum(0, dtype=np.float64)
+    return out
+
+
+def test_bf16_unfused_step_at_rate_0_matches_jax(unfused) -> None:
+    """One bf16 step's loss and every gradient against JAX's unfused trainer
+    (its attention through the Pallas kernels, interpret mode, in bf16: the
+    fast forward and ``_bwd_kernel``; the port's through their plain
+    versions), with the FFN ReLU gates that take the other sign located and
+    matched, and the linear layers' biases against the fp32 sums of JAX's
+    cotangents; the parameters and gradients stay fp32."""
+    import chip_smoke
+
+    _, variables, model = jax_and_port_models(L, C, "bfloat16", dropout_rate=0.0, **ARCH)
+    jmodel = JaxConfig(model_type="transformer", dropout_rate=0.0, use_pallas=True,
+                       dtype="bfloat16", **ARCH).build(n_channels=C, max_len=L)
+    jsched = JaxVP(fourier_noise_scaling=True)
+    x = np.random.default_rng(12).normal(size=(B, L, C)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    loss_ref, grads_ref, cotangents = jax_step_with_linear_cotangents(
+        JaxTrainer(jmodel, jsched), variables, x, key)
+    t, z = (torch.from_numpy(np.array(a))
+            for a in _jax_loss_draws(jax.random.split(key)[1], x.shape, jsched))
+    trainer = Trainer(model, VPScheduler(fourier_noise_scaling=True), device="cpu")
+    step = (torch.from_numpy(x), t, z, None)
+
+    seen = []
+    forward = model.forward
+    model.forward = lambda xt, tt, *a, **k: seen.append((xt, tt)) or forward(xt, tt, *a, **k)
+    _, gates, pres, terms = chip_smoke.unfused_step0(trainer, step)
+    del model.forward
+    (xt, tt), = seen
+    _, inter = jmodel.apply(variables, jnp.asarray(xt.detach().numpy()),
+                            jnp.asarray(tt.detach().numpy()), True,
+                            capture_intermediates=True, mutable=["intermediates"])
+    layers = inter["intermediates"]["backbone"]
+    jax_gates = {i: torch.from_numpy(np.asarray(
+        layers[f"layers_{i}"]["linear1"]["__call__"][0].astype(jnp.float32)) > 0)
+        for i in gates}
+    flips = {i: gates[i] != jax_gates[i] for i in gates}
+    assert 0 < sum(int(f.sum()) for f in flips.values())
+    for i, where in flips.items():
+        assert bool((pres[i].float().abs()[where] <= BF16_GATE_BAND * terms[i][where]).all()), i
+    # Every gate takes JAX's sign (a no-op where they agree), so that gates
+    # of a later layer that flip only once an earlier layer's are forced
+    # are matched too.
+    grads = chip_smoke.unfused_step0(
+        trainer, step, {i: (torch.ones_like(g), g) for i, g in jax_gates.items()})[0]
+    loss = trainer.train_loss(*step[:3], generator=torch.Generator())
+    assert abs(loss.item() - float(loss_ref)) <= BF16_LOSS_REL * abs(float(loss_ref))
+    ref = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, grads_ref)}, 2)
+    bias_sums = linear_bias_sums(cotangents)
+    assert len(bias_sums) == 3 + 4 * ARCH["num_layers"] and set(bias_sums) <= set(trainer.names)
+    for name, g in zip(trainer.names, grads):
+        r = bias_sums.get(name, ref[name].numpy())
+        tol = BF16_POS_EMBEDDING_REL if name.startswith("pos_encoder.") else BF16_GRAD_REL
+        assert g.dtype == torch.float32
+        assert np.abs(g.numpy() - r).max() <= tol * np.abs(r).max(), name
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def _unfused_trainer(rate: float) -> tuple[Trainer, tuple]:
