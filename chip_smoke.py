@@ -20,8 +20,11 @@ Phases, each printed with its seconds as it ends:
    and B8; every kernel that runs a tile product must have HMMA (an int8
    one IMMA), B2's kernel, the two launches of B5/B6-bwd, their bf16
    instances and B6-fwd's bf16 instance (BF16_ATTENTION_INSTANCES), the
-   training tail and B7/B8's three int8 kernels must be among them, and no
-   kernel of B7/B8 may hold a ``__dp4a`` (IDP4A).
+   training layer's attention kernels in both training libraries
+   (TRAIN_ATTENTION_INSTANCES: ``csrc/attention_mma.cuh`` over the packed
+   qkv), the training tail and B7/B8's three int8 kernels must be among
+   them, no kernel of B7/B8 may hold a ``__dp4a`` (IDP4A), and no training
+   library a CUDA-core attention kernel (TRAIN_CUDA_CORE_ATTENTION).
 3. kernel: the trained flagship's layer 0 at L=100, fp32 and bf16, at
    batch 64 and at the main path's batch of 32: the kernel B1 against its
    plain PyTorch version on the card, and the times of the kernel (beside
@@ -54,8 +57,10 @@ Phases, each printed with its seconds as it ends:
    them; at L=100 also B3 and B4 each called twice on the same inputs
    (bit-identical) and B4's time per stage (CUDA events), and the device
    time and the launches of each kernel of one B1 call (B=32, fp32 and
-   bf16), one B3 and one B4 call (B=64), from ``torch.profiler``: the
-   launches of one B3 and one B4 call must be those of their plans.
+   bf16), one B3 and one B4 call (B=64, fp32 and bf16), from
+   ``torch.profiler``: the launches of one B3 and one B4 call must be those
+   of their plans, and their attention stages the mma.sync kernels
+   (TRAIN_ATTENTION_FUNCTIONS), no CUDA-core one.
 7. training check: the first 3 steps of the flagship's training through
    the kernels and through the plain versions, from the same weights, with
    the same batches, ``t``, ``z`` and layer seeds: losses and the first
@@ -222,8 +227,9 @@ Phases, each printed with its seconds as it ends:
 20. bf16 training (a model of ``dtype`` bfloat16, fp32 parameters): (a) B3
    and B4 in bf16 against their plain bf16 versions (the plain backward
    ``train_backward_staged`` rounds where the TPU kernel rounds) on the
-   flagship's layer 0 at B=64, L=100 (timed, with the plain versions, the
-   bound and a train-mode bf16 ``nn.TransformerEncoderLayer``) and on
+   flagship's layer 0 at B=64, L=100 (two calls of each bit for bit, B4's
+   ms per stage, and timed, with the plain versions, the bound and a
+   train-mode bf16 ``nn.TransformerEncoderLayer``) and on
    phase 9's long and wide shapes at B=8: outputs to TOL, B4's stages, dx
    and gradients to BF16_GRAD_TOL against the staged plain backward with
    the kernel's ReLU gates, each flipped gate located; (b) phase 7's first
@@ -386,15 +392,32 @@ PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
 # B6-bwd, their bf16 instances and B6-fwd's (BF16_ATTENTION_INSTANCES), and
 # the tail that B3 runs.
 BF16_ATTENTION_INSTANCES = (
-    ("flash_attention", "attention_fwd_mma_kernel<__nv_bfloat16, false, true, 16>"),
-    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, false, 16>"),
-    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, false, 16>"),
-    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, true, 16>"),
-    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, true, 16>"))
+    ("flash_attention", "attention_fwd_mma_kernel<__nv_bfloat16, false, true, 16, false>"),
+    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, false, 16, false>"),
+    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, false, 16, false>"),
+    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, true, 16, false>"),
+    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, true, 16, false>"))
+# The training layer's attention stages (B3's forward, B4's recompute and
+# backward) on csrc/attention_mma.cuh's kernels over the packed qkv, in the
+# fp32 and bf16 training libraries (their packed-qkv instances, kPacked
+# true) at the flagship's head width; no CUDA-core attention kernel
+# (TRAIN_CUDA_CORE_ATTENTION, a thread per query row or key) may be left in
+# those libraries.
+TRAIN_ATTENTION_INSTANCES = tuple(
+    (lib, f"{kernel}<{tp}, {flags}{kdh}, true>")
+    for lib, tp, kdh in (("fused_encoder_train", "float", 8),
+                         ("fused_encoder_train_bf16", "__nv_bfloat16", 16))
+    for kernel, flags in (("attention_fwd_mma_kernel", "false, true, "),
+                          ("attention_bwd_dq_mma_kernel", "true, "),
+                          ("attention_bwd_dkv_mma_kernel", "true, ")))
+TRAIN_ATTENTION_FUNCTIONS = ("attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
+                             "attention_bwd_dkv_mma_kernel")
+TRAIN_CUDA_CORE_ATTENTION = ("attention_fwd_kernel<", "attention_bwd_dq_kernel<",
+                             "attention_bwd_dkv_kernel<")
 REQUIRED_PRODUCT_KERNELS = (("flash_attention", "attention_fwd_mma_kernel"),
                             ("flash_attention", "attention_bwd_dq_mma_kernel"),
                             ("flash_attention", "attention_bwd_dkv_mma_kernel"),
-                            *BF16_ATTENTION_INSTANCES,
+                            *BF16_ATTENTION_INSTANCES, *TRAIN_ATTENTION_INSTANCES,
                             ("fused_encoder_train", "layer_tail_kernel"),
                             ("fused_encoder_int8", "qkv_int8_kernel"),
                             ("fused_encoder_int8", "attention_int8_kernel"),
@@ -584,11 +607,13 @@ CROSS_RESULTS = WEIGHTS.parent / "results_cross_our_sampler.yaml"
 # window, and in none of 1200 with the host idle 5 ms at both ends of it; a
 # padded trace of B5 still lost one launch in twenty. And some processes,
 # from some point on, lose the first one to three kernels of every trace,
-# however padded (PERF.md section 7). So each trace opens with spin kernels
-# that absorb that loss, is padded, and is taken again where it lost
-# kernels of the calls, the traces taken kept in each result.
+# however padded (PERF.md section 7), and late in a long run a trace may
+# lose every kernel, spin kernels included (nine such traces in phase 21 of
+# one run, three in a row at one shape of another). So each trace opens
+# with spin kernels that absorb that loss, is padded, and is taken again
+# where it lost kernels of the calls, the traces taken kept in each result.
 PROFILE_PAD_S = 0.005
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 6
 PROFILE_PRIMES = 8
 
 
@@ -767,12 +792,15 @@ def device_us_by_kernel(fn, calls: int = 10, launches: int | None = None) -> Pro
 
 def kernel_breakdown(layer, n_head: int) -> dict:
     """Device time per CUDA kernel and kernel launches of one B1 call (fp32
-    and bf16) at the sampling batch and of one B3 and one B4 call at the
-    training batch, L=100, from ``torch.profiler``; B3's and B4's launches
-    must be those their plans count."""
+    and bf16) at the sampling batch and of one B3 and one B4 call (fp32 and
+    bf16) at the training batch, L=100, from ``torch.profiler``; B3's and
+    B4's launches must be those their plans count, and their attention
+    stages the mma.sync kernels (TRAIN_ATTENTION_FUNCTIONS: B3 the forward,
+    B4 all three), no CUDA-core one."""
     d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
     plans = {"B3": fet.train_fwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"],
              "B4": fet.train_bwd_plan(TRAIN_BATCH, MAX_LEN, d, n_head, d_ff)["launches"]}
+    attention = {"B3": TRAIN_ATTENTION_FUNCTIONS[:1], "B4": TRAIN_ATTENTION_FUNCTIONS}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         packed = fe.pack_encoder_layer(layer, n_head, dtype)
@@ -780,22 +808,34 @@ def kernel_breakdown(layer, n_head: int) -> dict:
         with torch.no_grad():
             out[f"B1 {str(dtype).removeprefix('torch.')}"] = device_us_by_kernel(
                 lambda: fe.fused_encoder_layer(x, packed, n_head=n_head))
-    lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head).items()}
-    x = torch.randn((TRAIN_BATCH, MAX_LEN, d), device="cuda")
-    dy = torch.randn_like(x)
-    out["B3"] = device_us_by_kernel(lambda: fet._launch_fwd(x, lay, 5, n_head, DROPOUT),
-                                    launches=plans["B3"])
-    out["B4"] = device_us_by_kernel(
-        lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5, launches=plans["B4"])
+    for dtype in (torch.float32, torch.bfloat16):
+        suffix = "" if dtype == torch.float32 else " bfloat16"
+        lay = {k: t.detach() for k, t in
+               fet.pack_encoder_layer_train(layer, n_head, dtype).items()}
+        x = torch.randn((TRAIN_BATCH, MAX_LEN, d), device="cuda").to(dtype)
+        dy = torch.randn_like(x)
+        out["B3" + suffix] = device_us_by_kernel(
+            lambda: fet._launch_fwd(x, lay, 5, n_head, DROPOUT), launches=plans["B3"])
+        out["B4" + suffix] = device_us_by_kernel(
+            lambda: fet._launch_bwd(x, dy, lay, 5, n_head, DROPOUT), calls=5,
+            launches=plans["B4"])
     for name, prof in out.items():
-        batch = TRAIN_BATCH if name in ("B3", "B4") else SAMPLE_CHAINS
+        kind = name.split()[0]
+        batch = TRAIN_BATCH if kind in plans else SAMPLE_CHAINS
         print(f"  {name} B={batch} L={MAX_LEN}: device us per call by kernel (torch.profiler): "
               f"{json.dumps({k: round(v, 1) for k, v in prof.us_by_kernel.items()})}; total "
               f"{sum(prof.us_by_kernel.values()):.1f}; {prof.launches} kernel launches per "
-              f"call (plan: {plans.get(name, '-')}); traces taken {prof.traces}", flush=True)
-        if name in plans and prof.launches != plans[name]:
+              f"call (plan: {plans.get(kind, '-')}); traces taken {prof.traces}", flush=True)
+        if kind in plans and prof.launches != plans[kind]:
             raise AssertionError(f"{name}: {prof.launches} kernel launches per call, the plan "
-                                 f"counts {plans[name]}")
+                                 f"counts {plans[kind]}")
+        if kind in plans:
+            names = list(prof.us_by_kernel)
+            stages = [f for f in attention[kind] if not any(f in k for k in names)]
+            core = [k for k in names if any(f in k for f in TRAIN_CUDA_CORE_ATTENTION)]
+            if stages or core:
+                raise AssertionError(f"{name}: attention stages not run on mma.sync: missing "
+                                     f"{stages}, CUDA-core {core}")
     return {name: {"device_us_by_kernel": prof.us_by_kernel,
                    "launches_per_call": prof.launches, "profile_traces": prof.traces}
             for name, prof in out.items()}
@@ -896,7 +936,8 @@ def build_all() -> dict:
     (instructions, HMMA, IMMA, IDP4A) of the kernels of B1, B2, B3, B4,
     B5/B6-bwd, B7 and B8 and fails if a product kernel has no tensor-core
     instruction (an int8 one no IMMA), if one of REQUIRED_PRODUCT_KERNELS
-    is missing from them, or if a kernel of B7/B8 holds an IDP4A."""
+    is missing from them, if a kernel of B7/B8 holds an IDP4A, or if a
+    training library holds a CUDA-core attention kernel."""
     def one(name: str) -> tuple[str, float, bool]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
@@ -926,10 +967,13 @@ def build_all() -> dict:
     dp4a = [k for k, c in sass.items() if k.startswith("fused_encoder_int8: ") and c["idp4a"]]
     missing = [f"{lib}: {kernel}" for lib, kernel in REQUIRED_PRODUCT_KERNELS
                if not any(k.startswith(f"{lib}: ") and kernel in k for k in sass)]
-    if no_hmma or no_imma or dp4a or missing:
+    core_attention = [k for k in sass if k.startswith("fused_encoder_train")
+                      and any(f in k for f in TRAIN_CUDA_CORE_ATTENTION)]
+    if no_hmma or no_imma or dp4a or missing or core_attention:
         raise AssertionError(f"product kernels without tensor-core instructions: {no_hmma}; "
                              f"int8 ones without IMMA: {no_imma}; with IDP4A: {dp4a}; "
-                             f"missing: {missing}")
+                             f"missing: {missing}; CUDA-core attention in the training "
+                             f"libraries: {core_attention}")
     return sass
 
 
@@ -3171,8 +3215,9 @@ def bf16_train_layer(layer, n_head: int, batch: int, l: int, timed: bool) -> dic
     """Phase 20 (a): B3 and B4 in bf16 on one encoder layer (dropout 0.1) at
     (batch, l) against their plain bf16 versions; ReLU gates that flipped
     between the two located, each within BF16_GATE_BAND x sum |terms| of 0;
-    with ``timed``, the times of both kernels, the plain versions, the bound
-    and a train-mode ``nn.TransformerEncoderLayer`` in bf16."""
+    with ``timed``, a second call of each bit for bit the first, B4's ms per
+    stage (CUDA events), the times of both kernels, the plain versions, the
+    bound and a train-mode ``nn.TransformerEncoderLayer`` in bf16."""
     d, d_ff = layer.norm1.weight.shape[0], layer.linear1.weight.shape[0]
     shape = f"bf16 B={batch} L={l} D={d} H={n_head} F={d_ff}"
     lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, n_head, BF16).items()}
@@ -3226,6 +3271,16 @@ def bf16_train_layer(layer, n_head: int, batch: int, l: int, timed: bool) -> dic
                  "gate_flip_farthest": band}}
     if not timed:
         return r
+    again = fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT)
+    identical = {"B3": torch.equal(fet._launch_fwd(x, lay, seed, n_head, DROPOUT), out),
+                 "B4": all(torch.equal(a, b) for a, b in zip([dx, *grads],
+                                                             [again[0], *again[1]]))}
+    print(f"  B3/B4 {shape}: two calls on the same inputs bit-identical: {identical}",
+          flush=True)
+    if not all(identical.values()):
+        raise AssertionError(f"B3/B4 {shape}: a repeated call gave other results: {identical}")
+    r["bwd"]["stage_ms"] = bwd_stage_ms(x, dy, lay, seed, n_head)
+    print(f"  B4 {shape}: per stage {json.dumps(r['bwd']['stage_ms'])}", flush=True)
     r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(x, lay, seed, n_head, DROPOUT), iters=20)
     r["bwd"]["ms"] = time_ms(lambda: fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT),
                              iters=10)
@@ -3900,6 +3955,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "launches_per_call": breakdown[count]["launches_per_call"],
+            "attention_functions": [f"{f}<float, *, kDh, true>"
+                                    for f in TRAIN_ATTENTION_FUNCTIONS
+                                    if key == "bwd" or "fwd" in f],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
             "device_us_by_kernel": breakdown[count]["device_us_by_kernel"],
             "profile_traces": breakdown[count]["profile_traces"],
@@ -3917,9 +3975,10 @@ def main() -> int:
     ):
         r = attn_main[key]
         checked = attn_kernels if key == "B6-fwd" else attn_bwd
-        extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh>"]} if (
-            key == "B6-fwd") else {
-            "functions": [f"{f}<{str(key == 'B6-bwd').lower()}, kDh>" for f in BWD_FUNCTIONS],
+        extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh, false>"]} \
+            if key == "B6-fwd" else {
+            "functions": [f"{f}<{str(key == 'B6-bwd').lower()}, kDh, false>"
+                          for f in BWD_FUNCTIONS],
             "launches_per_call": r["launches_per_call"],
             "device_us_by_kernel": r["device_us_by_kernel"],
             "profile_traces": r["profile_traces"],
@@ -3963,7 +4022,14 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 bf16 dropout {DROPOUT}",
             "steps_per_sec": bf16_runs["steps_per_sec"],
+            "launches_per_call": breakdown[f"{count} bfloat16"]["launches_per_call"],
+            "attention_functions": [f"{f}<__nv_bfloat16, *, kDh, true>"
+                                    for f in TRAIN_ATTENTION_FUNCTIONS
+                                    if key == "bwd" or "fwd" in f],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train_bf16: ")},
+            "device_us_by_kernel": breakdown[f"{count} bfloat16"]["device_us_by_kernel"],
+            "profile_traces": breakdown[f"{count} bfloat16"]["profile_traces"],
+            **({"stage_ms": r["stage_ms"]} if key == "bwd" else {}),
             "checked_lengths": {k: v[key] for k, v in bf16["layers"].items()},
         })
     main_attn = bf16_unfused["attention"][
@@ -3978,9 +4044,10 @@ def main() -> int:
     ):
         r = main_attn[key]
         checked = {k: a[key] for k, a in bf16_unfused["attention"].items() if key in a}
-        extra = {"functions": ["attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh>"]} if (
-            key == "B6-fwd") else {
-            "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh>"
+        extra = {"functions": [
+            "attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh, false>"]} \
+            if key == "B6-fwd" else {
+            "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh, false>"
                           for f in BWD_FUNCTIONS],
             "launches_per_call": r["launches_per_call"],
             "device_us_by_kernel": r["device_us_by_kernel"],

@@ -5,7 +5,9 @@
 //                                the rounding helpers and warp sums;
 //   csrc/fused_encoder_int8.cu   B7 and B8 (int8 sampling), through
 //                                encoder_layer_tc.cuh;
-//   csrc/flash_attention.cu      B2, B5, B6: the mask hash and rounding helpers.
+//   csrc/attention_mma.cuh       B2, B5, B6 (flash_attention.cu) and the training
+//                                layer's attention: the mask hash and rounding
+//                                helpers.
 //
 // Dropout masks: keep/(1-rate) from a murmur3 finalizer of the position,
 // keyed by tag = seed + chain*131071 + site*7919 + extra*104729, exactly as

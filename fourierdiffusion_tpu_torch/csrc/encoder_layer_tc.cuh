@@ -5,7 +5,8 @@
 //      all rows, so K|V are computed once per row;
 //   2. attention_fwd_kernel, one CTA per (128 query rows, head, chain), a
 //      thread per query row, K and V staged in shared memory:
-//      P = softmax(q k^T) * keep, O = round(P V);
+//      P = softmax(q k^T), O = round(P V) (the training layer runs
+//      attention_mma.cuh's kernel here instead, with dropout);
 //   3. layer_tail_kernel, a persistent schedule of two CTAs per SM (one
 //      where two do not fit) over the units (row tile of 16 or 32 rows, d_ff
 //      chunk of 64) (TailSchedule):
@@ -25,7 +26,8 @@
 // Used by the sampling layer B1 (fused_encoder.cu: T = float or bf16, no
 // dropout), by the training forward B3 and by the training backward B4's
 // recompute of that forward (fused_encoder_train.cu: T = float or bf16,
-// dropout).
+// dropout), which take launches 1, 3 and 4 and run attention on
+// attention_mma.cuh's mma.sync kernels instead of launch 2.
 // The tail's TailMode says which: kTailSample (B1), kTailTrainFwd (B3:
 // dropout at the out, FF and FF2 sites, LN2's output) or kTailTrainBwd
 // (B4: dropout, and in place of LN2's output the normalised LN inputs, their
@@ -163,14 +165,14 @@ __host__ __device__ constexpr int attn_key_block() {
   return 16 * 1024 / (2 * kDh * 4);
 }
 
-// grid (ceil(L / 128), H, B); O (B*L, D) in T. The chain's K and V of head
-// h are staged in shared memory, a block of keys at a time; each thread
-// holds its query row and reads the keys as broadcasts.
-template <typename T, bool kDrop, int kDh>
+// grid (ceil(L / 128), H, B); O (B*L, D) in T, without dropout (the sampling
+// layers B1 and B7). The chain's K and V of head h are staged in shared
+// memory, a block of keys at a time; each thread holds its query row and
+// reads the keys as broadcasts.
+template <typename T, int kDh>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D, int H,
-                     Dropout dp) {
-  constexpr bool kFast = sizeof(T) == 2 && !kDrop;  // the bf16 sampling layer's softmax
+attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D, int H) {
+  constexpr bool kFast = sizeof(T) == 2;  // the bf16 sampling layer's softmax
   constexpr int KB = attn_key_block<kDh>();
   __shared__ float sK[KB * kDh], sV[KB * kDh];
   const int i = blockIdx.x * kAttnThreads + threadIdx.x;
@@ -184,8 +186,6 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D,
     q[d] = (active && d < dh) ? to_f(base[(size_t)i * D3 + c0 + d]) : 0.0f;
     acc[d] = 0.0f;
   }
-  const uint32_t key = attn_key(dp, b, h);
-  const int g = h % dp.group;
   // f(j, score_j) for every key j, block by block.
   auto for_keys = [&](auto f) {
     for (int j0 = 0; j0 < L; j0 += KB) {
@@ -228,9 +228,7 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D,
     for_keys([&](int, int, float sc) { m = fmaxf(m, sc); });
     float sum = 0.0f;
     for_keys([&](int, int, float sc) { sum += expf(sc - m); });
-    for_keys([&](int j, int jl, float sc) {
-      accumulate(jl, round_to<T>(expf(sc - m) / sum * keep3<kDrop>(dp, key, g, i, j)));
-    });
+    for_keys([&](int, int jl, float sc) { accumulate(jl, round_to<T>(expf(sc - m) / sum)); });
   }
   if (!active) return;
   T* oi = o + ((size_t)b * L + i) * D + c0;
@@ -239,21 +237,20 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o, int L, int D,
     if (d < dh) oi[d] = from_f<T>(acc[d]);
 }
 
-template <typename T, bool kDrop>
-cudaError_t launch_attention_fwd(const T* qkv, T* o, int B, int L, int D, int H,
-                                 const Dropout& dp, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_attention_fwd(const T* qkv, T* o, int B, int L, int D, int H, cudaStream_t s) {
   const dim3 grid((L + kAttnThreads - 1) / kAttnThreads, H, B);
   const int dh = D / H;
   if (dh <= 8)
-    attention_fwd_kernel<T, kDrop, 8><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H, dp);
+    attention_fwd_kernel<T, 8><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H);
   else if (dh <= 16)
-    attention_fwd_kernel<T, kDrop, 16><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H, dp);
+    attention_fwd_kernel<T, 16><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H);
   else if (dh <= 32)
-    attention_fwd_kernel<T, kDrop, 32><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H, dp);
+    attention_fwd_kernel<T, 32><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H);
   else if (dh <= 64)
-    attention_fwd_kernel<T, kDrop, 64><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H, dp);
+    attention_fwd_kernel<T, 64><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H);
   else if (dh <= 384)
-    attention_fwd_kernel<T, kDrop, 384><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H, dp);
+    attention_fwd_kernel<T, 384><<<grid, kAttnThreads, 0, s>>>(qkv, o, L, D, H);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -668,7 +665,7 @@ int launch_encoder_layer_tc(const T* x, const Weights<T>& w, T* out, T* qkv_ws, 
       x, D, w.w_qkv, D3, N, D3, D, tc::round_up(D, tc::kGemmBK), 1,
       StoreBiasRounded<T>{qkv_ws, w.b_qkv, D3}, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_attention_fwd<T, false>(qkv_ws, o_ws, B, L, D, H, none, s);
+  err = launch_attention_fwd<T>(qkv_ws, o_ws, B, L, D, H, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_layer_tail<T, kTailSample>(x, o_ws, w, out, N, L, D, F, none, p, tail_ctas,
                                           TailTrain{}, tail_ws, s);

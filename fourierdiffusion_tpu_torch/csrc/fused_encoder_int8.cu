@@ -928,8 +928,7 @@ int launch_int8(const T* x, const Int8Weights<T>& w, T* out, void* const* ws, co
                                    tc::round_up(D, tc::kGemmBK), 1,
                                    StoreBiasRounded<T>{qkv, w.b_qkv, 3 * D}, s);
     if (err != cudaSuccess) return (int)err;
-    err = launch_attention_fwd<T, false>(qkv, static_cast<T*>(ws[2]), B, L, D, H,
-                                         Dropout{0u, 0u, 1.0f, 1}, s);
+    err = launch_attention_fwd<T>(qkv, static_cast<T*>(ws[2]), B, L, D, H, s);
   }
   if (err != cudaSuccess) return (int)err;
   auto tail = p.tm == 16 ? int8_tail_kernel<T, kAttn8, 1> : int8_tail_kernel<T, kAttn8, 2>;

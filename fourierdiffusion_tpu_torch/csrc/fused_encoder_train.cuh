@@ -7,10 +7,11 @@
 // Replaces the TPU kernels of fourierdiffusion_tpu/ops/fused_encoder_train.py:
 //   _train_fwd_kernel (B3): the layer with the dropout masks at its four
 //     sites (attention probabilities, attention output, FFN hidden layer,
-//     FFN output), in the four launches of encoder_layer_tc.cuh (seven where
-//     D is wider than 256): the QKV tile product, attention_fwd_kernel with
-//     the attention-site dropout, and the tail in kTailTrainFwd with its
-//     finish, which writes LN2's output (train_forward).
+//     FFN output), in four launches (seven where D is wider than 256): the
+//     QKV tile product and the tail in kTailTrainFwd with its finish (which
+//     writes LN2's output) of encoder_layer_tc.cuh, and between them the
+//     attention forward of attention_mma.cuh on mma.sync tiles with the
+//     attention-site dropout (layer_attention_fwd; train_forward).
 //   _train_bwd_kernel (B4): recomputes that forward from x alone with the
 //     same launches on the same plan (train_forward in kTailTrainBwd), so the
 //     gradient belongs to the forward whose loss was taken, sum for sum;
@@ -45,18 +46,21 @@
 // L2 (B3: per 32 query rows of a chain, K and V recomputed by each). Both
 // now spread the work over all B*L rows on the tensor cores: B3 in the 4
 // launches above, B4 in 17 (20 where the tail runs wide), in order:
-//   forward   qkv (tile product), attention_fwd_kernel, layer_tail_kernel<kTrain>
+//   forward   qkv (tile product), attention (layer_attention_fwd), layer_tail_kernel<kTrain>
 //             and tail_finish_kernel<kTrain> (encoder_layer_tc.cuh): x1, the
 //             LN statistics, LN2's backward g2 and dF2 = g2 * keep_ff2;
 //   hidden    x1 W1 + b1 and dF2 W2^T in one pass -> h = relu * keep and dh;
 //   products  dW1 = x1^T dh and dW2 = h^T dF2 per row slice; dh W1^T per
 //             d_ff slice;
 //   ln1/out   dx1 = g2 + those slices in order; LN1's backward da,
-//             dao = da * keep_out; dattn = dao W_out^T;
+//             dao = da * keep_out; dattn = round_T(dao W_out^T) (dO);
 //             dW_out = O^T dao per row slice;
-//   attention two launches per (128 rows, head, chain), no atomics: a thread
-//             per query row for dq (and the softmax statistics), then a
-//             thread per key for dk and dv;
+//   attention attention_mma.cuh's backward over the packed qkv, no atomics:
+//             a CTA per (chain, head, 128 query rows) and a warp per 16 rows
+//             for dq and the softmax statistics, then the same per 128 keys
+//             for dk and dv, K and V (then Q, dO and the statistics) streamed
+//             through a two-stage cp.async ring of 64 rows, every product on
+//             mma.sync (layer_attention_bwd);
 //   qkv       dW_qkv = x^T dqkv per row slice; dx = da + dqkv W_qkv^T;
 //   reduce    column sums (bias and LayerNorm gradients) per row slice, then
 //             every partial added in slice order.
@@ -68,6 +72,7 @@
 
 #pragma once
 
+#include "attention_mma.cuh"
 #include "encoder_layer_tc.cuh"
 
 namespace {
@@ -99,12 +104,14 @@ constexpr int kGrads = 12;
 enum GradIdx { kWQkv, kBQkv, kWOut, kBOut, kLn1S, kLn1B, kW1, kB1, kW2, kB2, kLn2S, kLn2B };
 
 // The backward's plan, as ops/fused_encoder_train.py's BwdPlan passes it:
-// the tail's plan and CTAs, workspace offsets in floats (qkv, attn and h
-// hold T; in bf16 x1t, df2t, dht, daot and dqkvt hold the product operands
-// x1, dF2, dh, dao and dqkv rounded to T, which in fp32 are those buffers
-// themselves), the row slices of the four weight products (rows per slice
-// ks_, slices sp_), the column sums' rows per slice and slices, and per
-// gradient the offset of its partials and their number.
+// the tail's plan and CTAs, workspace offsets in floats (qkv, attn, h and
+// dattn hold T; stats the softmax statistics, (B, H, L, 3); in bf16 x1t,
+// df2t, dht, daot and dqkvt hold the product operands x1, dF2, dh, dao and
+// dqkv rounded to T, which in fp32 are those buffers themselves), the row
+// slices of the four weight products (rows per slice ks_, slices sp_), the
+// column sums' rows per slice and slices, per gradient the offset of its
+// partials and their number, and the attention stages' launches
+// (ops/flash_attention.py: attention_fwd_plan, attention_bwd_plan).
 struct BwdPlan {
   TailPlan tail;
   long long tail_ctas;
@@ -114,6 +121,8 @@ struct BwdPlan {
   long long ks_dx1, sp_dx1;  // d_ff slices of dh W1^T
   long long cs_rows, cs_slices;
   long long p_off[kGrads], p_n[kGrads];
+  AttnFwdPlan attn_fwd;  // the forward recompute's attention (FwdPlan's)
+  AttnBwdPlan attn_bwd;  // the attention backward's two launches
 };
 
 constexpr int kBwdStages = 7;  // events: before, then after each stage
@@ -126,6 +135,7 @@ struct FwdPlan {
   TailPlan tail;
   long long tail_ctas;
   long long qkv, attn, x1, pre, h, tail_part;
+  AttnFwdPlan attn_fwd;  // the attention forward (ops/flash_attention.py: attention_fwd_plan)
 };
 
 __device__ __forceinline__ void chain_of(int m, int L, int& b, int& l) {
@@ -135,17 +145,18 @@ __device__ __forceinline__ void chain_of(int m, int L, int& b, int& l) {
 
 // ---- epilogues of the tile products ----------------------------------------------------
 
-struct StoreF {  // out[m, n] = v
-  float* out; int ld;
-  __device__ void operator()(int m, int n, float v) const { out[(long)m * ld + n] = v; }
-};
-
 template <typename T>
 struct AddStore {  // out[m, n] = round_T(add[m, n] + v)
   T* out; const float* add; int ld;
   __device__ void operator()(int m, int n, float v) const {
     out[(long)m * ld + n] = from_f<T>(add[(long)m * ld + n] + v);
   }
+};
+
+template <typename T>
+struct StoreRounded {  // out[m, n] = round_T(v)
+  T* out; int ld;
+  __device__ void operator()(int m, int n, float v) const { out[(long)m * ld + n] = from_f<T>(v); }
 };
 
 struct StorePartial {  // slice blockIdx.z of the partials
@@ -255,219 +266,49 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, float* __
   }
 }
 
-// ---- attention backward ---------------------------------------------------------------------
+// ---- attention -----------------------------------------------------------------------------
 
-// Query rows (or keys) per block of operands staged in shared memory (fp32):
-// 16 KB of rows of `floats` each.
-__host__ __device__ constexpr int rows_per_block(int floats) { return 16 * 1024 / (4 * floats); }
-
-// dq: grid (ceil(L / 128), H, B), a thread per query row i with K and V of
-// its chain and head staged a block of keys at a time: the softmax
-// statistics (max, sum), dcol_i = dO_i . O_i and dq_i = sum_j dS_ij k_j with
-// dS = round_T(P (dP keep - dcol)), dP = dO V^T and dO = round_T(dattn).
-// In fp32 O is the forward's attn; in bf16 it is recomputed unrounded, O_i
-// = sum_j round_T(P_ij keep_ij) v_j, as the TPU kernel takes it. stats
-// (N x H x 3) keeps max, sum and dcol for the dk/dv kernel; dq goes to dqkv
-// (fp32) and, in bf16, rounded to dqkvt.
-template <typename T, int kDh>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ attn,
-                        const float* __restrict__ dattn, float* __restrict__ dqkv,
-                        T* __restrict__ dqkvt, float* __restrict__ stats, int L, int D, int H,
-                        Dropout dp) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int KB = rows_per_block(2 * kDh);
-  __shared__ float sK[KB * kDh], sV[KB * kDh];
-  const int i = blockIdx.x * kAttnThreads + threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool active = i < L;
-  const int dh = D / H, c0 = h * dh, D3 = 3 * D;
-  const size_t row0 = (size_t)b * L;
-  const T* base = qkv + row0 * D3;
-  const uint32_t key = attn_key(dp, b, h);
-  const int g = h % dp.group;
-  float q[kDh], dO[kDh], acc[kDh];
-  float dcol = 0.0f;
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) {
-    q[d] = (active && d < dh) ? to_f(base[(size_t)i * D3 + c0 + d]) : 0.0f;
-    dO[d] = (active && d < dh) ? round_to<T>(dattn[(row0 + i) * D + c0 + d]) : 0.0f;
-    if (!kBf16 && active && d < dh) dcol = fmaf(dO[d], to_f(attn[(row0 + i) * D + c0 + d]), dcol);
-    acc[d] = 0.0f;
-  }
-  auto for_keys = [&](auto f) {
-    for (int j0 = 0; j0 < L; j0 += KB) {
-      const int nb = min(KB, L - j0);
-      __syncthreads();
-      for (int e = threadIdx.x; e < nb * kDh; e += kAttnThreads) {
-        const int j = e / kDh, d = e % kDh;
-        const T* row = base + (size_t)(j0 + j) * D3 + c0 + d;
-        sK[e] = d < dh ? to_f(row[D]) : 0.0f;
-        sV[e] = d < dh ? to_f(row[2 * D]) : 0.0f;
-      }
-      __syncthreads();
-      if (active)
-        for (int j = 0; j < nb; ++j) {
-          float sc = 0.0f;
-#pragma unroll
-          for (int d = 0; d < kDh; ++d)
-            if (d < dh) sc = fmaf(q[d], sK[j * kDh + d], sc);
-          f(j0 + j, j, sc);
-        }
-    }
-  };
-  float m = -FLT_MAX;
-  for_keys([&](int, int, float sc) { m = fmaxf(m, sc); });
-  float sum = 0.0f;
-  for_keys([&](int, int, float sc) { sum += expf(sc - m); });
-  if constexpr (kBf16) {  // O in fp32 (in acc), then dcol
-    for_keys([&](int j, int jl, float sc) {
-      const float pk = round_to<T>(expf(sc - m) / sum * keep3<true>(dp, key, g, i, j));
-#pragma unroll
-      for (int d = 0; d < kDh; ++d)
-        if (d < dh) acc[d] = fmaf(pk, sV[jl * kDh + d], acc[d]);
-    });
-#pragma unroll
-    for (int d = 0; d < kDh; ++d) {
-      if (d < dh) dcol = fmaf(dO[d], acc[d], dcol);
-      acc[d] = 0.0f;
-    }
-  }
-  for_keys([&](int j, int jl, float sc) {
-    const float p = expf(sc - m) / sum;
-    float dpv = 0.0f;
-#pragma unroll
-    for (int d = 0; d < kDh; ++d)
-      if (d < dh) dpv = fmaf(dO[d], sV[jl * kDh + d], dpv);
-    const float ds = round_to<T>(p * (dpv * keep3<true>(dp, key, g, i, j) - dcol));
-#pragma unroll
-    for (int d = 0; d < kDh; ++d)
-      if (d < dh) acc[d] = fmaf(ds, sK[jl * kDh + d], acc[d]);
-  });
-  if (!active) return;
-  float* out = dqkv + (row0 + i) * D3 + c0;
-#pragma unroll
-  for (int d = 0; d < kDh; ++d)
-    if (d < dh) {
-      out[d] = acc[d];
-      if constexpr (kBf16) dqkvt[(row0 + i) * D3 + c0 + d] = from_f<T>(acc[d]);
-    }
-  float* st = stats + ((row0 + i) * H + h) * 3;
-  st[0] = m;
-  st[1] = sum;
-  st[2] = dcol;
+// The layer's attention on attention_mma.cuh's kernels. Head h of chain b
+// lies in the packed qkv (B*L x 3D, T) at columns h dh (q), D + h dh (k) and
+// 2D + h dh (v), and in the (B*L x D) attention output and its gradient at
+// columns h dh: strided rows, read where they lie; dq, dk and dv go to the
+// packed gradient at q's, k's and v's columns. The scores take no scale
+// (the packed q columns carry 1/sqrt(dh)); the ATTN site's masks are the
+// layer's (attn_key, keep3), so dropout_masks_kernel checks them.
+inline attn::AttnLayout packed_heads(int L, int D, int H) {
+  return {(long long)L * 3 * D, D / H, (long long)L * D, D / H, 3 * D, D};
 }
 
-// dk and dv: grid (ceil(L / 128), H, B), a thread per key j with Q, dO and
-// the statistics of its chain and head staged a block of query rows at a
-// time: dk_j = sum_i dS_ij q_i, dv_j = sum_i round_T(P_ij keep_ij) dO_i,
-// to dqkv (fp32) and, in bf16, rounded to dqkvt.
-template <typename T, int kDh>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict__ dattn,
-                         float* __restrict__ dqkv, T* __restrict__ dqkvt,
-                         const float* __restrict__ stats, int L, int D, int H, Dropout dp) {
-  constexpr int kRow = 2 * kDh + 3;
-  constexpr int QB = rows_per_block(kRow);
-  __shared__ float sQ[QB * kRow];
-  const int j = blockIdx.x * kAttnThreads + threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool active = j < L;
-  const int dh = D / H, c0 = h * dh, D3 = 3 * D;
-  const size_t row0 = (size_t)b * L;
-  const T* base = qkv + row0 * D3;
-  const uint32_t key = attn_key(dp, b, h);
-  const int g = h % dp.group;
-  float k[kDh], v[kDh], dk[kDh], dv[kDh];
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) {
-    k[d] = (active && d < dh) ? to_f(base[(size_t)j * D3 + D + c0 + d]) : 0.0f;
-    v[d] = (active && d < dh) ? to_f(base[(size_t)j * D3 + 2 * D + c0 + d]) : 0.0f;
-    dk[d] = dv[d] = 0.0f;
-  }
-  for (int i0 = 0; i0 < L; i0 += QB) {
-    const int nb = min(QB, L - i0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < nb * kRow; e += kAttnThreads) {
-      const int i = e / kRow, c = e % kRow;
-      const size_t r = row0 + i0 + i;
-      float val = 0.0f;
-      if (c < kDh)
-        val = c < dh ? to_f(base[(size_t)(i0 + i) * D3 + c0 + c]) : 0.0f;
-      else if (c < 2 * kDh)
-        val = c - kDh < dh ? round_to<T>(dattn[r * D + c0 + c - kDh]) : 0.0f;
-      else
-        val = stats[(r * H + h) * 3 + c - 2 * kDh];
-      sQ[e] = val;
-    }
-    __syncthreads();
-    if (active)
-      for (int i = 0; i < nb; ++i) {
-        const float* qi = sQ + i * kRow;
-        const float* dOi = qi + kDh;
-        const float* st = dOi + kDh;
-        float sc = 0.0f, dpv = 0.0f;
-#pragma unroll
-        for (int d = 0; d < kDh; ++d)
-          if (d < dh) {
-            sc = fmaf(qi[d], k[d], sc);
-            dpv = fmaf(dOi[d], v[d], dpv);
-          }
-        const float p = expf(sc - st[0]) / st[1];
-        const float kp = keep3<true>(dp, key, g, i0 + i, j);
-        const float ds = round_to<T>(p * (dpv * kp - st[2]));
-        const float pk = round_to<T>(p * kp);
-#pragma unroll
-        for (int d = 0; d < kDh; ++d)
-          if (d < dh) {
-            dk[d] = fmaf(ds, qi[d], dk[d]);
-            dv[d] = fmaf(pk, dOi[d], dv[d]);
-          }
-      }
-  }
-  if (!active) return;
-  const size_t o = (row0 + j) * D3 + c0;
-#pragma unroll
-  for (int d = 0; d < kDh; ++d)
-    if (d < dh) {
-      dqkv[o + D + d] = dk[d];
-      dqkv[o + 2 * D + d] = dv[d];
-      if constexpr (sizeof(T) == 2) {
-        dqkvt[o + D + d] = from_f<T>(dk[d]);
-        dqkvt[o + 2 * D + d] = from_f<T>(dv[d]);
-      }
-    }
+inline attn::AttnDropout layer_attn_dropout(const Dropout& dp) {
+  return {nullptr, dp.seed, dp.thr, dp.scale, dp.group, 104729u};
 }
 
-template <typename T, int kDh>
-cudaError_t attention_bwd(const T* qkv, const T* attn, const float* dattn, float* dqkv,
-                          T* dqkvt, float* stats, int B, int L, int D, int H, const Dropout& dp,
-                          cudaStream_t s) {
-  const dim3 grid((L + kAttnThreads - 1) / kAttnThreads, H, B);
-  attention_bwd_dq_kernel<T, kDh><<<grid, kAttnThreads, 0, s>>>(qkv, attn, dattn, dqkv, dqkvt,
-                                                                stats, L, D, H, dp);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkv_kernel<T, kDh><<<grid, kAttnThreads, 0, s>>>(qkv, dattn, dqkv, dqkvt, stats,
-                                                                 L, D, H, dp);
-  return cudaGetLastError();
-}
-
+// O = round_T(round_T(softmax(q k^T) * keep) v) into out (B*L x D, T).
 template <typename T>
-cudaError_t launch_attention_bwd(const T* qkv, const T* attn, const float* dattn, float* dqkv,
-                                 T* dqkvt, float* stats, int B, int L, int D, int H,
-                                 const Dropout& dp, cudaStream_t s) {
-  const int dh = D / H;
-  if (dh <= 8) return attention_bwd<T, 8>(qkv, attn, dattn, dqkv, dqkvt, stats, B, L, D, H, dp, s);
-  if (dh <= 16)
-    return attention_bwd<T, 16>(qkv, attn, dattn, dqkv, dqkvt, stats, B, L, D, H, dp, s);
-  if (dh <= 32)
-    return attention_bwd<T, 32>(qkv, attn, dattn, dqkv, dqkvt, stats, B, L, D, H, dp, s);
-  if (dh <= 64)
-    return attention_bwd<T, 64>(qkv, attn, dattn, dqkv, dqkvt, stats, B, L, D, H, dp, s);
-  if (dh <= 384)
-    return attention_bwd<T, 384>(qkv, attn, dattn, dqkv, dqkvt, stats, B, L, D, H, dp, s);
-  return cudaErrorInvalidValue;
+cudaError_t layer_attention_fwd(const T* qkv, T* out, int B, int L, int D, int H,
+                                const Dropout& dp, const AttnFwdPlan& p, cudaStream_t s) {
+  return attn::launch_fwd_exact<T, true, true>(qkv, qkv + D, qkv + 2 * D, out,
+                                               packed_heads(L, D, H), B, H, L, D / H, 1.0f,
+                                               layer_attn_dropout(dp), p, s);
+}
+
+// dq, dk and dv from dO = dattn (B*L x D, rounded to T by the out
+// projection's epilogue) into dqkv (fp32) and, in bf16, dqkvt (T) (in fp32
+// dqkvt is dqkv itself); D = dO . O from the forward's O in fp32, from O
+// recomputed in bf16; the softmax statistics of launch 1 in stats (B, H,
+// L, 3).
+template <typename T>
+cudaError_t layer_attention_bwd(const T* qkv, const T* o, const T* dattn, float* dqkv,
+                                T* dqkvt, float* stats, int B, int L, int D, int H,
+                                const Dropout& dp, const AttnBwdPlan& p, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  auto f32 = [&](int part) { return kBf16 ? dqkv + part * D : nullptr; };
+  const attn::AttnBwdArgs<T> a{qkv,        qkv + D,        qkv + 2 * D, o,
+                               dattn,      dqkvt,          dqkvt + D,   dqkvt + 2 * D,
+                               f32(0),     f32(1),         f32(2),      stats,
+                               packed_heads(L, D, H)};
+  return attn::launch_bwd<T, true, true>(a, B, H, L, D / H, 1.0f, layer_attn_dropout(dp), p,
+                                         s);
 }
 
 // The four masks, as the kernels above apply them, for checking.
@@ -494,22 +335,23 @@ __global__ void dropout_masks_kernel(float* attn, float* out_m, float* ff, float
   }
 }
 
-// The training forward over the N = B*L rows (encoder_layer_tc.cuh): the
-// QKV tile product rounded as the sampling layer rounds it, attention with
-// the attention-site dropout, and the tail in kMode: kTailTrainFwd (B3)
+// The training forward over the N = B*L rows: the QKV tile product rounded
+// as the sampling layer rounds it (encoder_layer_tc.cuh), attention on
+// mma.sync tiles with the attention-site dropout (layer_attention_fwd), and
+// the tail in kMode (encoder_layer_tc.cuh): kTailTrainFwd (B3)
 // writes LN2's output to out, kTailTrainBwd (B4's recompute) the residuals
 // and LN2's backward to tr. Returns cudaGetLastError() after the last launch.
 template <typename T, TailMode kMode>
 cudaError_t train_forward(const T* x, const Weights<T>& W, T* out, T* qkv, T* attn,
                           const TailWs<T>& tail_ws, const TailTrain& tr, const TailPlan& tail,
-                          int tail_ctas, int B, int L, int D, int H, int F, const Dropout& dp,
-                          cudaStream_t s) {
+                          int tail_ctas, const AttnFwdPlan& attn_plan, int B, int L, int D,
+                          int H, int F, const Dropout& dp, cudaStream_t s) {
   const int N = B * L, D3 = 3 * D;
   cudaError_t err = tc::gemm<T, true, false>(x, D, W.w_qkv, D3, N, D3, D,
                                              tc::round_up(D, tc::kGemmBK), 1,
                                              StoreBiasRounded<T>{qkv, W.b_qkv, D3}, s);
   if (err != cudaSuccess) return err;
-  err = launch_attention_fwd<T, true>(qkv, attn, B, L, D, H, dp, s);
+  err = layer_attention_fwd<T>(qkv, attn, B, L, D, H, dp, attn_plan, s);
   if (err != cudaSuccess) return err;
   return launch_layer_tail<T, kMode>(x, attn, W, out, N, L, D, F, dp, tail, tail_ctas, tr,
                                      tail_ws, s);
@@ -554,8 +396,8 @@ int train_bwd(const T* x, const T* dy, const Weights<T>& W, T* dx, float* grads,
   // (the wide tail's pre and h in dx1 and h, free until later stages)
   const TailWs<T> tail_ws{at(p.x1), at(p.tail_part), at(p.dx1), x1t, in_t(p.h)};
   FDIFF_TRY((train_forward<T, kTailTrainBwd>(x, W, nullptr, in_t(p.qkv), in_t(p.attn), tail_ws,
-                                             tr, p.tail, (int)p.tail_ctas, B, L, D, H, F, dp,
-                                             s)));
+                                             tr, p.tail, (int)p.tail_ctas, p.attn_fwd, B, L, D,
+                                             H, F, dp, s)));
   FDIFF_TRY(mark());
   // the hidden layer and its gradient, in one pass of two products
   FDIFF_TRY((tc::gemm_pair<T, true, false, true>(
@@ -577,14 +419,14 @@ int train_bwd(const T* x, const T* dy, const Weights<T>& W, T* dx, float* grads,
                                                 at(p.dao), daot, N, L, D, dp);
   FDIFF_TRY(cudaGetLastError());
   FDIFF_TRY((tc::gemm<T, true, true>(daot, D, W.w_out, D, N, D, D, full, 1,
-                                     StoreF{at(p.dattn), D}, s)));
+                                     StoreRounded<T>{in_t(p.dattn), D}, s)));
   FDIFF_TRY((tc::gemm<T, false, false>(in_t(p.attn), D, daot, D, D, D, N, (int)p.ks_w_out,
                                        (int)p.sp_w_out,
                                        StorePartial{part + p.p_off[kWOut], D, (long)D * D}, s)));
   FDIFF_TRY(mark());
   // attention backward
-  FDIFF_TRY(launch_attention_bwd<T>(in_t(p.qkv), in_t(p.attn), at(p.dattn), at(p.dqkv), dqkvt,
-                                    at(p.stats), B, L, D, H, dp, s));
+  FDIFF_TRY(layer_attention_bwd<T>(in_t(p.qkv), in_t(p.attn), in_t(p.dattn), at(p.dqkv), dqkvt,
+                                   at(p.stats), B, L, D, H, dp, p.attn_bwd, s));
   FDIFF_TRY(mark());
   // QKV projection
   FDIFF_TRY((tc::gemm<T, false, false>(x, D, dqkvt, D3, D, D3, N, (int)p.ks_w_qkv,
@@ -626,7 +468,8 @@ int train_fwd(const void* x, const void* const* weights, void* out, float* ws, c
   const TailWs<T> tail_ws{ws + p.x1, ws + p.tail_part, ws + p.pre, in_t(p.x1), in_t(p.h)};
   return (int)train_forward<T, kTailTrainFwd>(
       static_cast<const T*>(x), weights_of<T>(weights), static_cast<T*>(out), in_t(p.qkv),
-      in_t(p.attn), tail_ws, TailTrain{}, p.tail, (int)p.tail_ctas, B, L, D, H, F, dp, s);
+      in_t(p.attn), tail_ws, TailTrain{}, p.tail, (int)p.tail_ctas, p.attn_fwd, B, L, D, H, F,
+      dp, s);
 }
 
 // The C interface's bodies, one instance per activation type (the fp32

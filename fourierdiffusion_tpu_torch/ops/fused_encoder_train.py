@@ -12,7 +12,10 @@ differentiable in ``x`` and the packed weights:
   ``csrc/fused_encoder_train.cu`` and for bf16 from
   ``csrc/fused_encoder_train_bf16.cu``, over all B*L rows on the tensor cores:
   B3 in 4 launches, 7 for layers wider than 256, ``train_fwd_plan``; B4 in
-  17, or 20, ``train_bwd_plan``), which recompute the forward from ``x``
+  17, or 20, ``train_bwd_plan``; their attention stages are
+  ``csrc/attention_mma.cuh``'s kernels, B2's and B5's over the packed qkv,
+  on those kernels' plans, ``attention_launches``, for head widths up to
+  64), which recompute the forward from ``x``
   with B3's launches on B3's plan, regenerate the masks and return ``dx``
   and the 12 weight gradients; ``fwd_launches`` and ``bwd_launches`` count
   one per call;
@@ -52,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from fourierdiffusion_tpu_torch.models.transformer import LN_EPS, TransformerEncoderLayer
+from fourierdiffusion_tpu_torch.ops import flash_attention as fa
 from fourierdiffusion_tpu_torch.ops import fused_encoder as fe
 from fourierdiffusion_tpu_torch.ops.dropout_hash import (
     C0,
@@ -289,6 +293,8 @@ def _dims(x: torch.Tensor, layer: dict[str, torch.Tensor], n_head: int) -> tuple
         raise ValueError(f"kernel needs d_model divisible by 4, got {d}")
     if b > 65535:
         raise ValueError(f"kernel takes at most 65535 chains per launch, got {b}")
+    if d // n_head > fa.MAX_DH:
+        raise ValueError(f"kernel takes head dims up to {fa.MAX_DH}, got {d // n_head}")
     if not all(t.is_contiguous() for t in [x, *layer.values()]):
         raise ValueError("fused_encoder_layer_train needs contiguous tensors")
     return b, l, d, n_head, layer["w1"].shape[1], train_group(n_head, l)
@@ -338,11 +344,31 @@ def _floats(count: int, dtype: torch.dtype) -> int:
 
 class FwdPlan(ctypes.Structure):
     """B3's plan as the kernels take it (``FwdPlan`` of
-    ``csrc/fused_encoder_train.cuh``): the tail's plan and CTAs, and the
-    workspace offsets (``FWD_WS_FIELDS``)."""
+    ``csrc/fused_encoder_train.cuh``): the tail's plan and CTAs, the
+    workspace offsets (``FWD_WS_FIELDS``) and the attention's launch."""
 
     _fields_ = ([("tail", fe.TailPlan), ("tail_ctas", ctypes.c_longlong)]
-                + [(k, ctypes.c_longlong) for k in FWD_WS_FIELDS])
+                + [(k, ctypes.c_longlong) for k in FWD_WS_FIELDS]
+                + [("attn_fwd", fa.AttnFwdPlan)])
+
+
+def attention_launches(batch: int, max_len: int, d_model: int, n_head: int,
+                       dtype: torch.dtype) -> dict:
+    """The training layer's attention stages on ``csrc/attention_mma.cuh``'s
+    kernels, on the plans of B2 and B5 at the head width (their tiles and
+    ring at the same L): the forward's plan and launch (B3, and B4's
+    recompute), the backward's plan and two launches (B4), each launch as
+    (kernel, grid, shared memory bytes)."""
+    dh = d_model // n_head
+    fwd = fa.attention_fwd_plan(max_len, dh, dtype)
+    bwd = fa.attention_bwd_plan(max_len, dh, dtype)
+    heads = batch * n_head
+    return {
+        "fwd_plan": fwd, "bwd_plan": bwd,
+        "fwd": [("attention_fwd_mma_kernel", (heads, fwd["q_tiles"]), fwd["bytes"])],
+        "bwd": [("attention_bwd_dq_mma_kernel", (heads, bwd["tiles"]), bwd["bytes"]),
+                ("attention_bwd_dkv_mma_kernel", (heads, bwd["tiles"]), bwd["bytes"])],
+    }
 
 
 @functools.lru_cache(maxsize=32)
@@ -361,7 +387,8 @@ def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
     sizes = {"qkv": _floats(3 * n * d, dtype), "attn": _floats(n * d, dtype), "x1": n * d,
              "pre": n * d if wide else 0, "h": _floats(n * f, dtype) if wide else 0,
              "tail_part": 0 if wide else sched["parts"] * n * d}
-    plan: dict = {"tail": tail, "tail_schedule": sched}
+    attention = attention_launches(batch, max_len, d_model, n_head, dtype)
+    plan: dict = {"tail": tail, "tail_schedule": sched, "attention": attention}
     offset = 0
     for k in FWD_WS_FIELDS:
         plan[k] = offset
@@ -369,6 +396,7 @@ def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
     plan["workspace_floats"] = offset
     plan["launches"] = 7 if wide else 4
     plan["struct"] = FwdPlan(tail=fe.TailPlan(**tail), tail_ctas=0 if wide else sched["ctas"],
+                             attn_fwd=attention["fwd_plan"]["struct"],
                              **{k: plan[k] for k in FWD_WS_FIELDS})
     return plan
 
@@ -377,13 +405,13 @@ def train_fwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
 
 #: Workspace regions of the backward, in floats, in the kernel's order
 #: (``BwdPlan``): qkv and dqkv (N x 3D), h and dh (N x F), the LN
-#: statistics inv1 and inv2 (N), the softmax statistics (N x H x 3), the
+#: statistics inv1 and inv2 (N), the softmax statistics (B x H x L x 3), the
 #: partials of dh W1^T per d_ff slice (slices x N x D), in bf16 the
 #: product operands x1t, df2t, daot (N x D), dht (N x F) and dqkvt (N x 3D)
 #: (none in fp32, whose products read x1, df2, dh, dao and dqkv), the
 #: tail's f2 partials (``fe.tail_schedule``'s parts planes of N x D; none
-#: on the wide route), the rest N x D, with N = B*L. qkv, attn, h and the
-#: operands hold the activation dtype, the rest fp32.
+#: on the wide route), the rest N x D, with N = B*L. qkv, attn, h, dattn
+#: (dO, rounded) and the operands hold the activation dtype, the rest fp32.
 WS_FIELDS = ("qkv", "attn", "x1", "xhat1", "inv1", "xhat2", "inv2", "g2", "df2", "h", "dh",
              "dx1", "da", "dao", "dattn", "dqkv", "stats", "dx1p", "x1t", "df2t", "dht",
              "daot", "dqkvt", "tail_part")
@@ -403,7 +431,8 @@ class BwdPlan(ctypes.Structure):
     ``csrc/fused_encoder_train.cuh``): the tail's plan and CTAs, the
     workspace offsets (``WS_FIELDS``, then the partials), rows per slice (``ks_``) and slices
     (``sp_``) of the weight products, of dh W1^T over d_ff and of the column
-    sums, and per gradient the offset and number of its partials."""
+    sums, per gradient the offset and number of its partials, and the
+    attention stages' plans."""
 
     _fields_ = (
         [("tail", fe.TailPlan), ("tail_ctas", ctypes.c_longlong)]
@@ -411,6 +440,7 @@ class BwdPlan(ctypes.Structure):
         + [(f"{a}_{k}", ctypes.c_longlong) for a in ("ks", "sp") for k in WEIGHT_PRODUCTS]
         + [(k, ctypes.c_longlong) for k in ("ks_dx1", "sp_dx1", "cs_rows", "cs_slices")]
         + [(k, ctypes.c_longlong * len(LAYER_KEYS)) for k in ("p_off", "p_n")]
+        + [("attn_fwd", fa.AttnFwdPlan), ("attn_bwd", fa.AttnBwdPlan)]
     )
 
 
@@ -433,13 +463,15 @@ def train_bwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
     B3's launches), the workspace offsets (in floats, 16-byte aligned), the
     row slices of the four weight products and of the column sums, the d_ff
     slices of dh W1^T, the offsets and counts of every gradient's partials,
-    the workspace size, the CUDA launches of one call (17; 20 where the tail
-    runs wide) and all of it as ``BwdPlan`` (``struct``)."""
+    the attention stages' launches (``attention``, ``train_fwd_plan``'s: the
+    recompute's forward and the backward's two), the workspace size, the
+    CUDA launches of one call (17; 20 where the tail runs wide) and all of
+    it as ``BwdPlan`` (``struct``)."""
     n, d, f = batch * max_len, d_model, d_ff
     fwd = train_fwd_plan(batch, max_len, d_model, n_head, d_ff, sms, dtype)
     tail = fwd["tail"]
     plan: dict = {"tail": tail, "dx1_slices": _row_slices(f, n, d),
-                  "tail_schedule": fwd["tail_schedule"]}
+                  "tail_schedule": fwd["tail_schedule"], "attention": fwd["attention"]}
     bf16 = dtype == torch.bfloat16
     sizes = {k: n * d for k in WS_FIELDS}
     sizes.update(qkv=_floats(3 * n * d, dtype), attn=_floats(n * d, dtype), dqkv=3 * n * d,
@@ -473,7 +505,9 @@ def train_bwd_plan(batch: int, max_len: int, d_model: int, n_head: int,
     fields["ks_dx1"], fields["sp_dx1"] = plan["dx1_slices"]
     per_grad = ctypes.c_longlong * len(LAYER_KEYS)
     plan["struct"] = BwdPlan(tail=fe.TailPlan(**tail), tail_ctas=fwd["struct"].tail_ctas,
-                             p_off=per_grad(*p_off), p_n=per_grad(*p_n), **fields)
+                             p_off=per_grad(*p_off), p_n=per_grad(*p_n),
+                             attn_fwd=fwd["attention"]["fwd_plan"]["struct"],
+                             attn_bwd=fwd["attention"]["bwd_plan"]["struct"], **fields)
     return plan
 
 

@@ -39,8 +39,11 @@ at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is check
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
 gates located within 1e-5 of the sum of |terms| of 0 and matched), a
-repeated B4 call bit for bit, and both at layers wider than the tail's
-register tiles (d_model 264 to 384, head widths up to 384).
+repeated B4 call bit for bit (bf16 too), and both at layers wider than
+the tail's register tiles (d_model 264 to 384; B1 at head widths up to
+384, B3 and B4 up to 64, the widest their attention stages take). B3's and
+B4's attention stages are ``csrc/attention_mma.cuh``'s kernels on
+``mma.sync`` (``torch.profiler``'s kernel names of one call, fp32 and bf16).
 
 The long sequences of the real datasets (NASA L=251, NASDAQ 252,
 USDroughts 365 at d_model 72) and the d_model 128 shapes at ECG's L=187
@@ -339,6 +342,69 @@ def test_backward_events_match_the_kernels_stages(cuda) -> None:
     assert fet._library().fdiff_train_bwd_stages() == len(fet.BWD_STAGES)
 
 
+# ---- the training layer's attention stages on mma.sync ----------------------------------
+
+MMA_ATTENTION = ("attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
+                 "attention_bwd_dkv_mma_kernel")
+CUDA_CORE_ATTENTION = ("attention_fwd_kernel<", "attention_bwd_dq_kernel<",
+                       "attention_bwd_dkv_kernel<")
+
+
+def _kernel_names(fn) -> list[str]:
+    """The CUDA kernels one call of ``fn`` runs, from ``torch.profiler``; the
+    trace opens with spin kernels, which a trace may lose (``chip_smoke.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0 and "spin_kernel" not in e.key]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_training_attention_runs_on_mma_kernels(cuda, dtype) -> None:
+    """B3's attention stage is ``csrc/attention_mma.cuh``'s forward and B4's
+    its forward (the recompute) and both backward launches: no thread per
+    query row or key, on the flagship's shape in both dtypes."""
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(72, 12, 2048).to(cuda)
+    lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, 12, dtype).items()}
+    g = torch.Generator().manual_seed(14)
+    x, dy = (torch.randn(64, 100, 72, generator=g).to(cuda, dtype) for _ in range(2))
+    b3 = _kernel_names(lambda: fet._launch_fwd(x, lay, 7, 12, 0.1))
+    b4 = _kernel_names(lambda: fet._launch_bwd(x, dy, lay, 7, 12, 0.1))
+    assert any(MMA_ATTENTION[0] in k for k in b3), b3
+    for f in MMA_ATTENTION:
+        assert any(f in k for k in b4), (f, b4)
+    assert not [k for k in b3 + b4 if any(f in k for f in CUDA_CORE_ATTENTION)]
+
+
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", [(64, 100, 72, 12, 2048), (2, 187, 128, 8, 2048)],
+                         ids=["L100", "D128"])
+def test_bf16_training_kernels_repeat_bit_for_bit(cuda, b, l, d, n_head, d_ff) -> None:
+    """B3 and B4 in bf16 sum every product, the attention stages' rows
+    included, in one fixed order with no atomics."""
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(d, n_head, d_ff).to(cuda)
+    lay = {k: t.detach() for k, t in
+           fet.pack_encoder_layer_train(layer, n_head, torch.bfloat16).items()}
+    g = torch.Generator().manual_seed(15)
+    x, dy = (torch.randn(b, l, d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    assert torch.equal(fet._launch_fwd(x, lay, 9, n_head, 0.1),
+                       fet._launch_fwd(x, lay, 9, n_head, 0.1))
+    first = fet._launch_bwd(x, dy, lay, 9, n_head, 0.1)
+    second = fet._launch_bwd(x, dy, lay, 9, n_head, 0.1)
+    torch.cuda.synchronize()
+    for a, b_ in zip([first[0], *first[1]], [second[0], *second[1]]):
+        assert torch.equal(a, b_)
+
+
 # Layers wider than the tail's 256 register columns (the wide tail, five
 # launches through device memory), with head widths of 22, 95 and 384.
 WIDE_SHAPES = [(3, 17, 264, 12, 1024), (2, 17, 380, 4, 512), (2, 9, 384, 1, 512)]
@@ -351,8 +417,15 @@ def test_wide_layer_matches_plain(cuda, dtype, b, l, d, n_head, d_ff) -> None:
     test_kernel_matches_plain(cuda, dtype, b, l, d, n_head, d_ff)
 
 
+# The same widths for the training layer, whose attention stages
+# (csrc/attention_mma.cuh, B2's and B5's instances) take head widths up to
+# 64 and refuse wider ones (tests/test_torch_launch_plans.py): 22, 38, 64.
+WIDE_TRAIN_SHAPES = [(3, 17, 264, 12, 1024), (2, 17, 380, 10, 512), (2, 9, 384, 6, 512)]
+WIDE_TRAIN_IDS = ["D264", "D380-H10", "D384-H6"]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_SHAPES, ids=WIDE_IDS)
+@pytest.mark.parametrize("b,l,d,n_head,d_ff", WIDE_TRAIN_SHAPES, ids=WIDE_TRAIN_IDS)
 def test_wide_training_layer_matches_plain(cuda, rate, b, l, d, n_head, d_ff) -> None:
     """B3 and B4 run their wide tails (7 and 20 launches)."""
     assert fet.train_fwd_plan(b, l, d, n_head, d_ff)["launches"] == 7

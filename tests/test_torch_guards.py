@@ -1,6 +1,7 @@
 """Guards of the PyTorch/CUDA port.
 
-* The port and ``chip_smoke.py`` import no JAX, flax, optax, orbax, YAML,
+* The port, ``chip_smoke.py`` and the scripts that run on the card
+  (``CARD_SCRIPTS``) import no JAX, flax, optax, orbax, YAML,
   omegaconf, pandas or ``fourierdiffusion_tpu`` module: the machine with
   the card has none of them. The one exception is pandas inside
   ``data/preprocessing.py::mimic_preprocess``, which reads MIMIC-III's
@@ -43,11 +44,13 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "fourierdiffusion_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "omegaconf", "pandas",
              "fourierdiffusion_tpu")
+# Scripts of scripts/ that run on the card, beside chip_smoke.py.
+CARD_SCRIPTS = ("c2_train_quality.py", "train_attention_timing.py")
 # The one function of the port that may import pandas, inside its body.
 PANDAS_EXCEPTION = ("preprocessing.py", "mimic_preprocess")
 
 _BLOCKED_IMPORTS = f"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 
 FORBIDDEN = {FORBIDDEN!r}
 
@@ -63,6 +66,9 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for script in {CARD_SCRIPTS!r}:
+    spec = importlib.util.spec_from_file_location(script[:-3], "scripts/" + script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print("imported", len(names) + 2)
 print("modules", " ".join(names))
 """
@@ -96,7 +102,8 @@ def test_port_imports_nothing_of_jax() -> None:
 
 
 def _source_files() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + [REPO / "scripts" / s for s in CARD_SCRIPTS])
 
 
 def _imports(path: Path) -> list[tuple[str, int, str | None]]:

@@ -171,6 +171,64 @@ def test_backward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     assert list(struct.p_off) == plan["p_off"] and list(struct.p_n) == plan["p_n"]
 
 
+# The lengths and widths the training layer serves: the synthetic runs,
+# ECG and USDroughts at d_model 72, and ECG at d_model 128 (fast.yaml).
+TRAIN_ATTENTION_SHAPES = [(64, 100, 72, 12), (8, 187, 72, 12), (8, 365, 72, 12),
+                          (8, 187, 128, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,h", TRAIN_ATTENTION_SHAPES,
+                         ids=[f"L{l}-D{d}" for _, l, d, _ in TRAIN_ATTENTION_SHAPES])
+def test_training_attention_launches_fit_and_cover(dtype, b, l, d, h) -> None:
+    """The training layer's attention stages run B2's and B5's tiles over
+    the packed qkv: B3 (and B4's recompute) one forward launch, B4's
+    backward two, each a CTA per (chain, head) and 128 rows, a warp per 16
+    rows, a ring of two stages of 64 rows whose shared memory fits whatever
+    L; the plans the kernels are given are those of B2 and B5 at the head
+    width, and the launch counts stay 4 and 17."""
+    fwd = fet.train_fwd_plan(b, l, d, h, 2048, dtype=dtype)
+    bwd = fet.train_bwd_plan(b, l, d, h, 2048, dtype=dtype)
+    dh, size = d // h, torch.finfo(dtype).bits // 8
+    attn = fwd["attention"]
+    assert bwd["attention"] == attn
+    fp, bp = attn["fwd_plan"], attn["bwd_plan"]
+    assert fp == fa.attention_fwd_plan(l, dh, dtype) and bp == fa.attention_bwd_plan(l, dh, dtype)
+    tiles = -(-l // 128)
+    assert attn["fwd"] == [("attention_fwd_mma_kernel", (b * h, tiles), fp["bytes"])]
+    assert attn["bwd"] == [("attention_bwd_dq_mma_kernel", (b * h, tiles), bp["bytes"]),
+                           ("attention_bwd_dkv_mma_kernel", (b * h, tiles), bp["bytes"])]
+    for plan in (fp, bp):
+        assert plan["kdh"] >= dh and plan["kdh"] % (8 if size == 4 else 16) == 0
+        assert plan["warps"] == min(8, -(-l // 16))
+        assert (plan.get("q_tiles") or plan["tiles"]) == tiles
+        assert (plan.get("key_blocks") or plan["blocks"]) * 64 >= l
+        assert plan["stride"] >= plan["kdh"] and plan["bytes"] == 2 * plan["stage"] * size
+        assert plan["bytes"] <= fe.SMEM_LIMIT
+    assert fp["stage"] == 2 * 64 * fp["stride"]
+    assert bp["stage"] == 2 * 64 * bp["stride"] + 64 * 3 * 4 // size
+    assert (fwd["launches"], bwd["launches"]) == (4, 17)
+    # what the kernels are given, and the statistics' (B, H, L, 3) region
+    assert [getattr(fwd["struct"].attn_fwd, k) for k, _ in fa.AttnFwdPlan._fields_] == [
+        fp[k] for k, _ in fa.AttnFwdPlan._fields_]
+    assert [getattr(bwd["struct"].attn_fwd, k) for k, _ in fa.AttnFwdPlan._fields_] == [
+        fp[k] for k, _ in fa.AttnFwdPlan._fields_]
+    assert [getattr(bwd["struct"].attn_bwd, k) for k, _ in fa.AttnBwdPlan._fields_] == [
+        bp[k] for k, _ in fa.AttnBwdPlan._fields_]
+    assert bwd["stats"] + 3 * b * h * l <= bwd["dx1p"]
+
+
+@pytest.mark.parametrize("d,h", [(380, 4), (384, 1)], ids=["dh95", "dh384"])
+def test_training_layer_refuses_heads_wider_than_its_attention(d, h) -> None:
+    """The attention stages' instances reach head dim 64 (B2's and B5's);
+    wider heads are refused before any launch, never sent elsewhere."""
+    x = torch.zeros(2, 9, d)
+    torch.manual_seed(0)
+    layer = fet.pack_encoder_layer_train(fet.TransformerEncoderLayer(d, h, 64), h)
+    with pytest.raises(ValueError, match="head dims up to 64"):
+        fet._dims(x, layer, h)
+
+
 @pytest.mark.parametrize("widths,b,l", CASES, ids=IDS)
 def test_forward_plan_fits_and_covers_every_row(widths, b, l) -> None:
     """B3's plan: the tail's plan and schedule as in B1 and B4, the
