@@ -376,9 +376,11 @@ PRIOR_MS = {
     # 6; the same card and power limit).
     "B2": {"float32 B=64 H=12 L=100 dh=6": 0.1287, "bfloat16 B=64 H=12 L=100 dh=6": 0.1294},
     "B3": {"L=100 D=72 H=12 F=2048": 0.9166},
-    # B5 and B6-bwd before their redesign on the tensor cores (PERF.md,
-    # section 6; the same card and power limit).
-    "B5": {"B=64 H=12 L=100 dh=6": 0.4462}, "B6-bwd": {"B=64 H=12 L=100 dh=6": 0.4413},
+    # B5 and B6-bwd before their redesign on the tensor cores, and in bf16
+    # before launch 1 held the head resident and kept S in registers
+    # (PERF.md, section 6; the same card and power limit).
+    "B5": {"B=64 H=12 L=100 dh=6": 0.4462, "bf16 B=64 H=12 L=100 dh=6": 0.1096},
+    "B6-bwd": {"B=64 H=12 L=100 dh=6": 0.4413, "bf16 B=64 H=12 L=100 dh=6": 0.1287},
     # B7 and B8 on __dp4a, before their redesign on the tensor cores
     # (PERF.md, section 6; the same card and power limit).
     "B7": {"bfloat16 L=100 D=72 B=32": 0.2485}, "B8": {"bfloat16 L=100 D=72 B=32": 0.2697},
@@ -389,14 +391,15 @@ PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
                    "attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
                    "attention_bwd_dkv_mma_kernel")
 # ... and these must be among them: B2's kernel, the two launches of B5 and
-# B6-bwd, their bf16 instances and B6-fwd's (BF16_ATTENTION_INSTANCES), and
-# the tail that B3 runs.
+# B6-bwd, their bf16 instances (launch 1 in both forms: S kept in registers,
+# kKept true, and resident or streamed, false) and B6-fwd's
+# (BF16_ATTENTION_INSTANCES), and the tail that B3 runs.
 BF16_ATTENTION_INSTANCES = (
     ("flash_attention", "attention_fwd_mma_kernel<__nv_bfloat16, false, true, 16, false>"),
-    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, false, 16, false>"),
-    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, false, 16, false>"),
-    ("flash_attention", "attention_bwd_dq_mma_kernel<__nv_bfloat16, true, 16, false>"),
-    ("flash_attention", "attention_bwd_dkv_mma_kernel<__nv_bfloat16, true, 16, false>"))
+    *(("flash_attention", f"attention_bwd_{kernel}<__nv_bfloat16, {drop}, 16, false{kept}>")
+      for drop in ("false", "true")
+      for kernel, kept in (("dq_mma_kernel", ", true"), ("dq_mma_kernel", ", false"),
+                           ("dkv_mma_kernel", ""))))
 # The training layer's attention stages (B3's forward, B4's recompute and
 # backward) on csrc/attention_mma.cuh's kernels over the packed qkv, in the
 # fp32 and bf16 training libraries (their packed-qkv instances, kPacked
@@ -404,12 +407,14 @@ BF16_ATTENTION_INSTANCES = (
 # (TRAIN_CUDA_CORE_ATTENTION, a thread per query row or key) may be left in
 # those libraries.
 TRAIN_ATTENTION_INSTANCES = tuple(
-    (lib, f"{kernel}<{tp}, {flags}{kdh}, true>")
+    (lib, f"{kernel}<{tp}, {flags}{kdh}, true{kept}>")
     for lib, tp, kdh in (("fused_encoder_train", "float", 8),
                          ("fused_encoder_train_bf16", "__nv_bfloat16", 16))
-    for kernel, flags in (("attention_fwd_mma_kernel", "false, true, "),
-                          ("attention_bwd_dq_mma_kernel", "true, "),
-                          ("attention_bwd_dkv_mma_kernel", "true, ")))
+    for kernel, flags, kept in (("attention_fwd_mma_kernel", "false, true, ", ""),
+                                ("attention_bwd_dq_mma_kernel", "true, ", ", true"),
+                                ("attention_bwd_dq_mma_kernel", "true, ", ", false"),
+                                ("attention_bwd_dkv_mma_kernel", "true, ", ""))
+    if tp != "float" or kept != ", true")
 TRAIN_ATTENTION_FUNCTIONS = ("attention_fwd_mma_kernel", "attention_bwd_dq_mma_kernel",
                              "attention_bwd_dkv_mma_kernel")
 TRAIN_CUDA_CORE_ATTENTION = ("attention_fwd_kernel<", "attention_bwd_dq_kernel<",
@@ -938,22 +943,25 @@ def build_all() -> dict:
     instruction (an int8 one no IMMA), if one of REQUIRED_PRODUCT_KERNELS
     is missing from them, if a kernel of B7/B8 holds an IDP4A, or if a
     training library holds a CUDA-core attention kernel."""
-    def one(name: str) -> tuple[str, float, bool]:
+    def one(name: str) -> tuple[str, float, bool, dict]:
         t0 = time.perf_counter()
         cached = _build.library_path(name).exists()
-        _build.build(name)
-        return name, time.perf_counter() - t0, cached
+        # each library's SASS is read as soon as it is built, while the
+        # longer builds go on
+        counts = sass_counts(_build.build(name))
+        return name, time.perf_counter() - t0, cached, counts
 
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         results = list(pool.map(one, SOURCES))
     sass = {}
-    for name, seconds, cached in results:
+    for name, seconds, cached, lib_sass in results:
         lib = _build.library_path(name)
         log = lib.with_suffix(".log")
         for kernel, usage in ptxas_usage(log.read_text() if log.exists() else ""):
             print(f"  ptxas {name}: {kernel}: {usage}")
-        print(f"  {lib.name} ({'reused' if cached else 'built'} in {seconds:.2f} s)", flush=True)
-        for kernel, counts in sass_counts(lib).items():
+        print(f"  {lib.name} ({'reused' if cached else 'built'} and read in {seconds:.2f} s)",
+              flush=True)
+        for kernel, counts in lib_sass.items():
             if any(k in kernel for k in PRODUCT_KERNELS + INT8_PRODUCT_KERNELS + (
                     "attention", "finish")):
                 sass[f"{name}: {kernel}"] = counts
@@ -1640,6 +1648,16 @@ def check_attention_kernels(b: int, h: int, l: int, dh: int) -> dict:
     return r
 
 
+def bwd_form(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> dict:
+    """The form of B5/B6-bwd's launch 1 at this shape, from the plan the
+    wrapper passes: S kept in registers (the head resident), the head
+    resident, or streamed through the ring; the rows per CTA and the CTAs of
+    each launch."""
+    p = fa.attention_bwd_plan(l, dh, dtype)
+    return {"launch1": "kept" if p["kept"] else "resident" if p["resident"] else "ring",
+            "rows_per_cta": p["warps"] * fa.WARP_ROWS, "ctas": b * h * p["tiles"]}
+
+
 def check_attention_bwd(b: int, h: int, l: int, dh: int) -> dict:
     """B5 and B6-bwd (dropout 0.1) on random fp32 (b, h, l, dh) heads, from
     the plain forward's output, against their plain versions (JAX's
@@ -1672,7 +1690,8 @@ def check_attention_bwd(b: int, h: int, l: int, dh: int) -> dict:
         got, again, plain = call(), call(), plain_fn()
         staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
         torch.cuda.synchronize()
-        r = {"max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, got, plain)},
+        r = {"form": bwd_form(b, h, l, dh, torch.float32),
+             "max_rel_err": {n: rel_err(a, p) for n, a, p in zip(grads, got, plain)},
              "max_abs_err": max((a - p).abs().max().item() for a, p in zip(got, plain)),
              "stats_rel_err": {n: rel_err(got[3][..., i], staged[3][..., i])
                                for i, n in enumerate(("m", "l", "D"))},
@@ -3280,7 +3299,9 @@ def bf16_train_layer(layer, n_head: int, batch: int, l: int, timed: bool) -> dic
     if not all(identical.values()):
         raise AssertionError(f"B3/B4 {shape}: a repeated call gave other results: {identical}")
     r["bwd"]["stage_ms"] = bwd_stage_ms(x, dy, lay, seed, n_head)
-    print(f"  B4 {shape}: per stage {json.dumps(r['bwd']['stage_ms'])}", flush=True)
+    r["bwd"]["attention_form"] = bwd_form(batch, n_head, l, d // n_head, BF16)
+    print(f"  B4 {shape}: per stage {json.dumps(r['bwd']['stage_ms'])}; the attention "
+          f"stage's launch 1 {json.dumps(r['bwd']['attention_form'])}", flush=True)
     r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(x, lay, seed, n_head, DROPOUT), iters=20)
     r["bwd"]["ms"] = time_ms(lambda: fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT),
                              iters=10)
@@ -3509,7 +3530,8 @@ def check_bf16_attention(b: int, h: int, l: int, dh: int, timed: bool) -> dict:
         staged = fa.attention_bwd_staged(q, k, v, o, do, keep)
         torch.cuda.synchronize()
         grads = ("dq", "dk", "dv")
-        r = {"max_rel_err": {t: rel_err(a.float(), p.float())
+        r = {"form": bwd_form(b, h, l, dh, BF16),
+             "max_rel_err": {t: rel_err(a.float(), p.float())
                              for t, a, p in zip(grads, got, plain)},
              "vs_staged": {t: rel_err(a.float(), p.float())
                            for t, a, p in zip(grads, got, staged)},
@@ -3556,7 +3578,8 @@ def check_bf16_attention(b: int, h: int, l: int, dh: int, timed: bool) -> dict:
                                                  7 * n * 2 + (0 if sd is None else 8), BF16)
         print(f"  {name} {shape}: {json.dumps(r)} (gradients tol {BF16_ATTN_GRAD_TOL:.3e} of "
               f"max; m, l tol {STATS_TOL:.0e} of max, D within its bound at <= 1, the saved "
-              f"output's D beyond it at > 1)", flush=True)
+              f"output's D beyond it at > 1; before launch 1's redesign "
+              f"{PRIOR_MS[name].get(shape)} ms)", flush=True)
         del got, staged, keep
         out[name] = r
     return out
@@ -3955,7 +3978,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "launches_per_call": breakdown[count]["launches_per_call"],
-            "attention_functions": [f"{f}<float, *, kDh, true>"
+            "attention_functions": [f"{f}<float, *, kDh, true{', false' if 'dq' in f else ''}>"
                                     for f in TRAIN_ATTENTION_FUNCTIONS
                                     if key == "bwd" or "fwd" in f],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train: ")},
@@ -3977,8 +4000,8 @@ def main() -> int:
         checked = attn_kernels if key == "B6-fwd" else attn_bwd
         extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh, false>"]} \
             if key == "B6-fwd" else {
-            "functions": [f"{f}<{str(key == 'B6-bwd').lower()}, kDh, false>"
-                          for f in BWD_FUNCTIONS],
+            "functions": [f"{f}<float, {str(key == 'B6-bwd').lower()}, kDh, false"
+                          f"{', false' if 'dq' in f else ''}>" for f in BWD_FUNCTIONS],
             "launches_per_call": r["launches_per_call"],
             "device_us_by_kernel": r["device_us_by_kernel"],
             "profile_traces": r["profile_traces"],
@@ -4023,7 +4046,8 @@ def main() -> int:
             "shape": f"B={TRAIN_BATCH} L={MAX_LEN} D=72 H={N_HEAD} F=2048 bf16 dropout {DROPOUT}",
             "steps_per_sec": bf16_runs["steps_per_sec"],
             "launches_per_call": breakdown[f"{count} bfloat16"]["launches_per_call"],
-            "attention_functions": [f"{f}<__nv_bfloat16, *, kDh, true>"
+            "attention_functions": [f"{f}<__nv_bfloat16, *, kDh, true"
+                                    f"{', kKept' if 'dq' in f else ''}>"
                                     for f in TRAIN_ATTENTION_FUNCTIONS
                                     if key == "bwd" or "fwd" in f],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train_bf16: ")},
@@ -4047,8 +4071,8 @@ def main() -> int:
         extra = {"functions": [
             "attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh, false>"]} \
             if key == "B6-fwd" else {
-            "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh, false>"
-                          for f in BWD_FUNCTIONS],
+            "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh, false"
+                          f"{', kKept' if 'dq' in f else ''}>" for f in BWD_FUNCTIONS],
             "launches_per_call": r["launches_per_call"],
             "device_us_by_kernel": r["device_us_by_kernel"],
             "profile_traces": r["profile_traces"]}

@@ -45,16 +45,26 @@
 // one fixed order, so two calls on the same inputs are bit-identical, and a
 // chain's result does not depend on the others in its batch.
 //   Launch 1, attention_bwd_dq_mma_kernel: a CTA per (chain, head, 128 query
-//   rows), a warp per 16 rows, K and V streamed through the ring of two key
-//   blocks of 64. Pass 1 keeps each row's running max and rescaled sum (the
-//   forward's first pass); in fp32 D = dO . O takes the O the forward wrote
-//   (JAX recomputes O = P_used v, which in fp32 differs only in summation
-//   order), in bf16 a second pass recomputes O = P_used V unrounded in fp32
-//   (the saved output is rounded); the last pass computes S and dP = dO v^T,
-//   forms P and dS with the keep factors, and adds dS K from the accumulator
-//   registers (in fp32 the n8 tile's keys permuted as the forward feeds P
-//   into P v). It writes dq and each row's (m, l, D) to a (B, H, L, 3) fp32
-//   scratch.
+//   rows), a warp per 16 rows, over key blocks of 64. Pass 1 keeps
+//   each row's running max and rescaled sum (the forward's first pass); in
+//   fp32 D = dO . O takes the O the forward wrote (JAX recomputes O = P_used
+//   v, which in fp32 differs only in summation order), in bf16 a second
+//   pass recomputes O = P_used V unrounded in fp32 (the saved output is
+//   rounded); the last pass computes dP = dO v^T, forms P and dS with the
+//   keep factors, and adds dS K from the accumulator registers (in fp32 the
+//   n8 tile's keys permuted as the forward feeds P into P v). It writes dq
+//   and each row's (m, l, D) to a (B, H, L, 3) fp32 scratch. The three
+//   passes depend on each other (D needs all of O, dS needs D), so on this
+//   card their cost is set by how often the head is read and how often S
+//   and P are formed: where the head's K and V fit in half the shared
+//   memory (two CTAs to an SM; up to L = 1152 at dh 16 in bf16), they are
+//   staged once and every pass reads them in place with no barrier
+//   (resident); in bf16 at L <= 128 (two key blocks) and kDh 16 each warp
+//   also keeps its S in registers from pass 1 and turns it into P once, so
+//   the two later passes form neither again, and with dropout each entry's
+//   keep bit from pass 2, so the hash runs once (kKept); longer heads stream K and V
+//   through the ring of two key blocks, a barrier per step, so every length
+//   runs. Every form sums each row over the keys in the same order.
 //   Launch 2, attention_bwd_dkv_mma_kernel: a CTA per (chain, head, 128
 //   keys), a warp per 16 keys, Q, dO and the rows' statistics streamed
 //   through the ring in blocks of 64 query rows: S^T = k q^T scale and dP^T
@@ -69,9 +79,10 @@
 // written. Two n8 tiles of P_used or dS in the accumulator layout are one A
 // fragment, and the staged block's rows are its B operand through
 // ldmatrix.trans. The keep factors are hashed per (i, j) in every launch
-// (keep3 of encoder_layer.cuh). Shared memory is two stages of two blocks and
-// the fp32 statistics of 64 rows whatever L (AttnBwdPlan), so every length
-// runs. Scores and probabilities never reach device memory.
+// (keep3 of encoder_layer.cuh). Launch 2's shared memory is two stages of
+// two blocks and the fp32 statistics of 64 rows whatever L, launch 1's the
+// head's K and V where resident, else the same ring (AttnBwdPlan). Scores and
+// probabilities never reach device memory.
 
 #pragma once
 
@@ -98,17 +109,21 @@ struct AttnFwdPlan {
 
 // The backward's two launches, as ops/flash_attention.py's AttnBwdPlan
 // passes it (computed there by attention_bwd_plan). Launch 1 takes the rows
-// of a tile as query rows and streams blocks of keys (K, then K and V);
+// of a tile as query rows and reads blocks of keys (K, then K and V), held
+// whole in shared memory where resident, else streamed through the ring;
 // launch 2 takes them as keys and streams blocks of query rows (Q, dO and
-// their statistics).
+// their statistics) through the ring.
 struct AttnBwdPlan {
-  int kdh;     // head width of the instance: dh padded to the mma's k step (8, bf16 16), doubled
-  int warps;   // per CTA: one per 16 rows, at most 8
-  int tiles;   // CTAs per head (grid.y): tiles of 128 rows
-  int blocks;  // blocks of 64 rows streamed through the ring
-  int stride;  // row stride (elements) of a staged block
-  int stage;   // elements of a stage of the ring: two blocks and 64 rows of fp32 statistics
-  int bytes;   // dynamic shared memory: two stages
+  int kdh;       // head width of the instance: dh padded to the mma's k step (8, bf16 16), doubled
+  int warps;     // per CTA: one per 16 rows, at most 8
+  int tiles;     // CTAs per head (grid.y): tiles of 128 rows
+  int blocks;    // blocks of 64 rows (keys in launch 1, query rows in launch 2)
+  int stride;    // row stride (elements) of a staged block
+  int stage;     // elements of a stage of the ring: two blocks and 64 rows of fp32 statistics
+  int bytes;     // launch 2's dynamic shared memory (and launch 1's in the ring): two stages
+  int resident;  // launch 1 holds the head's K and V whole: 2 blocks x 64 rows x stride
+  int kept;      // launch 1 keeps S, then P, in registers (bf16, resident, 2 blocks, kdh 16)
+  int dq_bytes;  // launch 1's dynamic shared memory
 };
 
 namespace fdiff {
@@ -119,6 +134,7 @@ constexpr int kWarpRows = 16;  // query rows per warp: one m16 tile
 constexpr int kMmaWarps = 8;   // at most; 128 query rows per CTA
 constexpr int kTileRows = kMmaWarps * kWarpRows;
 constexpr int kRingStages = 2;  // key blocks in the ring: one staged while one is used
+constexpr int kKeptBlocks = 2;  // launch 1 keeps S in registers over up to two key blocks
 constexpr int kStatCols = 3;  // per query row: the softmax max m, its sum l, D = dO . O
 
 // Where the heads lie, in elements. Head h of chain b: the inputs q, k, v
@@ -200,21 +216,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Key rows [j0, j0 + kKeyBlock) x columns [0, kDh) of a head's rows (row
-// stride ld) into a staged block of stride S, zero past L rows and dh
-// columns, by cp.async in the caller's group: 16 bytes a copy where the rows
-// allow it (tc::stage_tile), else 4 (one fp32, or a bf16 pair where dh and
-// ld are even: the head widths 6 and 12), else plain loads.
+// Key rows [j0, j0 + rows) x columns [0, kDh) of a head's rows (row stride
+// ld) into staged rows of stride S (a block of kKeyBlock rows, or the whole
+// head), zero past L rows and dh columns, by cp.async in the caller's group:
+// 16 bytes a copy where the rows allow it (tc::stage_tile), else 4 (one fp32,
+// or a bf16 pair where dh and ld are even: the head widths 6 and 12), else
+// plain loads.
 template <typename T, int kDh>
 __device__ __forceinline__ void stage_keys(T* __restrict__ s, int S, const T* __restrict__ g,
-                                           int ld, int j0, int L, int dh) {
+                                           int ld, int j0, int L, int dh,
+                                           int rows = kKeyBlock) {
   constexpr int E = 4 / sizeof(T), per_row = kDh / E;
   if (dh % (16 / (int)sizeof(T)) == 0 || dh % E != 0 || ld % E != 0 ||
       (reinterpret_cast<uintptr_t>(g) & 3) != 0) {
-    tc::stage_tile<T, true>(s, S, g, ld, j0, kKeyBlock, L, 0, kDh, dh);
+    tc::stage_tile<T, true>(s, S, g, ld, j0, rows, L, 0, kDh, dh);
     return;
   }
-  for (int c = threadIdx.x; c < kKeyBlock * per_row; c += blockDim.x) {
+  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
     const int r = c / per_row, i = (c % per_row) * E, gr = j0 + r;
     const int n = gr < L ? max(0, min(E, dh - i)) : 0;
     tc::cp_async4(s + r * S + i, n > 0 ? g + (size_t)gr * ld + i : g, n * (int)sizeof(T));
@@ -650,10 +668,19 @@ cudaError_t launch_fwd_exact(const T* q, const T* k, const T* v, T* o, const Att
 // ---- the backward -----------------------------------------------------------------------
 
 // Launch 1: grid (B * H, p.tiles), p.warps warps, a warp per 16 query rows.
-// dq = scale dS K, and (m, l, D) of each row into stats (B, H, L, 3) in
-// fp32. The passes over the key blocks: the statistics (K), in bf16 O =
-// P_used V for D (K and V), then dq (K and V). In bf16 `o` is not read.
-template <typename T, bool kDrop, int kDh, bool kPacked>
+// dq = scale dS K, and (m, l, D) of each row
+// into stats (B, H, L, 3) in fp32. The passes over the key blocks: the
+// statistics (K), in bf16 O = P_used V for D (K and V), then dq (K and V).
+// In bf16 `o` is not read. Where p.resident, the head's K and V lie whole in
+// shared memory (K's blocks, then V's), staged once as two cp.async groups,
+// and every pass reads them there with no barrier between its steps; else
+// they stream through the ring, a barrier per step. kKept (bf16, resident, at
+// most kKeptBlocks key blocks): each warp keeps its rows' S over the keys in
+// registers from pass 1 and turns it into P once the statistics are known,
+// so the later passes compute neither again (the same values as computed
+// again: the same products and the same expf(s - m) / l), and with dropout
+// the keep bits that pass 2 hashed, for the last pass.
+template <typename T, bool kDrop, int kDh, bool kPacked, bool kKept>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ o,
@@ -663,20 +690,30 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int NO = kDh / 8;  // n8 tiles of a row of dq (and of O)
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  T* ring = reinterpret_cast<T*>(bwd_smem);
+  T* smem = reinterpret_cast<T*>(bwd_smem);
   const int S = p.stride, nb = p.blocks, steps = (kF32 ? 2 : 3) * nb;
+  const bool resident = kKept || p.resident;
   const HeadAt at = head_at<kPacked>(lay, H, L, dh);
   const int ld = at.ld, ldo = at.ldo;
+  // V's block lies this far past K's: past the head's K where resident, past
+  // one block in a stage of the ring.
+  const int v_off = (resident ? nb : 1) * kKeyBlock * S;
 
-  // Step s stages key block s % nb: K in pass 1 (s < nb), K and V in the
-  // passes after; zero past L keys and dh columns.
+  // Ring step s stages key block s % nb: K in pass 1 (s < nb), K and V in
+  // the passes after; zero past L keys and dh columns.
   auto load = [&](int s) {
-    T* sK = ring + (s % kRingStages) * p.stage;
+    T* sK = smem + (s % kRingStages) * p.stage;
     const int j0 = (s % nb) * kKeyBlock;
     stage_keys<T, kDh>(sK, S, k + at.in, ld, j0, L, dh);
     if (s >= nb) stage_keys<T, kDh>(sK + kKeyBlock * S, S, v + at.in, ld, j0, L, dh);
   };
-  load(0);
+  if (resident) {
+    stage_keys<T, kDh>(smem, S, k + at.in, ld, 0, L, dh, nb * kKeyBlock);
+    tc::cp_async_commit();
+    stage_keys<T, kDh>(smem + v_off, S, v + at.in, ld, 0, L, dh, nb * kKeyBlock);
+  } else {
+    load(0);
+  }
   tc::cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -685,6 +722,35 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const HeadMask mask = head_mask<kDrop>(drop, at.b, at.h);
   RowFragsOf<T, kDh> qf, df;
   if (live) qf.load(q + at.in, ld, r0, L, dh);
+
+  // fn(b, sK, sV, j0) for each key block b of the pass whose first ring
+  // step is `first` (K at sK, V at sV, first key j0), in block order, by the
+  // live warps. Resident, the blocks lie in place (kKept: b a constant once
+  // unrolled, so the kept tiles stay in registers); in the ring each step
+  // waits for its stage and frees it after.
+  auto each_block = [&](int first, auto&& fn) {
+    if constexpr (kKept) {
+#pragma unroll
+      for (int b = 0; b < kKeptBlocks; ++b) {
+        const T* sK = smem + b * kKeyBlock * S;
+        if (b < nb && live) fn(b, sK, sK + v_off, b * kKeyBlock);
+      }
+    } else {
+      for (int b = 0; b < nb; ++b) {
+        const T* sK = resident ? smem + b * kKeyBlock * S
+                               : ring_begin(smem, p.stage, first + b, steps, load);
+        if (live) fn(b, sK, sK + v_off, b * kKeyBlock);
+        if (!resident) __syncthreads();
+      }
+    }
+  };
+  // Resident, wait for K (group 0) before pass 1, for V (group 1) after it.
+  auto resident_wait = [&](auto groups_left) {
+    if (resident) {
+      tc::cp_async_wait<decltype(groups_left)::value>();
+      __syncthreads();
+    }
+  };
 
   // S of the n8 tile at key n of the block staged at sK, whose first key is
   // j0, scaled; keys past L give -inf (0 weight).
@@ -695,11 +761,17 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       c[e] = j0 + n + 2 * t + (e & 1) < L ? c[e] * scale : -INFINITY;
   };
 
+  // kKept: S of the warp's rows, per key block and n8 tile, then P; with
+  // dropout, each kept entry's keep bit (bit 4 j + e of block b), hashed in
+  // pass 2 for the last pass (keep3 gives exactly drop.scale or 0).
+  float kept[kKept ? kKeptBlocks : 1][8][4];
+  uint32_t kept_bits[kKept && kDrop ? kKeptBlocks : 1] = {};
+
   // Pass 1, per row (g and g + 8): the running max and the sum of exp(s -
   // max) rescaled as the max grows, over this thread's keys of the block;
   // then over the row's four threads.
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
-  auto pass1 = [&](const T* sK, int j0) {
+  auto pass1 = [&](int b, const T* sK, const T*, int j0) {
     float sc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) scores(sK, j0, 8 * j, sc[j]);
@@ -716,13 +788,13 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+      for (int e = 0; e < 4; ++e) {
+        l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+        if constexpr (kKept) kept[b][j][e] = sc[j][e];
+      }
   };
-  for (int s = 0; s < nb; ++s) {
-    const T* sK = ring_begin(ring, p.stage, s, steps, load);
-    if (live) pass1(sK, s * kKeyBlock);
-    __syncthreads();
-  }
+  resident_wait(std::integral_constant<int, 1>{});
+  each_block(0, pass1);
 
   // The row statistics over the quad, and in fp32 D = dO . O of each row
   // from the forward's O (a quad thread per fourth column, then over the
@@ -749,7 +821,18 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     df.load(dout + at.o, ldo, r0, L, dh);
+    // kKept: P = exp(s - m) / l of every kept tile (0 past L).
+    if constexpr (kKept) {
+#pragma unroll
+      for (int b = 0; b < kKeptBlocks; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (b < nb) kept[b][j][e] = expf(kept[b][j][e] - m[e >> 1]) / l[e >> 1];
+    }
   }
+  resident_wait(std::integral_constant<int, 0>{});
 
   // bf16, pass 2: O = P_used V in fp32 from the accumulator registers, with
   // P_used = bf16(P keep) (JAX's _bwd_core), then D = dO . O per row (each
@@ -760,7 +843,7 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < NO; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
-    auto pass_o = [&](const T* sK, const T* sV, int j0) {
+    auto pass_o = [&](int b, const T* sK, const T* sV, int j0) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         if (j0 + 16 * jj >= L) break;
@@ -768,23 +851,24 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int n = 16 * jj + 8 * hh;
-          scores(sK, j0, n, pk[hh]);
+          if constexpr (!kKept) scores(sK, j0, n, pk[hh]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = e >> 1;
-            pk[hh][e] = expf(pk[hh][e] - m[r]) / l[r] *
-                        keep<kDrop>(mask, r0 + g + 8 * r, j0 + n + 2 * t + (e & 1));
+            if constexpr (kKept) {
+              const float kp = keep<kDrop>(mask, r0 + g + 8 * r, j0 + n + 2 * t + (e & 1));
+              if constexpr (kDrop) kept_bits[b] |= (kp != 0.0f ? 1u : 0u) << (n / 2 + e);
+              pk[hh][e] = kept[b][2 * jj + hh][e] * kp;
+            } else
+              pk[hh][e] = expf(pk[hh][e] - m[r]) / l[r] *
+                          keep<kDrop>(mask, r0 + g + 8 * r, j0 + n + 2 * t + (e & 1));
           }
         }
         pair_times_block(oacc, pk[0], pk[1], reinterpret_cast<const __nv_bfloat16*>(sV), S,
                          16 * jj, dh);
       }
     };
-    for (int s = nb; s < 2 * nb; ++s) {
-      const T* sK = ring_begin(ring, p.stage, s, steps, load);
-      if (live) pass_o(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
-      __syncthreads();
-    }
+    each_block(nb, pass_o);
     if (live) {
 #pragma unroll
       for (int n = 0; n < NO; ++n)
@@ -803,32 +887,43 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // The last pass: S and dP = dO V^T again per n8 tile of keys, P = exp(s -
-  // m) / l, dS = P (dP keep - D) (in bf16 rounded as it is packed), and dq
-  // += dS K from the accumulator registers.
+  // The last pass: dP = dO V^T per n8 tile of keys, P = exp(s - m) / l (S
+  // again, or kept), dS = P (dP keep - D) (in bf16 rounded as it is packed),
+  // and dq += dS K from the accumulator registers.
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  auto ds_tile = [&](const T* sK, const T* sV, int j0, int n, float (&ds)[4]) {
-    float sc[4], dp[4];
-    scores(sK, j0, n, sc);
+  auto ds_tile = [&](int b, const T* sK, const T* sV, int j0, int n, float (&ds)[4]) {
+    float pr[4], dp[4];
+    if constexpr (kKept) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pr[e] = kept[b][n / 8][e];
+    } else {
+      scores(sK, j0, n, pr);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pr[e] = expf(pr[e] - m[e >> 1]) / l[e >> 1];
+    }
     rows_dot_block(dp, df, sV, S, n, dh);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1, i = r0 + g + 8 * r, jj = j0 + n + 2 * t + (e & 1);
-      const float pr = expf(sc[e] - m[r]) / l[r];
-      ds[e] = pr * (dp[e] * keep<kDrop>(mask, i, jj) - D[r]);
+      float kp;
+      if constexpr (kKept && kDrop)
+        kp = (kept_bits[b] >> (n / 2 + e)) & 1u ? mask.dp.scale : 0.0f;
+      else
+        kp = keep<kDrop>(mask, i, jj);
+      ds[e] = pr[e] * (dp[e] * kp - D[r]);
     }
   };
-  auto pass_dq = [&](const T* sK, const T* sV, int j0) {
+  auto pass_dq = [&](int b, const T* sK, const T* sV, int j0) {
     if constexpr (kF32) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j0 + 8 * j >= L) break;
         float ds[4];
-        ds_tile(sK, sV, j0, 8 * j, ds);
+        ds_tile(b, sK, sV, j0, 8 * j, ds);
         acc_times_block(acc, ds, reinterpret_cast<const float*>(sK), S, 8 * j, dh);
       }
     } else {
@@ -836,18 +931,14 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
         if (j0 + 16 * jj >= L) break;
         float ds[2][4];
-        ds_tile(sK, sV, j0, 16 * jj, ds[0]);
-        ds_tile(sK, sV, j0, 16 * jj + 8, ds[1]);
+        ds_tile(b, sK, sV, j0, 16 * jj, ds[0]);
+        ds_tile(b, sK, sV, j0, 16 * jj + 8, ds[1]);
         pair_times_block(acc, ds[0], ds[1], reinterpret_cast<const __nv_bfloat16*>(sK), S,
                          16 * jj, dh);
       }
     }
   };
-  for (int s = steps - nb; s < steps; ++s) {
-    const T* sK = ring_begin(ring, p.stage, s, steps, load);
-    if (live) pass_dq(sK, sK + kKeyBlock * S, (s - (steps - nb)) * kKeyBlock);
-    __syncthreads();
-  }
+  each_block(steps - nb, pass_dq);
   if (!live) return;
 
   store_rows(dq + at.in, dq_f != nullptr ? dq_f + at.in : nullptr, ld, acc, r0, L, dh, scale);
@@ -981,28 +1072,37 @@ struct AttnBwdArgs {
   AttnLayout lay;
 };
 
-// The backward in T at the instance's head width: launch 1, then launch 2
-// on the same stream. A stage holds two blocks of T and the fp32 statistics
-// of kKeyBlock rows; stats is (B, H, L, 3) fp32.
+// The backward in T at the instance's head width: launch 1 (its kKept
+// instance where the plan keeps S), then launch 2 on the same stream. A
+// stage holds two blocks of T and the fp32 statistics of kKeyBlock rows;
+// stats is (B, H, L, 3) fp32.
 template <typename T, bool kDrop, int kDh, bool kPacked>
 cudaError_t launch_bwd_mma(const AttnBwdArgs<T>& a, int B, int H, int L, int dh, float scale,
                            const AttnDropout& drop, const AttnBwdPlan& p, cudaStream_t stream) {
   constexpr int kStatElems = kKeyBlock * kStatCols * (int)(sizeof(float) / sizeof(T));
+  constexpr bool kCanKeep = sizeof(T) == 2 && kDh <= 16;
+  const int head_bytes = 2 * p.blocks * kKeyBlock * p.stride * (int)sizeof(T);
   if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
       (p.tiles - 1) * kTileRows + p.warps * kWarpRows < L || p.blocks * kKeyBlock < L ||
-      p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride + kStatElems ||
-      p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
+      p.stride < kDh ||
+      p.stage < 2 * kKeyBlock * p.stride + kStatElems ||
+      p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem ||
+      p.dq_bytes < (p.resident ? head_bytes : p.bytes) || p.dq_bytes > kMaxSmem ||
+      (p.kept && !(kCanKeep && p.resident && p.blocks <= kKeptBlocks)))
     return cudaErrorInvalidValue;
-  auto dq_kernel = attention_bwd_dq_mma_kernel<T, kDrop, kDh, kPacked>;
+  auto dq_kernel = attention_bwd_dq_mma_kernel<T, kDrop, kDh, kPacked, false>;
+  if constexpr (kCanKeep)
+    if (p.kept) dq_kernel = attention_bwd_dq_mma_kernel<T, kDrop, kDh, kPacked, true>;
   auto dkv_kernel = attention_bwd_dkv_mma_kernel<T, kDrop, kDh, kPacked>;
   cudaError_t err =
-      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.dq_bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, p.tiles);
-  dq_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(a.q, a.k, a.v, a.o, a.dout, a.dq, a.dq_f,
-                                                     a.stats, a.lay, H, L, dh, scale, drop, p);
+  dq_kernel<<<grid, p.warps * 32, p.dq_bytes, stream>>>(a.q, a.k, a.v, a.o, a.dout, a.dq,
+                                                        a.dq_f, a.stats, a.lay, H, L, dh,
+                                                        scale, drop, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkv_kernel<<<grid, p.warps * 32, p.bytes, stream>>>(a.q, a.k, a.v, a.dout, a.stats, a.dk,

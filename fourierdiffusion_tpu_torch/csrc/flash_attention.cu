@@ -21,7 +21,7 @@
 // attention_fwd_mma_kernel<T, kFast, kDrop, kDh> serves B2 (kDrop false:
 // fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true: fp32, and bf16
 // in the exact form); the two launches attention_bwd_dq_mma_kernel<T, kDrop,
-// kDh> and attention_bwd_dkv_mma_kernel<T, kDrop, kDh> serve B5 (kDrop
+// kDh, kKept> and attention_bwd_dkv_mma_kernel<T, kDrop, kDh> serve B5 (kDrop
 // false: every keep factor is the constant 1) and B6-bwd, in fp32 and bf16.
 //
 // Dropout masks: the TPU kernels' interpret-mode _keep_scale. Head h of
@@ -52,7 +52,8 @@
 // false: no AttnLayout is read): B2 attention_fwd_mma_kernel<T, kFast, false, kDh> (fp32,
 // bf16 and the fast bf16 form), B6-fwd its kDrop instance (fp32, and bf16 in
 // the exact form: JAX's _dropout_fwd_kernel takes no fast form), B5 and
-// B6-bwd the two launches attention_bwd_dq_mma_kernel<T, kDrop, kDh> and
+// B6-bwd the two launches attention_bwd_dq_mma_kernel<T, kDrop, kDh, kKept>
+// (kKept where the plan keeps S in registers) and
 // attention_bwd_dkv_mma_kernel<T, kDrop, kDh> (kDrop false: every keep
 // factor is the constant 1), all with kPacked false. Their design and numerics are described there.
 // The launches' plans (AttnFwdPlan, AttnBwdPlan) are computed by the Python

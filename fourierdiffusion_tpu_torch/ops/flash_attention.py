@@ -367,12 +367,25 @@ def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
 
 class AttnBwdPlan(ctypes.Structure):
     """B5/B6-bwd's two launches as the kernels take them (``AttnBwdPlan`` of
-    ``csrc/flash_attention.cu``): the instance's head width, warps per CTA,
-    CTAs per head, blocks of 64 rows in the ring, the row stride of a staged
-    block, the floats of a stage and the shared memory in bytes."""
+    ``csrc/attention_mma.cuh``): the instance's head width, warps per CTA,
+    CTAs per head, blocks of 64 rows, the row stride of a staged block, the
+    elements of a stage of the ring, launch 2's shared memory in bytes,
+    whether launch 1 holds the head's K and V whole and keeps S in
+    registers, and launch 1's shared memory in bytes."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "kdh", "warps", "tiles", "blocks", "stride", "stage", "bytes")]
+        "kdh", "warps", "tiles", "blocks", "stride", "stage", "bytes", "resident", "kept",
+        "dq_bytes")]
+
+
+# Launch 1 of B5/B6-bwd holds the head's K and V whole in shared memory
+# where they take at most half of it (two CTAs to an SM): at dh 16 up to
+# L = 1152 in bf16 (past the 896 that JAX's backward serves there) and 704
+# in fp32; beyond, they stream through the ring. In bf16, where the keys fit
+# in KEPT_BLOCKS blocks (L <= 128) and kdh is 16, each warp also keeps its
+# S, then P, in registers for the two later passes (fp32 has one later pass,
+# and keeping S there measured no faster than the resident form).
+KEPT_BLOCKS, KEPT_DH = 2, 16
 
 
 @functools.lru_cache(maxsize=64)
@@ -380,14 +393,18 @@ def attention_bwd_plan(max_len: int, dh: int, dtype: torch.dtype = torch.float32
     """B5/B6-bwd's launches at length ``max_len`` and head width ``dh`` in
     ``dtype`` (every chain and head alike). Both take tiles of 128 rows
     (query rows in launch 1, keys in launch 2), a warp per 16 of them (at
-    most 8), and stream blocks of 64 rows (keys, then query rows) through a
-    ring of FWD_STAGES stages: ``kdh`` (the mma's k step, 8 in fp32 and 16
-    in bf16, doubled up to cover dh), ``warps``, ``tiles``, ``blocks``, the
-    row ``stride`` of a staged block, the elements of ``dtype`` of a
-    ``stage`` (two blocks and 64 rows of STAT_COLS fp32 statistics), the
-    shared memory in ``bytes`` (whatever L) and all of it as
-    ``AttnBwdPlan`` (``struct``)."""
-    from fourierdiffusion_tpu_torch.ops.fused_encoder import tile_stride  # (import cycle)
+    most 8): ``kdh`` (the mma's k step, 8 in fp32 and 16 in bf16, doubled up
+    to cover dh), ``warps``, ``tiles``, ``blocks`` (of 64 rows: keys in
+    launch 1, query rows in launch 2), the row ``stride`` of a staged block,
+    the elements of ``dtype`` of a ``stage`` of the ring (two blocks and 64
+    rows of STAT_COLS fp32 statistics), the ring's shared memory in
+    ``bytes`` (FWD_STAGES stages, whatever L: launch 2's, and launch 1's
+    where it streams), ``resident`` where launch 1 holds the head's K and V
+    whole (``2 blocks x 64 x stride`` elements, at most half of
+    ``SMEM_LIMIT``), ``kept`` where it also keeps S in registers,
+    ``dq_bytes`` launch 1's shared memory, and all of it as ``AttnBwdPlan``
+    (``struct``)."""
+    from fourierdiffusion_tpu_torch.ops.fused_encoder import SMEM_LIMIT, tile_stride  # (cycle)
 
     size = torch.finfo(dtype).bits // 8
     kdh = 8 if size == 4 else 16
@@ -395,9 +412,15 @@ def attention_bwd_plan(max_len: int, dh: int, dtype: torch.dtype = torch.float32
         kdh *= 2
     stride = tile_stride(size, kdh, True)
     stage = 2 * KEY_BLOCK * stride + KEY_BLOCK * STAT_COLS * 4 // size
+    blocks = -(-max_len // KEY_BLOCK)
+    ring = FWD_STAGES * stage * size
+    head = 2 * blocks * KEY_BLOCK * stride * size
+    resident = head <= SMEM_LIMIT // 2
+    kept = resident and size == 2 and blocks <= KEPT_BLOCKS and kdh == KEPT_DH
     plan = {"kdh": kdh, "warps": min(MAX_WARPS, -(-max_len // WARP_ROWS)),
-            "tiles": -(-max_len // TILE_ROWS), "blocks": -(-max_len // KEY_BLOCK),
-            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * size}
+            "tiles": -(-max_len // TILE_ROWS), "blocks": blocks, "stride": stride,
+            "stage": stage, "bytes": ring, "resident": int(resident), "kept": int(kept),
+            "dq_bytes": head if resident else ring}
     return {**plan, "struct": AttnBwdPlan(**plan)}
 
 

@@ -366,7 +366,7 @@ def attention_launches(batch: int, max_len: int, d_model: int, n_head: int,
     return {
         "fwd_plan": fwd, "bwd_plan": bwd,
         "fwd": [("attention_fwd_mma_kernel", (heads, fwd["q_tiles"]), fwd["bytes"])],
-        "bwd": [("attention_bwd_dq_mma_kernel", (heads, bwd["tiles"]), bwd["bytes"]),
+        "bwd": [("attention_bwd_dq_mma_kernel", (heads, bwd["tiles"]), bwd["dq_bytes"]),
                 ("attention_bwd_dkv_mma_kernel", (heads, bwd["tiles"]), bwd["bytes"])],
     }
 

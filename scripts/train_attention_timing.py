@@ -21,15 +21,22 @@ dtype, with ``chip_smoke.py``'s own timers:
 * ``attention_ms``: the unfused path's attention kernels, which share
   ``csrc/attention_mma.cuh`` with the training layer, at the same heads
   (B=64, H=12, L=100, dh=6; seed-5 inputs): B2 (in bf16 its fast form),
-  B6-fwd, B5 and B6-bwd, each by ``time_ms`` (50 calls).
+  B6-fwd, B5 and B6-bwd, each by ``time_ms`` (50 calls);
+* ``digests``: sha256 of the outputs' bytes on those fixed-seed inputs, to
+  hold the roots' outputs bit for bit against each other: B4's dx, its 12
+  gradients and its attention stage's dq, dk, dv (``dqkv``), and B5's and
+  B6-bwd's dq, dk, dv and launch 1's statistics (m, l, D) at each of
+  ``chip_smoke.BWD_SHAPES`` (phase 10's; seed-5 heads there too).
 
-Prints the card's name and power limit, each root's readings and one JSON
-object, also written to ``chiprun_out/train_attention_timing.json``.
+Prints the card's name and power limit, each root's readings, whether
+every digest is the same in all roots, and one JSON object, also written
+to ``chiprun_out/train_attention_timing.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -48,6 +55,16 @@ def smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def child(root: Path) -> dict:
@@ -100,6 +117,17 @@ def child(root: Path) -> dict:
             "B5": lambda: fa._launch_bwd(q, k, v, o, do),
             "B6-bwd": lambda: fa._launch_bwd(q, k, v, o_drop, do, attn_seed, DROPOUT),
         }
+        dx, grads, ws = fet._launch_bwd(x, dy, lay, SEED, N_HEAD, DROPOUT, stages=True)
+        digests = {"B4": digest([dx, *grads, ws["dqkv"]])}
+        for b, h, l, dh in cs.BWD_SHAPES:
+            gs = torch.Generator(device="cuda").manual_seed(5)
+            qs, ks, vs, dos = (torch.randn((b, h, l, dh), generator=gs, device="cuda").to(dtype)
+                               for _ in range(4))
+            for name, sd, rate in (("B5", None, 0.0), ("B6-bwd", attn_seed, DROPOUT)):
+                os_ = (fa.flash_attention_reference(qs, ks, vs) if sd is None else
+                       fa.flash_attention_dropout_reference(qs, ks, vs, attn_seed, rate))
+                digests[f"{name} B={b} H={h} L={l} dh={dh}"] = digest(
+                    fa._launch_bwd(qs, ks, vs, os_, dos, sd, rate))
         b3 = cs.device_us_by_kernel(fwd)
         b4 = cs.device_us_by_kernel(bwd, calls=5)
         out[str(dtype).removeprefix("torch.")] = {
@@ -109,6 +137,7 @@ def child(root: Path) -> dict:
             "b3_device_us": b3.us_by_kernel, "b3_launches": b3.launches,
             "b4_device_us": b4.us_by_kernel, "b4_launches": b4.launches,
             "attention_ms": {name: cs.time_ms(fn) for name, fn in attention.items()},
+            "digests": digests,
         }
     out["smi_after"] = smi(SMI_FIELDS)
     return out
@@ -147,8 +176,13 @@ def main() -> int:
                 print(f"  {dt} {k.upper()} device us by kernel ({run[dt][f'{k}_launches']} "
                       f"launches per call): {json.dumps({n: round(t, 1) for n, t in us.items()})}"
                       f"; total {sum(us.values()):.1f}", flush=True)
+    differ = sorted({f"{dt} {name}" for dt in ("float32", "bfloat16")
+                     for name in runs[0][dt]["digests"]
+                     if len({run[dt]["digests"].get(name) for run in runs}) > 1})
+    print(f"outputs bit for bit across roots: {not differ}"
+          + (f"; differ: {differ}" if differ else ""), flush=True)
     result = {"device": card, "shape": [BATCH, MAX_LEN, D_MODEL, N_HEAD, D_FF, DROPOUT],
-              "runs": runs}
+              "runs": runs, "outputs_differ": differ}
     out = REPO / "chiprun_out" / "train_attention_timing.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -630,15 +630,25 @@ def test_bf16_attention_kernels_match_plain(cuda, rate, b, h, l, dh) -> None:
         assert _rel(got.float(), want.float()) <= BF16_ATTN_GRAD_TOL, name
 
 
+# bf16 B5 and B6-bwd where launch 1 keeps S in registers (L=100), holds the
+# head resident (L=187; L=896, the longest JAX's backward serves at dh 16)
+# and streams it through the ring (L=1280, past the resident limit of 1152
+# at dh 16).
+BF16_BWD_FORM_SHAPES = [(8, 12, 100, 6), (2, 8, 187, 16), (1, 8, 896, 16), (1, 8, 1280, 16)]
+BF16_BWD_FORM_IDS = ["L100-kept", "L187", "L896-resident", "L1280-ring"]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B5", "B6-bwd"])
-@pytest.mark.parametrize("b,h,l,dh", [(8, 12, 100, 6), (2, 8, 187, 16)], ids=["L100", "L187"])
+@pytest.mark.parametrize("b,h,l,dh", BF16_BWD_FORM_SHAPES, ids=BF16_BWD_FORM_IDS)
 def test_bf16_attention_backward_repeats_bit_for_bit(cuda, rate, b, h, l, dh) -> None:
     """Two calls of the bf16 B5 (and B6-bwd) give the same bits; launch 1's
     row statistics against the bf16 staged plain backward (m and l to 1e-4
     of the largest; D, from O = P_used v recomputed, within
     ``bf16_d_err_over_bound``'s bound of it, which D from the output the
-    backward is given breaks); dq, dk, dv against it to
-    BF16_ATTN_GRAD_TOL."""
+    backward is given breaks); dq, dk, dv against it and against the plain
+    version to BF16_ATTN_GRAD_TOL."""
+    plan = fa.attention_bwd_plan(l, dh, torch.bfloat16)
+    assert (plan["kept"], plan["resident"]) == {100: (1, 1), 1280: (0, 0)}.get(l, (0, 1))
     g = torch.Generator().manual_seed(7)
     q, k, v, do = (torch.randn(b, h, l, dh, generator=g).to(cuda, torch.bfloat16)
                    for _ in range(4))
@@ -659,6 +669,35 @@ def test_bf16_attention_backward_repeats_bit_for_bit(cuda, rate, b, h, l, dh) ->
     assert fa.bf16_d_err_over_bound(saved, d, q, k, v, do, keep).max() > 1.0
     for name, got, want in zip(("dq", "dk", "dv"), first, staged):
         assert _rel(got.float(), want.float()) <= BF16_ATTN_GRAD_TOL, name
+    plain = (fa.flash_attention_dropout_bwd_reference(q, k, v, do, seed, rate) if rate
+             else fa.flash_attention_bwd_reference(q, k, v, do))
+    for name, got, want in zip(("dq", "dk", "dv"), first, plain):
+        assert _rel(got.float(), want.float()) <= BF16_ATTN_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B5", "B6-bwd"])
+@pytest.mark.parametrize("b,h,l,dh", BF16_BWD_FORM_SHAPES[:3] + [(1, 2, 438, 64)],
+                         ids=BF16_BWD_FORM_IDS[:3] + ["L438-dh64"])
+def test_attention_backward_forms_agree_bit_for_bit(cuda, dtype, rate, b, h, l, dh,
+                                                    monkeypatch) -> None:
+    """Launch 1's forms sum every row in one order: the plan's form (S kept
+    in registers, or the head resident) gives the same dq, dk, dv and
+    statistics, bit for bit, as the ring."""
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn(b, h, l, dh, generator=g).to(cuda, dtype) for _ in range(4))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda) if rate else None
+    o = (fa.flash_attention_dropout_reference(q, k, v, seed, rate) if rate
+         else fa.flash_attention_reference(q, k, v))
+    chosen = fa.attention_bwd_plan(l, dh, dtype)
+    fields = {n: chosen[n] for n, _ in fa.AttnBwdPlan._fields_}
+    fields.update(resident=0, kept=0, dq_bytes=chosen["bytes"])
+    ring = {**fields, "struct": fa.AttnBwdPlan(**fields)}
+    first = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    monkeypatch.setattr(fa, "attention_bwd_plan", lambda *_: ring)
+    second = fa._launch_bwd(q, k, v, o, do, seed, rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 @pytest.mark.parametrize("b,h,l,dh", DROPOUT_FWD_SHAPES, ids=DROPOUT_FWD_IDS)

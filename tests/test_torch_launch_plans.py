@@ -184,27 +184,31 @@ def test_training_attention_launches_fit_and_cover(dtype, b, l, d, h) -> None:
     """The training layer's attention stages run B2's and B5's tiles over
     the packed qkv: B3 (and B4's recompute) one forward launch, B4's
     backward two, each a CTA per (chain, head) and 128 rows, a warp per 16
-    rows, a ring of two stages of 64 rows whose shared memory fits whatever
-    L; the plans the kernels are given are those of B2 and B5 at the head
-    width, and the launch counts stay 4 and 17."""
+    rows; the forward a ring of two stages of 64 rows whose shared memory
+    fits whatever L, the backward on B5's plan (``check_bwd_plan``: launch
+    1 resident where the head fits, S kept in bf16 at L=100); the plans the
+    kernels are given are those of B2 and B5 at the head width, and the
+    launch counts stay 4 and 17."""
     fwd = fet.train_fwd_plan(b, l, d, h, 2048, dtype=dtype)
     bwd = fet.train_bwd_plan(b, l, d, h, 2048, dtype=dtype)
     dh, size = d // h, torch.finfo(dtype).bits // 8
     attn = fwd["attention"]
     assert bwd["attention"] == attn
     fp, bp = attn["fwd_plan"], attn["bwd_plan"]
-    assert fp == fa.attention_fwd_plan(l, dh, dtype) and bp == fa.attention_bwd_plan(l, dh, dtype)
+    assert fp == fa.attention_fwd_plan(l, dh, dtype)
+    assert bp == fa.attention_bwd_plan(l, dh, dtype)
+    check_bwd_plan(bp, l, dh, dtype)
     tiles = -(-l // 128)
     assert attn["fwd"] == [("attention_fwd_mma_kernel", (b * h, tiles), fp["bytes"])]
-    assert attn["bwd"] == [("attention_bwd_dq_mma_kernel", (b * h, tiles), bp["bytes"]),
+    assert attn["bwd"] == [("attention_bwd_dq_mma_kernel", (b * h, tiles), bp["dq_bytes"]),
                            ("attention_bwd_dkv_mma_kernel", (b * h, tiles), bp["bytes"])]
     for plan in (fp, bp):
         assert plan["kdh"] >= dh and plan["kdh"] % (8 if size == 4 else 16) == 0
-        assert plan["warps"] == min(8, -(-l // 16))
-        assert (plan.get("q_tiles") or plan["tiles"]) == tiles
-        assert (plan.get("key_blocks") or plan["blocks"]) * 64 >= l
         assert plan["stride"] >= plan["kdh"] and plan["bytes"] == 2 * plan["stage"] * size
         assert plan["bytes"] <= fe.SMEM_LIMIT
+    assert fp["warps"] == bp["warps"] == min(8, -(-l // 16))
+    assert fp["q_tiles"] == bp["tiles"] == tiles
+    assert fp["key_blocks"] * 64 >= l
     assert fp["stage"] == 2 * 64 * fp["stride"]
     assert bp["stage"] == 2 * 64 * bp["stride"] + 64 * 3 * 4 // size
     assert (fwd["launches"], bwd["launches"]) == (4, 17)
@@ -688,65 +692,111 @@ def test_dropout_forward_plan_covers_every_length(l, dh) -> None:
 # ---- B5/B6-bwd: the attention backward's tiles ----------------------------------------------
 
 
-@pytest.mark.parametrize("dh", [6, 12, 16, 64])
-@pytest.mark.parametrize("l", [19, 100, 365, 775, 896, 3616])
-def test_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
-    """Both launches of the backward: every row (query rows in launch 1,
-    keys in launch 2) in exactly one warp's 16 rows, every row of the
-    streamed blocks (keys, then query rows) in one block of 64, the
-    instance's width covering dh in steps of 8, bank-conflict-free strides
-    with 16-byte rows, and shared memory that does not depend on L (the old
-    kernel staged the whole head and refused L >= 775 at dh 16) and stays
-    within 232,448 bytes."""
-    plan = fa.attention_bwd_plan(l, dh)
-    assert 1 <= plan["warps"] <= fa.MAX_WARPS
+BWD_LENGTHS = [1, 19, 64, 100, 128, 129, 365, 775, 896, 1152, 1153, 3616]
+
+
+def check_bwd_plan(plan: dict, l: int, dh: int, dtype: torch.dtype) -> None:
+    """What both dtypes' backward plans hold: every row (query rows in
+    launch 1, keys in launch 2) in exactly one warp's 16 rows, every key
+    (launch 1) and query row (launch 2) in one block of 64; the ring's
+    shared memory the same at every L and within 232,448 bytes (launch 2's,
+    and launch 1's where it streams: the kernel that staged the whole head
+    refused L >= 775 at dh 16); launch 1 resident exactly where the head's K
+    and V take at most half of that, so two CTAs share an SM; S kept in
+    registers exactly where resident in bf16 at L <= 128 and kdh 16."""
+    size = torch.finfo(dtype).bits // 8
+    assert plan["warps"] == min(fa.MAX_WARPS, -(-l // fa.WARP_ROWS))
     seen = torch.zeros(l, dtype=torch.int64)
     for y in range(plan["tiles"]):
         for w in range(plan["warps"]):
             r0 = y * fa.TILE_ROWS + w * fa.WARP_ROWS
             seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
     assert bool((seen == 1).all())
-    rows = torch.zeros(l, dtype=torch.int64)
-    for kb in range(plan["blocks"]):
-        rows[kb * fa.KEY_BLOCK:(kb + 1) * fa.KEY_BLOCK] += 1
-    assert bool((rows == 1).all()) and (plan["blocks"] - 1) * fa.KEY_BLOCK < l
-    assert plan["kdh"] >= dh and plan["kdh"] % 8 == 0 and plan["kdh"] < 2 * max(dh, 8)
-    assert plan["stride"] >= plan["kdh"] and plan["stride"] % 8 == 4
-    assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"] + fa.KEY_BLOCK * fa.STAT_COLS
-    assert plan["stage"] % 4 == 0  # the second stage starts on 16 bytes
-    assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * 4
-    assert plan["bytes"] == fa.attention_bwd_plan(19, dh)["bytes"] <= fe.SMEM_LIMIT
+    assert (plan["blocks"] - 1) * fa.KEY_BLOCK < l <= plan["blocks"] * fa.KEY_BLOCK
+    assert plan["kdh"] >= dh and plan["stride"] >= plan["kdh"]
+    assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * size
+    assert plan["bytes"] == fa.attention_bwd_plan(19, dh, dtype)["bytes"] <= fe.SMEM_LIMIT
+    head = 2 * plan["blocks"] * fa.KEY_BLOCK * plan["stride"] * size
+    assert plan["resident"] == int(head <= fe.SMEM_LIMIT // 2)
+    assert plan["dq_bytes"] == (head if plan["resident"] else plan["bytes"])
+    assert plan["dq_bytes"] <= (fe.SMEM_LIMIT // 2 if plan["resident"] else fe.SMEM_LIMIT)
+    assert plan["kept"] == int(plan["resident"] == 1 and size == 2
+                               and plan["blocks"] <= fa.KEPT_BLOCKS and plan["kdh"] == fa.KEPT_DH)
     struct = plan["struct"]
     assert [getattr(struct, k) for k, _ in struct._fields_] == [
         plan[k] for k, _ in fa.AttnBwdPlan._fields_]
 
 
 @pytest.mark.parametrize("dh", [6, 12, 16, 64])
-@pytest.mark.parametrize("l", [19, 100, 365, 775, 896, 3616])
+@pytest.mark.parametrize("l", BWD_LENGTHS)
+def test_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
+    """The fp32 launches (``check_bwd_plan``): the instance's width covering
+    dh in steps of 8, bank-conflict-free strides with 16-byte rows, a stage
+    of two blocks and 64 rows of fp32 statistics, S never kept."""
+    plan = fa.attention_bwd_plan(l, dh)
+    check_bwd_plan(plan, l, dh, torch.float32)
+    assert plan["kdh"] % 8 == 0 and plan["kdh"] < 2 * max(dh, 8)
+    assert plan["stride"] % 8 == 4 and plan["kept"] == 0
+    assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"] + fa.KEY_BLOCK * fa.STAT_COLS
+    assert plan["stage"] % 4 == 0  # the second stage starts on 16 bytes
+
+
+@pytest.mark.parametrize("dh", [6, 12, 16, 64])
+@pytest.mark.parametrize("l", BWD_LENGTHS)
 def test_bf16_attention_bwd_plan_covers_every_row_and_key(l, dh) -> None:
-    """The bf16 launches: the same tiles and blocks as fp32's, the
-    instance's width covering dh in steps of 16 (bf16 m16n8k16's k), strides
-    of 2-byte elements with S % 16 == 8 (ldmatrix rows of 16 bytes in
-    distinct banks), a stage of two bf16 blocks and the fp32 statistics of
-    64 rows (192 floats, 384 bf16 elements; the second stage starts on 16
-    bytes), and shared memory that does not depend on L, at most fp32's and
-    within 232,448 bytes."""
+    """The bf16 launches (``check_bwd_plan``): the same tiles and blocks as
+    fp32's, the instance's width covering dh in steps of 16 (bf16
+    m16n8k16's k), strides of 2-byte elements with S % 16 == 8 (ldmatrix
+    rows of 16 bytes in distinct banks), a stage of two bf16 blocks and the
+    fp32 statistics of 64 rows (192 floats, 384 bf16 elements; the second
+    stage starts on 16 bytes), the ring's shared memory at most fp32's, and
+    launch 1 resident wherever fp32's is."""
     plan = fa.attention_bwd_plan(l, dh, torch.bfloat16)
     fp32 = fa.attention_bwd_plan(l, dh)
+    check_bwd_plan(plan, l, dh, torch.bfloat16)
     assert {k: plan[k] for k in ("warps", "tiles", "blocks")} == {
         k: fp32[k] for k in ("warps", "tiles", "blocks")}
-    assert plan["kdh"] >= dh and plan["kdh"] % 16 == 0 and plan["kdh"] < 2 * max(dh, 16)
-    assert plan["stride"] >= plan["kdh"] and plan["stride"] % 16 == 8
-    assert plan["stride"] * 2 % 16 == 0
+    assert plan["kdh"] % 16 == 0 and plan["kdh"] < 2 * max(dh, 16)
+    assert plan["stride"] % 16 == 8 and plan["stride"] * 2 % 16 == 0
     assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"] + fa.KEY_BLOCK * fa.STAT_COLS * 2
     assert 2 * fa.KEY_BLOCK * plan["stride"] * 2 % 16 == 0  # the statistics' first byte
     assert plan["stage"] * 2 % 16 == 0  # the second stage's first byte
-    assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * 2
-    assert plan["bytes"] == fa.attention_bwd_plan(19, dh, torch.bfloat16)["bytes"]
-    assert plan["bytes"] <= fp32["bytes"] <= fe.SMEM_LIMIT
-    struct = plan["struct"]
-    assert [getattr(struct, k) for k, _ in struct._fields_] == [
-        plan[k] for k, _ in fa.AttnBwdPlan._fields_]
+    assert plan["bytes"] <= fp32["bytes"] and plan["resident"] >= fp32["resident"]
+    assert plan["kept"] == int(l <= 128 and dh <= 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh,max_len", [(6, 3616), (16, 896), (64, 896)])
+def test_attention_bwd_plan_is_resident_where_the_head_fits(dtype, dh, max_len) -> None:
+    """At every L from 1 to ``max_len`` (dh 6 to 3616, the longest the
+    unfused path is checked at; dh 16 and 64 to 896, the longest that JAX's
+    backward serves at dh 16): both launches cover every row once, launch 1
+    holds the head's K and V exactly where they take at most half the
+    shared memory and streams them through the ring beyond, so every length
+    runs. In bf16 at dh <= 16 that is every L to 896 (86,016 bytes there)
+    and on to 1152, in fp32 at dh 6 to 1152 too; the flagship's heads (L
+    100, dh 6) keep S in bf16."""
+    size = torch.finfo(dtype).bits // 8
+    resident = []
+    for l in range(1, max_len + 1):
+        plan = fa.attention_bwd_plan(l, dh, dtype)
+        assert (plan["tiles"] - 1) * fa.TILE_ROWS < l <= plan["tiles"] * fa.TILE_ROWS
+        assert plan["warps"] * fa.WARP_ROWS >= min(l, fa.TILE_ROWS)
+        assert (plan["blocks"] - 1) * fa.KEY_BLOCK < l <= plan["blocks"] * fa.KEY_BLOCK
+        head = 2 * plan["blocks"] * fa.KEY_BLOCK * plan["stride"] * size
+        assert plan["resident"] == int(head <= fe.SMEM_LIMIT // 2)
+        assert plan["dq_bytes"] <= fe.SMEM_LIMIT and plan["bytes"] <= fe.SMEM_LIMIT
+        resident.append(plan["resident"])
+    last = max(i + 1 for i, r in enumerate(resident) if r)
+    assert all(resident[:last]) and not any(resident[last:])
+    if dtype == torch.bfloat16 and dh <= 16:
+        assert last == min(max_len, 1152)
+        assert fa.attention_bwd_plan(896, dh, dtype)["dq_bytes"] == 86016
+        assert fa.attention_bwd_plan(1152, dh, dtype)["resident"] == 1
+        assert fa.attention_bwd_plan(1153, dh, dtype)["resident"] == 0
+    if dtype == torch.float32 and dh == 6:
+        assert last == 1152
+    assert fa.attention_bwd_plan(100, 6, dtype)["kept"] == int(dtype == torch.bfloat16)
 
 
 class _BwdPlanRecorder:
