@@ -86,7 +86,9 @@ Phases, each printed with its seconds as it ends:
    length and shipped head width (B2_SHAPES), at dh 64, and at L 3616 and
    438 (dh 6 and 64: longer than a kernel that stages the whole head takes),
    against its plain version (bf16: to B2_BF16_ULPS ulps of the largest
-   output), with its time, its plain version's and SDPA's.
+   output), with its time, its plain version's and SDPA's, and the form
+   its plan takes there (``fwd_form``: S kept, the head resident, or the
+   ring).
 10. unfused attention kernels, fp32 (bf16: phase 21): B6-fwd (dropout
    0.1; B2's kernel with the keep factors) against its plain version at
    (64, 12, 100, 6), (8, 12, 365, 6) and (1, 8, 2048, 16), with the masks
@@ -152,8 +154,10 @@ Phases, each printed with its seconds as it ends:
    marginal W2 in time and frequency, baselines, spectral density; the
    divergence census. Every ``*_mean`` is printed beside the same key of
    ``results.yaml`` and ``results_cross_our_sampler.yaml``, with the int8
-   runs' ratio to the bf16 run. Gates: the four W2 means below their
-   ``_dummy`` baselines in every run, and within 1.5x of ``results.yaml``
+   runs' ratio to the bf16 run, and each run's four gated means beside
+   QUALITY_PRIOR's (an earlier run's, printed, not gated). Gates: the four
+   W2 means below their ``_dummy`` baselines in every run, and within 1.5x
+   of ``results.yaml``
    over the 5000 samples in fp32 and bf16 (QUALITY_DRAWN says why 5000).
 17. CLI path, in a temporary directory: (a) ``fdiff-torch-train``
    (``cli.train.main``) on the flagship's training configuration as phase 8
@@ -243,10 +247,13 @@ Phases, each printed with its seconds as it ends:
    ``fdiff-torch-sample`` of the bf16 run's checkpoint, 64 samples at K=100
    through B1 in bf16.
 21. bf16 on the unfused path, MLP and LSTM: (a) B6-fwd, B5 and B6-bwd in
-   bf16 (``attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh>`` and
-   the two launches ``<__nv_bfloat16, *, kDh>`` on bf16 ``mma.sync``)
-   against their plain bf16 versions at phase 10's shapes: B6-fwd's output
-   to B2_BF16_ULPS ulps of its largest, the masks bit for bit, dq, dk, dv
+   bf16 (``attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh, false,
+   kKept>`` and the two launches ``<__nv_bfloat16, *, kDh>`` on bf16
+   ``mma.sync``) against their plain bf16 versions at phase 10's shapes:
+   B6-fwd's output to B2_BF16_ULPS ulps of its largest, its form (S kept
+   at L <= 128, resident to the plan's edge, the ring beyond; FWD_FORMS)
+   and its output bit for bit the ring form's, one launch per call with
+   its device time, the masks bit for bit, dq, dk, dv
    to BF16_ATTN_GRAD_TOL against the plain versions and the bf16 staged
    plain backward, launch 1's statistics against the staged version (D
    from O = P_used v recomputed, within ``bf16_d_err_over_bound``'s bound,
@@ -381,6 +388,9 @@ PRIOR_MS = {
     # (PERF.md, section 6; the same card and power limit).
     "B5": {"B=64 H=12 L=100 dh=6": 0.4462, "bf16 B=64 H=12 L=100 dh=6": 0.1096},
     "B6-bwd": {"B=64 H=12 L=100 dh=6": 0.4413, "bf16 B=64 H=12 L=100 dh=6": 0.1287},
+    # bf16 B6-fwd before its forward staged the head once and kept S in
+    # registers (PERF.md, section 6; the same card and power limit).
+    "B6-fwd": {"bf16 B=64 H=12 L=100 dh=6": 0.0516},
     # B7 and B8 on __dp4a, before their redesign on the tensor cores
     # (PERF.md, section 6; the same card and power limit).
     "B7": {"bfloat16 L=100 D=72 B=32": 0.2485}, "B8": {"bfloat16 L=100 D=72 B=32": 0.2697},
@@ -392,10 +402,12 @@ PRODUCT_KERNELS = ("gemm_kernel", "gemm_pair_kernel", "layer_tail_kernel",
                    "attention_bwd_dkv_mma_kernel")
 # ... and these must be among them: B2's kernel, the two launches of B5 and
 # B6-bwd, their bf16 instances (launch 1 in both forms: S kept in registers,
-# kKept true, and resident or streamed, false) and B6-fwd's
-# (BF16_ATTENTION_INSTANCES), and the tail that B3 runs.
+# kKept true, and resident or streamed, false), B6-fwd's and B2's bf16
+# exact instances in both forms (kKept; BF16_ATTENTION_INSTANCES), and the
+# tail that B3 runs.
 BF16_ATTENTION_INSTANCES = (
-    ("flash_attention", "attention_fwd_mma_kernel<__nv_bfloat16, false, true, 16, false>"),
+    *(("flash_attention", f"attention_fwd_mma_kernel<__nv_bfloat16, false, {drop}, 16, false, "
+                          f"{kept}>") for drop in ("false", "true") for kept in ("true", "false")),
     *(("flash_attention", f"attention_bwd_{kernel}<__nv_bfloat16, {drop}, 16, false{kept}>")
       for drop in ("false", "true")
       for kernel, kept in (("dq_mma_kernel", ", true"), ("dq_mma_kernel", ", false"),
@@ -410,7 +422,8 @@ TRAIN_ATTENTION_INSTANCES = tuple(
     (lib, f"{kernel}<{tp}, {flags}{kdh}, true{kept}>")
     for lib, tp, kdh in (("fused_encoder_train", "float", 8),
                          ("fused_encoder_train_bf16", "__nv_bfloat16", 16))
-    for kernel, flags, kept in (("attention_fwd_mma_kernel", "false, true, ", ""),
+    for kernel, flags, kept in (("attention_fwd_mma_kernel", "false, true, ", ", true"),
+                                ("attention_fwd_mma_kernel", "false, true, ", ", false"),
                                 ("attention_bwd_dq_mma_kernel", "true, ", ", true"),
                                 ("attention_bwd_dq_mma_kernel", "true, ", ", false"),
                                 ("attention_bwd_dkv_mma_kernel", "true, ", ""))
@@ -502,6 +515,10 @@ BWD_SHAPES = tuple((b, N_HEAD, l, 72 // N_HEAD) for b, l in ATTN_SHAPES) + (
 # memory) refused from L=1608 at that width.
 DROPOUT_FWD_SHAPES = tuple((b, N_HEAD, l, 72 // N_HEAD) for b, l in ATTN_SHAPES) + (
     (1, 8, 2048, 16),)
+# The form bf16 B6-fwd takes at each of them (phase 21 (a)): S kept in
+# registers where the keys fit in two blocks, the head's K and V resident
+# in shared memory where they fit in half of it, the ring beyond.
+FWD_FORMS = dict(zip(DROPOUT_FWD_SHAPES, ("kept", "resident", "ring")))
 BWD_FUNCTIONS = ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel")
 BWD_LAUNCHES = len(BWD_FUNCTIONS)  # CUDA launches per B5 or B6-bwd call
 # Launch 1's row statistics (max, sum, D = dO . O) against
@@ -601,6 +618,29 @@ QUALITY_GATED = ("float32", "bfloat16")
 # whose samples land near the dummy's distance (4.7x to 9.4x these values).
 QUALITY_KEYS = tuple(f"{d}_{m}_wasserstein_mean" for d in ("time", "freq")
                      for m in ("sliced", "marginal"))
+# Each run's QUALITY_KEYS over its QUALITY_DRAWN samples as an earlier run
+# of this script read them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# section 6): sampling runs B1, B7 and B8 only, so a change elsewhere
+# leaves them equal to the last digit. Printed beside this run's, never
+# gated.
+QUALITY_PRIOR = {
+    "float32": {"time_sliced_wasserstein_mean": 0.08543772995471954,
+                "time_marginal_wasserstein_mean": 0.15591415762901306,
+                "freq_sliced_wasserstein_mean": 0.060656480491161346,
+                "freq_marginal_wasserstein_mean": 0.05387948453426361},
+    "bfloat16": {"time_sliced_wasserstein_mean": 0.08514726161956787,
+                 "time_marginal_wasserstein_mean": 0.15569470822811127,
+                 "freq_sliced_wasserstein_mean": 0.06045527383685112,
+                 "freq_marginal_wasserstein_mean": 0.053567662835121155},
+    "int8-1": {"time_sliced_wasserstein_mean": 0.08595629781484604,
+               "time_marginal_wasserstein_mean": 0.1564759463071823,
+               "freq_sliced_wasserstein_mean": 0.06109298765659332,
+               "freq_marginal_wasserstein_mean": 0.0538877472281456},
+    "int8-2": {"time_sliced_wasserstein_mean": 0.08711397647857666,
+               "time_marginal_wasserstein_mean": 0.15742263197898865,
+               "freq_sliced_wasserstein_mean": 0.061961278319358826,
+               "freq_marginal_wasserstein_mean": 0.05370626971125603},
+}
 QUALITY_REF_FACTOR = 1.5
 REFERENCE_RESULTS = WEIGHTS.parent / "results.yaml"
 CROSS_RESULTS = WEIGHTS.parent / "results_cross_our_sampler.yaml"
@@ -1108,7 +1148,8 @@ def attention_vs_plain(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> d
         err, tol = (out.float() - ref.float()).abs().max().item(), b2_tol(dtype, ref)
         if not (torch.isfinite(out.float()).all() and err <= tol):
             raise AssertionError(f"B2 {shape}: kernel disagrees with plain version: {err}")
-        r = {"max_abs_err": err, "tol": tol,
+        r = {"form": fwd_form(l, dh, dtype, dtype == BF16 and dh < fa.DH_PAD),
+             "max_abs_err": err, "tol": tol,
              "err_bf16_ulps_of_max": err / bf16_ulp(ref.float().abs().max().item()),
              "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
              "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
@@ -1622,7 +1663,8 @@ def check_attention_kernels(b: int, h: int, l: int, dh: int) -> dict:
         b6f = fa._launch_fwd(q, k, v, seed, DROPOUT)
         b6f_plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
         torch.cuda.synchronize()
-        r = {"B6-fwd": {"max_abs_err": (b6f - b6f_plain).abs().max().item()}}
+        r = {"B6-fwd": {"form": fwd_form(l, dh, torch.float32),
+                        "max_abs_err": (b6f - b6f_plain).abs().max().item()}}
         if not (torch.isfinite(b6f).all() and r["B6-fwd"]["max_abs_err"] <= ATTN_TOL):
             raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
         b2 = fa._launch_fwd(q, k, v)
@@ -1656,6 +1698,15 @@ def bwd_form(b: int, h: int, l: int, dh: int, dtype: torch.dtype) -> dict:
     p = fa.attention_bwd_plan(l, dh, dtype)
     return {"launch1": "kept" if p["kept"] else "resident" if p["resident"] else "ring",
             "rows_per_cta": p["warps"] * fa.WARP_ROWS, "ctas": b * h * p["tiles"]}
+
+
+def fwd_form(l: int, dh: int, dtype: torch.dtype, fast: bool = False) -> str:
+    """The form of the attention forward at this length and head width
+    (B2, B6-fwd, the training layer's attention), from the plan the wrapper
+    passes: S kept in registers (the head resident), the head resident, or
+    streamed through the ring."""
+    p = fa.attention_fwd_plan(l, dh, dtype, fast)
+    return "kept" if p["kept"] else "resident" if p["resident"] else "ring"
 
 
 def check_attention_bwd(b: int, h: int, l: int, dh: int) -> dict:
@@ -2373,6 +2424,12 @@ def check_quality() -> dict:
                                for name, r in runs.items() if name.startswith("int8"))
             print(f"  n={n} {key}: {cells}  | results.yaml {reference.get(key, math.nan):.6f}"
                   f"  cross {cross.get(key, math.nan):.6f}  | {ratios}", flush=True)
+    for name, r in runs.items():
+        got = {key: r["results"][QUALITY_DRAWN][key] for key in QUALITY_KEYS}
+        prior = QUALITY_PRIOR.get(name, {})
+        print(f"  {name} n={QUALITY_DRAWN} against QUALITY_PRIOR: " + "; ".join(
+            f"{key} {got[key]!r} ({prior.get(key)!r})" for key in QUALITY_KEYS)
+            + f"; all equal to the last digit: {got == prior}", flush=True)
     if failures:
         raise AssertionError("sample quality: " + "; ".join(failures))
     return {"runs": runs, "reference": {k: reference[k] for k in QUALITY_KEYS},
@@ -3300,8 +3357,10 @@ def bf16_train_layer(layer, n_head: int, batch: int, l: int, timed: bool) -> dic
         raise AssertionError(f"B3/B4 {shape}: a repeated call gave other results: {identical}")
     r["bwd"]["stage_ms"] = bwd_stage_ms(x, dy, lay, seed, n_head)
     r["bwd"]["attention_form"] = bwd_form(batch, n_head, l, d // n_head, BF16)
+    r["fwd"]["attention_form"] = fwd_form(l, d // n_head, BF16)
     print(f"  B4 {shape}: per stage {json.dumps(r['bwd']['stage_ms'])}; the attention "
-          f"stage's launch 1 {json.dumps(r['bwd']['attention_form'])}", flush=True)
+          f"stage's launch 1 {json.dumps(r['bwd']['attention_form'])}; B3's (and B4's "
+          f"forward stage's) attention {r['fwd']['attention_form']}", flush=True)
     r["fwd"]["ms"] = time_ms(lambda: fet._launch_fwd(x, lay, seed, n_head, DROPOUT), iters=20)
     r["bwd"]["ms"] = time_ms(lambda: fet._launch_bwd(x, dy, lay, seed, n_head, DROPOUT),
                              iters=10)
@@ -3496,14 +3555,30 @@ def check_bf16_attention(b: int, h: int, l: int, dh: int, timed: bool) -> dict:
         raise AssertionError(f"B6 {shape}: the masks of the kernel and plain differ")
     if (b, h, l, dh) in DROPOUT_FWD_SHAPES:
         with torch.no_grad():
-            got = fa._launch_fwd(q, k, v, seed, DROPOUT)
+            call = lambda: fa._launch_fwd(q, k, v, seed, DROPOUT)  # noqa: E731
+            got = call()
             plain = fa.flash_attention_dropout_reference(q, k, v, seed, DROPOUT)
+            forms = {form: fa.attention_fwd_form(l, dh, BF16, form)
+                     for form in ("ring", "resident")}
+            same = {form: torch.equal(got, fa._launch_fwd(q, k, v, seed, DROPOUT, plan=plan))
+                    for form, plan in forms.items() if plan is not None}
             torch.cuda.synchronize()
-            r = {"max_abs_err": (got.float() - plain.float()).abs().max().item(),
+            r = {"form": fwd_form(l, dh, BF16), "as_forms_bit_for_bit": same,
+                 "max_abs_err": (got.float() - plain.float()).abs().max().item(),
                  "tol": b2_tol(BF16, plain)}
             if not (got.dtype == BF16 and torch.isfinite(got.float()).all()
                     and r["max_abs_err"] <= r["tol"]):
                 raise AssertionError(f"B6-fwd {shape}: kernel disagrees with plain version: {r}")
+            if r["form"] != FWD_FORMS[(b, h, l, dh)] or not all(same.values()):
+                raise AssertionError(f"B6-fwd {shape}: the {r['form']} form (expected "
+                                     f"{FWD_FORMS[(b, h, l, dh)]}) or its bits against the "
+                                     f"other forms: {same}")
+            prof = device_us_by_kernel(call, launches=1)
+            r["device_us_by_kernel"], r["launches_per_call"], r["profile_traces"] = \
+                prof.us_by_kernel, prof.launches, prof.traces
+            if r["launches_per_call"] != 1:
+                raise AssertionError(f"B6-fwd {shape}: {r['launches_per_call']} CUDA launches "
+                                     f"per call, expected 1")
             if timed:
                 r.update(ms=time_ms(lambda: fa._launch_fwd(q, k, v, seed, DROPOUT)),
                          plain_ms=time_ms(lambda: fa.flash_attention_dropout_reference(
@@ -3511,7 +3586,8 @@ def check_bf16_attention(b: int, h: int, l: int, dh: int, timed: bool) -> dict:
                          library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                              q, k, v, dropout_p=DROPOUT)))
                 r["bound_ms"], r["bound_by"] = bound(4 * b * h * l * l * dh, 4 * n * 2 + 8, BF16)
-        print(f"  B6-fwd {shape}: masks bit for bit; {json.dumps(r)}", flush=True)
+        print(f"  B6-fwd {shape}: masks bit for bit; {json.dumps(r)} (before the forward's "
+              f"redesign {PRIOR_MS['B6-fwd'].get(shape)} ms)", flush=True)
         out["B6-fwd"] = r
     if (b, h, l, dh) not in BWD_SHAPES:
         return out
@@ -3998,7 +4074,8 @@ def main() -> int:
     ):
         r = attn_main[key]
         checked = attn_kernels if key == "B6-fwd" else attn_bwd
-        extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh, false>"]} \
+        extra = {"functions": ["attention_fwd_mma_kernel<float, false, true, kDh, false, "
+                               "false>"]} \
             if key == "B6-fwd" else {
             "functions": [f"{f}<float, {str(key == 'B6-bwd').lower()}, kDh, false"
                           f"{', false' if 'dq' in f else ''}>" for f in BWD_FUNCTIONS],
@@ -4047,7 +4124,7 @@ def main() -> int:
             "steps_per_sec": bf16_runs["steps_per_sec"],
             "launches_per_call": breakdown[f"{count} bfloat16"]["launches_per_call"],
             "attention_functions": [f"{f}<__nv_bfloat16, *, kDh, true"
-                                    f"{', kKept' if 'dq' in f else ''}>"
+                                    f"{'' if 'dkv' in f else ', kKept'}>"
                                     for f in TRAIN_ATTENTION_FUNCTIONS
                                     if key == "bwd" or "fwd" in f],
             "sass": {k: v for k, v in sass.items() if k.startswith("fused_encoder_train_bf16: ")},
@@ -4069,7 +4146,9 @@ def main() -> int:
         r = main_attn[key]
         checked = {k: a[key] for k, a in bf16_unfused["attention"].items() if key in a}
         extra = {"functions": [
-            "attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh, false>"]} \
+            "attention_fwd_mma_kernel<__nv_bfloat16, false, true, kDh, false, kKept>"],
+            "form": r["form"], "device_us_by_kernel": r["device_us_by_kernel"],
+            "launches_per_call": r["launches_per_call"]} \
             if key == "B6-fwd" else {
             "functions": [f"{f}<__nv_bfloat16, {str(key == 'B6-bwd').lower()}, kDh, false"
                           f"{', kKept' if 'dq' in f else ''}>" for f in BWD_FUNCTIONS],

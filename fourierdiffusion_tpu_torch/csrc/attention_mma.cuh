@@ -21,23 +21,33 @@
 // (blockIdx.x = b H + h) and 128 rows of it (blockIdx.y).
 //
 // The forward (attention_fwd_mma_kernel): a warp per 16 query rows (one m16
-// tile), up to 8 warps. The head's K and V stream through a ring of two key
-// blocks of 64 rows in shared memory, filled by cp.async (16 bytes a copy
-// where the rows allow it, else 4: stage_keys; zero past L keys and dh
-// columns): one block is staged while the other is used, so shared memory
-// does not grow with L and every length runs. Both products run on the
-// tensor cores with mma_tile.cuh's fragments: bf16 m16n8k16, fp32 as 3xTF32
-// m16n8k8 (K and V split into TF32 hi and lo as fragments are read). To keep
-// JAX's rounding points (P normalised and rounded to T before P v) the kernel
-// makes two passes over the key blocks: the first stages K alone and keeps
-// each row's running max and rescaled sum (per thread, then over the row's
-// quad by shuffles), the second stages K and V again, recomputes S, forms P,
-// multiplies it by its keep factor (kDrop), rounds it and multiplies it by V
-// straight from the accumulator registers (for fp32 the keys of an n8 tile
-// are permuted so that the accumulator layout is the A-operand layout, and
-// V's rows are read in the same permutation). At these head widths
-// recomputing S costs one small mma per key tile. kFast is B2's bf16
-// max-free form (q pre-scaled, scores clamped to +-60, no max pass).
+// tile), up to 8 warps, over key blocks of 64 rows in shared memory, filled
+// by cp.async (16 bytes a copy where the rows allow it, else 4: stage_keys;
+// zero past L keys and dh columns). Both products run on the tensor cores
+// with mma_tile.cuh's fragments: bf16 m16n8k16, fp32 as 3xTF32 m16n8k8 (K
+// and V split into TF32 hi and lo as fragments are read). To keep JAX's
+// rounding points (P normalised and rounded to T before P v) the kernel makes
+// two passes over the key blocks: the first keeps each row's running max and
+// rescaled sum (per thread, then over the row's quad by shuffles), the
+// second forms P, multiplies it by its keep factor (kDrop), rounds it and
+// multiplies it by V straight from the accumulator registers (for fp32 the
+// keys of an n8 tile are permuted so that the accumulator layout is the
+// A-operand layout, and V's rows are read in the same permutation; in bf16
+// P is formed two n8 tiles at a time, just before their product, and not
+// past L). Where the head's K and V fit in half the shared memory (two CTAs
+// to an SM; up to L = 1152 at dh 16 in bf16 and at dh 6 in fp32) they are
+// staged once, K and V as two cp.async groups, so pass 1 waits for K alone
+// while V's copy runs on, and pass 2 for V, with no barrier between their
+// steps (resident); in bf16's exact form at L <= 128 (two key blocks) and
+// kDh 16 each warp also keeps its rows' S over the keys in registers from
+// pass 1, so pass 2 forms P from it without computing S again (kKept);
+// longer heads stream K, then K and V again, through a ring of two key
+// blocks, one staged while the other is used and a barrier per step, so
+// shared memory does not grow with L and every length runs (pass 2 then
+// computes S again, one small mma per key tile at these head widths). Every
+// form sums each row over the keys in the same order with the same
+// expressions, so all give the same bits. kFast is B2's bf16 max-free form
+// (q pre-scaled, scores clamped to +-60, no max pass).
 //
 // The backward, JAX's _bwd_core: dq = dS k scale, dk = dS^T q scale, dv =
 // P_used^T dO with dS = P o (dP o keep - D), as two launches on the
@@ -93,10 +103,11 @@
 #include "mma_tile.cuh"
 
 // The forward's launch, as ops/flash_attention.py's AttnFwdPlan passes it
-// (computed there by attention_fwd_plan). A stage of the ring holds one key
-// block of K, then (in the second pass) the same block of V: 64 rows
-// (kKeyBlock) of stride elements each. (Outside the namespaces: the exported
-// C functions and the training layer's plans take it.)
+// (computed there by attention_fwd_plan). Where resident the head's K and V
+// lie whole in shared memory (K's key blocks, then V's); else a stage of the
+// ring holds one key block of K, then (in the second pass) the same block of
+// V: 64 rows (kKeyBlock) of stride elements each. (Outside the namespaces:
+// the exported C functions and the training layer's plans take it.)
 struct AttnFwdPlan {
   int kdh;         // head width of the instance: dh padded to the mma's k step
   int warps;       // per CTA: one per 16 query rows, at most 8
@@ -104,7 +115,9 @@ struct AttnFwdPlan {
   int key_blocks;  // blocks of 64 keys
   int stride;      // row stride (elements) of a staged K or V block
   int stage;       // elements of a stage of the ring
-  int bytes;       // dynamic shared memory: two stages
+  int bytes;       // dynamic shared memory: the head's K and V where resident, else two stages
+  int resident;    // the head's K and V staged whole: 2 blocks x 64 rows x stride
+  int kept;        // S kept in registers from pass 1 (bf16 exact, resident, 2 blocks, kdh 16)
 };
 
 // The backward's two launches, as ops/flash_attention.py's AttnBwdPlan
@@ -134,7 +147,7 @@ constexpr int kWarpRows = 16;  // query rows per warp: one m16 tile
 constexpr int kMmaWarps = 8;   // at most; 128 query rows per CTA
 constexpr int kTileRows = kMmaWarps * kWarpRows;
 constexpr int kRingStages = 2;  // key blocks in the ring: one staged while one is used
-constexpr int kKeptBlocks = 2;  // launch 1 keeps S in registers over up to two key blocks
+constexpr int kKeptBlocks = 2;  // the forward and launch 1 keep S in registers over up to two key blocks
 constexpr int kStatCols = 3;  // per query row: the softmax max m, its sum l, D = dO . O
 
 // Where the heads lie, in elements. Head h of chain b: the inputs q, k, v
@@ -419,32 +432,48 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, float* __restric
 // grid (B * H, p.q_tiles); blockDim p.warps warps. kFast: the max-free bf16
 // form; `scale` (rounded to bf16 by the caller) then scales q as it is
 // loaded, rounded to bf16, in place of S. kDrop: P o keep before P v, with
-// the mask of `drop`.
-template <typename T, bool kFast, bool kDrop, int kDh, bool kPacked>
+// the mask of `drop`. Where p.resident, the head's K and V lie whole in
+// shared memory (K's blocks, then V's), staged once as two cp.async groups;
+// else they stream through the ring, a barrier per step. kKept (bf16 exact,
+// resident, at most kKeptBlocks key blocks): each warp keeps its rows' S
+// from pass 1 for pass 2 (the same values as computed again: the same
+// products and scale).
+template <typename T, bool kFast, bool kDrop, int kDh, bool kPacked, bool kKept>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o, AttnLayout lay, int H,
                          int L, int dh, float scale, AttnDropout drop, AttnFwdPlan p) {
   constexpr bool kF32 = sizeof(T) == 4;
   static_assert(!kDrop || !kFast, "dropout runs in the exact form only");
+  static_assert(!kKept || (!kF32 && !kFast && kDh == 16), "S is kept in bf16's exact form");
   constexpr int KS = kDh / (kF32 ? 8 : 16);  // k steps of q k^T
   constexpr int NO = kDh / 8;                 // n8 tiles of O
   extern __shared__ __align__(16) unsigned char fwd_smem[];
-  T* ring = reinterpret_cast<T*>(fwd_smem);
+  T* smem = reinterpret_cast<T*>(fwd_smem);
   const int S = p.stride, nb = p.key_blocks, steps = 2 * nb;
+  const bool resident = kKept || p.resident;
   const HeadAt at = head_at<kPacked>(lay, H, L, dh);
   const int ld = at.ld;
+  // V's block lies this far past K's: past the head's K where resident, past
+  // one block in a stage of the ring.
+  const int v_off = (resident ? nb : 1) * kKeyBlock * S;
 
-  // Step s of 2 nb stages key block s % nb into stage s % kRingStages: K in
-  // the first pass (s < nb), K and V in the second; zero past L keys and dh
-  // columns.
+  // Ring step s of 2 nb stages key block s % nb into stage s % kRingStages:
+  // K in the first pass (s < nb), K and V in the second; zero past L keys
+  // and dh columns.
   auto load = [&](int s) {
-    T* sK = ring + (s % kRingStages) * p.stage;
+    T* sK = smem + (s % kRingStages) * p.stage;
     const int j0 = (s % nb) * kKeyBlock;
     stage_keys<T, kDh>(sK, S, k + at.in, ld, j0, L, dh);
     if (s >= nb) stage_keys<T, kDh>(sK + kKeyBlock * S, S, v + at.in, ld, j0, L, dh);
   };
-  load(0);
+  if (resident) {
+    stage_keys<T, kDh>(smem, S, k + at.in, ld, 0, L, dh, nb * kKeyBlock);
+    tc::cp_async_commit();
+    stage_keys<T, kDh>(smem + v_off, S, v + at.in, ld, 0, L, dh, nb * kKeyBlock);
+  } else {
+    load(0);
+  }
   tc::cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -473,6 +502,35 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qa[ks][e] = pack_bf16(q_at(r, c), q_at(r, c + 1));
       }
     }
+
+  // fn(b, sK, sV, j0) for each key block b of the pass whose first ring
+  // step is `first` (K at sK, V at sV, first key j0), in block order, by the
+  // live warps. Resident, the blocks lie in place (kKept: b a constant once
+  // unrolled, so the kept tiles stay in registers); in the ring each step
+  // waits for its stage and frees it after.
+  auto each_block = [&](int first, auto&& fn) {
+    if constexpr (kKept) {
+#pragma unroll
+      for (int b = 0; b < kKeptBlocks; ++b) {
+        const T* sK = smem + b * kKeyBlock * S;
+        if (b < nb && live) fn(b, sK, sK + v_off, b * kKeyBlock);
+      }
+    } else {
+      for (int b = 0; b < nb; ++b) {
+        const T* sK = resident ? smem + b * kKeyBlock * S
+                               : ring_begin(smem, p.stage, first + b, steps, load);
+        if (live) fn(b, sK, sK + v_off, b * kKeyBlock);
+        if (!resident) __syncthreads();
+      }
+    }
+  };
+  // Resident, wait for K (group 0) before pass 1, for V (group 1) after it.
+  auto resident_wait = [&](auto groups_left) {
+    if (resident) {
+      tc::cp_async_wait<decltype(groups_left)::value>();
+      __syncthreads();
+    }
+  };
 
   // S of the n8 tile at key n of the block staged at sK, whose first key
   // is j0 (accumulator layout: element e at row g + 8 (e >> 1), key n + 2t +
@@ -512,11 +570,14 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
+  // kKept: S of the warp's rows, per key block and n8 tile.
+  float kept[kKept ? kKeptBlocks : 1][8][4];
+
   // Pass 1, per row (g and g + 8): the running max and the sum of exp(s -
   // max) rescaled as the max grows (the fast form: the sum of exp(s)), over
   // this thread's keys of the block.
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
-  auto pass1 = [&](const T* sK, int j0) {
+  auto pass1 = [&](int b, const T* sK, const T*, int j0) {
     float sc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) scores(sK, j0, 8 * j, sc[j]);
@@ -539,7 +600,10 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          l[e >> 1] += expf(sc[j][e] - m[e >> 1]);
+          if constexpr (kKept) kept[b][j][e] = sc[j][e];
+        }
     }
   };
   // Then over the row's four threads.
@@ -562,80 +626,81 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  // Pass 2: S again, P = exp(s - max) / sum (fast: exp(s) * inv), with
-  // dropout times keep, rounded to T, and O += P V from the accumulator
-  // registers.
+  // Pass 2: P = exp(s - max) / sum (fast: exp(s) * inv) of each n8 tile
+  // from S again (or kept), with dropout times keep, rounded to T, and O +=
+  // P V from the accumulator registers.
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  auto pass2 = [&](const T* sK, const T* sV, int j0) {
-    float pr[8][4];
+  auto pass2 = [&](int b, const T* sK, const T* sV, int j0) {
+    auto probs = [&](int j, float (&pr)[4]) {
+      if constexpr (kKept) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      scores(sK, j0, 8 * j, pr[j]);
+        for (int e = 0; e < 4; ++e) pr[e] = kept[b][j][e];
+      } else {
+        scores(sK, j0, 8 * j, pr);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        pr[j][e] = kFast ? __expf(pr[j][e]) * inv[r] : expf(pr[j][e] - m[r]) / l[r];
+        pr[e] = kFast ? __expf(pr[e]) * inv[r] : expf(pr[e] - m[r]) / l[r];
         if constexpr (kDrop)
-          pr[j][e] *= keep<kDrop>(mask, r0 + g + 8 * r, j0 + 8 * j + 2 * t + (e & 1));
+          pr[e] *= keep<kDrop>(mask, r0 + g + 8 * r, j0 + 8 * j + 2 * t + (e & 1));
       }
-    }
+    };
     if constexpr (kF32) {
+      float pr[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) probs(j, pr[j]);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (j0 + 8 * j < L)
           acc_times_block(acc, pr[j], reinterpret_cast<const float*>(sV), S, 8 * j, dh);
     } else {
-      // Two n8 tiles of P (16 keys) are one m16n8k16 A fragment, rounded to
-      // bf16 as it is packed.
+      // Two n8 tiles of P (16 keys), formed just before their product, are
+      // one m16n8k16 A fragment, rounded to bf16 as it is packed.
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         if (j0 + 16 * jj >= L) continue;
-        const uint32_t a[4] = {pack_bf16(pr[2 * jj][0], pr[2 * jj][1]),
-                               pack_bf16(pr[2 * jj][2], pr[2 * jj][3]),
-                               pack_bf16(pr[2 * jj + 1][0], pr[2 * jj + 1][1]),
-                               pack_bf16(pr[2 * jj + 1][2], pr[2 * jj + 1][3])};
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          if (8 * n >= dh) continue;
-          uint32_t bb[2];
-          tc::ldmatrix_x2_trans(bb, sV + (16 * jj + (lane & 15)) * S + 8 * n);
-          tc::mma_bf16(acc[n], a, bb);
-        }
+        float pr[2][4];
+        probs(2 * jj, pr[0]);
+        probs(2 * jj + 1, pr[1]);
+        pair_times_block(acc, pr[0], pr[1], reinterpret_cast<const __nv_bfloat16*>(sV), S,
+                         16 * jj, dh);
       }
     }
   };
 
-  for (int s = 0; s < nb; ++s) {
-    const T* sK = ring_begin(ring, p.stage, s, steps, load);
-    if (live) pass1(sK, s * kKeyBlock);
-    __syncthreads();
-  }
+  resident_wait(std::integral_constant<int, 1>{});
+  each_block(0, pass1);
   if (live) row_stats();
-  for (int s = nb; s < steps; ++s) {
-    const T* sK = ring_begin(ring, p.stage, s, steps, load);
-    if (live) pass2(sK, sK + kKeyBlock * S, (s - nb) * kKeyBlock);
-    __syncthreads();
-  }
+  resident_wait(std::integral_constant<int, 0>{});
+  each_block(nb, pass2);
   if (!live) return;
   store_rows(o + at.o, static_cast<float*>(nullptr), at.ldo, acc, r0, L, dh, 1.0f);
 }
 
 // Checks the plan against the shape and launches the forward in T at the
-// instance's head width kDh.
+// instance's head width kDh (its kKept instance where the plan keeps S).
 template <typename T, bool kFast, bool kDrop, int kDh, bool kPacked>
 cudaError_t launch_fwd_mma(const T* q, const T* k, const T* v, T* o, const AttnLayout& lay,
                            int B, int H, int L, int dh, float scale, const AttnDropout& drop,
                            const AttnFwdPlan& p, cudaStream_t stream) {
+  constexpr bool kCanKeep = sizeof(T) == 2 && !kFast && kDh <= 16;
+  const int head_bytes = 2 * p.key_blocks * kKeyBlock * p.stride * (int)sizeof(T);
   if (B * H < 1 || L < 1 || dh > kDh || p.warps < 1 || p.warps > kMmaWarps ||
       (p.q_tiles - 1) * kTileRows + p.warps * kWarpRows < L || p.key_blocks * kKeyBlock < L ||
       p.stride < kDh || p.stage < 2 * kKeyBlock * p.stride ||
-      p.bytes < kRingStages * p.stage * (int)sizeof(T) || p.bytes > kMaxSmem)
+      (p.resident != 0 && p.resident != 1) || (p.kept != 0 && p.kept != 1) ||
+      p.bytes < (p.resident ? head_bytes : kRingStages * p.stage * (int)sizeof(T)) ||
+      p.bytes > kMaxSmem || (p.resident && head_bytes > kMaxSmem / 2) ||
+      (p.kept && !(kCanKeep && p.resident && p.key_blocks <= kKeptBlocks)))
     return cudaErrorInvalidValue;
-  auto kernel = attention_fwd_mma_kernel<T, kFast, kDrop, kDh, kPacked>;
+  auto kernel = attention_fwd_mma_kernel<T, kFast, kDrop, kDh, kPacked, false>;
+  if constexpr (kCanKeep)
+    if (p.kept) kernel = attention_fwd_mma_kernel<T, kFast, kDrop, kDh, kPacked, true>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          p.bytes);
   if (err != cudaSuccess) return err;

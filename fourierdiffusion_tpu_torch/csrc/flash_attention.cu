@@ -18,11 +18,12 @@
 //   B6 _dropout_fwd_kernel / _dropout_bwd_kernel: the same with the keep
 //     factors (keep / (1 - rate)) multiplied into P before P v, and into dP
 //     and P^T in the backward.
-// attention_fwd_mma_kernel<T, kFast, kDrop, kDh> serves B2 (kDrop false:
-// fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true: fp32, and bf16
-// in the exact form); the two launches attention_bwd_dq_mma_kernel<T, kDrop,
-// kDh, kKept> and attention_bwd_dkv_mma_kernel<T, kDrop, kDh> serve B5 (kDrop
-// false: every keep factor is the constant 1) and B6-bwd, in fp32 and bf16.
+// attention_fwd_mma_kernel<T, kFast, kDrop, kDh, kPacked, kKept> serves B2
+// (kDrop false: fp32, bf16 and the fast bf16 form) and B6-fwd (kDrop true:
+// fp32, and bf16 in the exact form; kKept where the plan keeps S); the two
+// launches attention_bwd_dq_mma_kernel<T, kDrop, kDh, kKept> and
+// attention_bwd_dkv_mma_kernel<T, kDrop, kDh> serve B5 (kDrop false: every
+// keep factor is the constant 1) and B6-bwd, in fp32 and bf16.
 //
 // Dropout masks: the TPU kernels' interpret-mode _keep_scale. Head h of
 // chain b is keyed by tag = seed + b*131071 + g0 (uint32), where g0 = h - h %
@@ -49,7 +50,7 @@
 // are fewer than its 7.4 MB take).
 //
 // The kernels are attention_mma.cuh's, over (B, H, L, dh) heads (kPacked
-// false: no AttnLayout is read): B2 attention_fwd_mma_kernel<T, kFast, false, kDh> (fp32,
+// false: no AttnLayout is read): B2 attention_fwd_mma_kernel<T, kFast, false, kDh, false, kKept> (fp32,
 // bf16 and the fast bf16 form), B6-fwd its kDrop instance (fp32, and bf16 in
 // the exact form: JAX's _dropout_fwd_kernel takes no fast form), B5 and
 // B6-bwd the two launches attention_bwd_dq_mma_kernel<T, kDrop, kDh, kKept>

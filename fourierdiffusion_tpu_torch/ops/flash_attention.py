@@ -333,25 +333,37 @@ class PlainAttentionDropout(torch.autograd.Function):
 
 class AttnFwdPlan(ctypes.Structure):
     """B2's launch as the kernel takes it (``AttnFwdPlan`` of
-    ``csrc/flash_attention.cu``): the instance's head width, warps per CTA,
+    ``csrc/attention_mma.cuh``): the instance's head width, warps per CTA,
     CTAs per head, key blocks, the row stride of a staged block, the
-    elements of a stage of the ring and the shared memory in bytes."""
+    elements of a stage of the ring, the shared memory in bytes, and
+    whether the head's K and V are staged whole and S kept in registers."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "kdh", "warps", "q_tiles", "key_blocks", "stride", "stage", "bytes")]
+        "kdh", "warps", "q_tiles", "key_blocks", "stride", "stage", "bytes", "resident", "kept")]
+
+
+# The key blocks over which a warp keeps its rows' S in registers (the
+# forward's pass 1 for pass 2; B5/B6-bwd's launch 1 for its later passes),
+# and the instance head width it does so at.
+KEPT_BLOCKS, KEPT_DH = 2, 16
 
 
 @functools.lru_cache(maxsize=64)
-def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
+def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype, fast: bool = False) -> dict:
     """B2's launch at length ``max_len`` and head width ``dh`` in ``dtype``
-    (for every chain and head alike; B6-fwd takes the same): the head
+    (for every chain and head alike; B6-fwd and the training layer's
+    attention take the same; ``fast``: B2's max-free bf16 form): the head
     width of the instance (``kdh``: the mma's k step, 8 in fp32 and 16 in
     bf16, doubled up to cover dh), the warps of a CTA (one per 16 query rows of the first tile,
     at most 8), the CTAs per head (tiles of 128 query rows), the key blocks
     of 64, the row stride of a staged K or V block, the elements of a stage
-    of the ring (a block of K and one of V), the shared memory (FWD_STAGES
-    stages, whatever L) and all of it as ``AttnFwdPlan`` (``struct``)."""
-    from fourierdiffusion_tpu_torch.ops.fused_encoder import tile_stride  # (import cycle)
+    of the ring (a block of K and one of V), ``resident`` where the head's K
+    and V are staged whole (``2 blocks x 64 x stride`` elements, at most
+    half of ``SMEM_LIMIT``: two CTAs to an SM), ``kept`` where bf16's exact
+    form also keeps S in registers (at most KEPT_BLOCKS key blocks, kdh
+    KEPT_DH), the shared memory (the head where resident, else FWD_STAGES
+    stages whatever L) and all of it as ``AttnFwdPlan`` (``struct``)."""
+    from fourierdiffusion_tpu_torch.ops.fused_encoder import SMEM_LIMIT, tile_stride  # (cycle)
 
     size = torch.finfo(dtype).bits // 8
     kdh = 8 if size == 4 else 16
@@ -359,10 +371,39 @@ def attention_fwd_plan(max_len: int, dh: int, dtype: torch.dtype) -> dict:
         kdh *= 2
     stride = tile_stride(size, kdh, True)
     stage = 2 * KEY_BLOCK * stride
+    blocks = -(-max_len // KEY_BLOCK)
+    head = 2 * blocks * KEY_BLOCK * stride * size
+    resident = head <= SMEM_LIMIT // 2
+    kept = resident and size == 2 and not fast and blocks <= KEPT_BLOCKS and kdh == KEPT_DH
     plan = {"kdh": kdh, "warps": min(MAX_WARPS, -(-max_len // WARP_ROWS)),
-            "q_tiles": -(-max_len // TILE_ROWS), "key_blocks": -(-max_len // KEY_BLOCK),
-            "stride": stride, "stage": stage, "bytes": FWD_STAGES * stage * size}
+            "q_tiles": -(-max_len // TILE_ROWS), "key_blocks": blocks,
+            "stride": stride, "stage": stage,
+            "bytes": head if resident else FWD_STAGES * stage * size,
+            "resident": int(resident), "kept": int(kept)}
     return {**plan, "struct": AttnFwdPlan(**plan)}
+
+
+def attention_fwd_form(max_len: int, dh: int, dtype: torch.dtype, form: str,
+                       fast: bool = False) -> dict | None:
+    """``attention_fwd_plan(max_len, dh, dtype, fast)`` in another form, for
+    checks that every form gives the same bits: ``"ring"`` (K and V
+    streamed) or ``"resident"`` (staged whole, S not kept); None where the
+    head's K and V take more than half of ``SMEM_LIMIT``."""
+    from fourierdiffusion_tpu_torch.ops.fused_encoder import SMEM_LIMIT  # (import cycle)
+
+    plan = attention_fwd_plan(max_len, dh, dtype, fast)
+    size = torch.finfo(dtype).bits // 8
+    head = 2 * plan["key_blocks"] * KEY_BLOCK * plan["stride"] * size
+    fields = {k: plan[k] for k, _ in AttnFwdPlan._fields_}
+    if form == "ring":
+        fields.update(resident=0, kept=0, bytes=FWD_STAGES * plan["stage"] * size)
+    elif form != "resident":
+        raise ValueError(f"no forward form {form!r}")
+    elif head > SMEM_LIMIT // 2:
+        return None
+    else:
+        fields.update(resident=1, kept=0, bytes=head)
+    return {**fields, "struct": AttnFwdPlan(**fields)}
 
 
 class AttnBwdPlan(ctypes.Structure):
@@ -385,7 +426,6 @@ class AttnBwdPlan(ctypes.Structure):
 # in KEPT_BLOCKS blocks (L <= 128) and kdh is 16, each warp also keeps its
 # S, then P, in registers for the two later passes (fp32 has one later pass,
 # and keeping S there measured no faster than the resident form).
-KEPT_BLOCKS, KEPT_DH = 2, 16
 
 
 @functools.lru_cache(maxsize=64)
@@ -480,8 +520,11 @@ def _dropout_args(q: torch.Tensor, seed: torch.Tensor | None, rate: float) -> li
     return [seed.data_ptr(), thr, scale, attention_group(q.shape[1], q.shape[2]), stream]
 
 
-def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
-    """B2 (seed None) or B6-fwd on contiguous CUDA tensors."""
+def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0,
+                plan: dict | None = None):
+    """B2 (seed None) or B6-fwd on contiguous CUDA tensors, on
+    ``attention_fwd_plan`` or the given ``plan`` (another form of it:
+    ``attention_fwd_form``)."""
     global launches, fast_launches, dropout_fwd_launches
     b, h, l, dh = _dims(q)
     scale = 1.0 / math.sqrt(dh)
@@ -489,7 +532,7 @@ def _launch_fwd(q, k, v, seed: torch.Tensor | None = None, rate: float = 0.0):
         variant, scale = 2, _bf16_scale(dh)
     else:
         variant = 0 if q.dtype == torch.float32 else 1
-    plan = attention_fwd_plan(l, dh, q.dtype)["struct"]
+    plan = (plan or attention_fwd_plan(l, dh, q.dtype, variant == 2))["struct"]
     out = torch.empty_like(q)
     err = _library().fdiff_attention_fwd(
         variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -613,6 +656,7 @@ __all__ = [
     "PlainAttentionDropout",
     "attention_bwd_plan",
     "attention_bwd_staged",
+    "attention_fwd_form",
     "attention_fwd_plan",
     "attention_group",
     "attention_keep",

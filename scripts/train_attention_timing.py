@@ -21,12 +21,17 @@ dtype, with ``chip_smoke.py``'s own timers:
 * ``attention_ms``: the unfused path's attention kernels, which share
   ``csrc/attention_mma.cuh`` with the training layer, at the same heads
   (B=64, H=12, L=100, dh=6; seed-5 inputs): B2 (in bf16 its fast form),
-  B6-fwd, B5 and B6-bwd, each by ``time_ms`` (50 calls);
+  B6-fwd, B5 and B6-bwd, and B2's exact form at fast.yaml's heads (B=64,
+  H=8, L=100, dh=16: ``B2 exact``), each by ``time_ms`` (50 calls);
+* ``attention_device_us``: device microseconds per launch of B2, ``B2
+  exact`` and B6-fwd there (``device_us_by_kernel``);
 * ``digests``: sha256 of the outputs' bytes on those fixed-seed inputs, to
-  hold the roots' outputs bit for bit against each other: B4's dx, its 12
-  gradients and its attention stage's dq, dk, dv (``dqkv``), and B5's and
-  B6-bwd's dq, dk, dv and launch 1's statistics (m, l, D) at each of
-  ``chip_smoke.BWD_SHAPES`` (phase 10's; seed-5 heads there too).
+  hold the roots' outputs bit for bit against each other: B3's output;
+  B4's dx, its 12 gradients and its attention stage's dq, dk, dv
+  (``dqkv``); B5's and B6-bwd's dq, dk, dv and launch 1's statistics (m, l,
+  D) at each of ``chip_smoke.BWD_SHAPES`` (phase 10's; seed-5 heads there
+  too); B6-fwd's output at each of ``chip_smoke.DROPOUT_FWD_SHAPES`` and
+  B2's at each of ``chip_smoke.B2_SHAPES`` (phase 9's), seed-5 heads.
 
 Prints the card's name and power limit, each root's readings, whether
 every digest is the same in all roots, and one JSON object, also written
@@ -96,6 +101,8 @@ def child(root: Path) -> dict:
     ga = torch.Generator(device="cuda").manual_seed(5)
     heads = [torch.randn((BATCH, N_HEAD, MAX_LEN, D_MODEL // N_HEAD), generator=ga,
                          device="cuda") for _ in range(4)]
+    heads16 = [torch.randn((BATCH, 8, MAX_LEN, 16), generator=ga, device="cuda")
+               for _ in range(3)]
     attn_seed = torch.tensor([2**31 - 3], dtype=torch.int64, device="cuda")
     for dtype in fet.DTYPES:
         lay = {k: t.detach() for k, t in fet.pack_encoder_layer_train(layer, N_HEAD,
@@ -111,14 +118,24 @@ def child(root: Path) -> dict:
         q, k, v, do = (t.to(dtype) for t in heads)
         o = fa.flash_attention_reference(q, k, v)
         o_drop = fa.flash_attention_dropout_reference(q, k, v, attn_seed, DROPOUT)
+        q16 = [t.to(dtype) for t in heads16]
         attention = {
             "B2": lambda: fa._launch_fwd(q, k, v),
             "B6-fwd": lambda: fa._launch_fwd(q, k, v, attn_seed, DROPOUT),
             "B5": lambda: fa._launch_bwd(q, k, v, o, do),
             "B6-bwd": lambda: fa._launch_bwd(q, k, v, o_drop, do, attn_seed, DROPOUT),
+            "B2 exact": lambda: fa._launch_fwd(*q16),
         }
         dx, grads, ws = fet._launch_bwd(x, dy, lay, SEED, N_HEAD, DROPOUT, stages=True)
-        digests = {"B4": digest([dx, *grads, ws["dqkv"]])}
+        digests = {"B3": digest([fwd()]), "B4": digest([dx, *grads, ws["dqkv"]])}
+        for name, shapes, sd in (("B6-fwd", cs.DROPOUT_FWD_SHAPES, attn_seed),
+                                 ("B2", cs.B2_SHAPES, None)):
+            for b, h, l, dh in shapes:
+                gs = torch.Generator(device="cuda").manual_seed(5)
+                qs, ks, vs = (torch.randn((b, h, l, dh), generator=gs, device="cuda").to(dtype)
+                              for _ in range(3))
+                digests[f"{name} B={b} H={h} L={l} dh={dh}"] = digest(
+                    [fa._launch_fwd(qs, ks, vs, sd, DROPOUT if sd is not None else 0.0)])
         for b, h, l, dh in cs.BWD_SHAPES:
             gs = torch.Generator(device="cuda").manual_seed(5)
             qs, ks, vs, dos = (torch.randn((b, h, l, dh), generator=gs, device="cuda").to(dtype)
@@ -137,6 +154,8 @@ def child(root: Path) -> dict:
             "b3_device_us": b3.us_by_kernel, "b3_launches": b3.launches,
             "b4_device_us": b4.us_by_kernel, "b4_launches": b4.launches,
             "attention_ms": {name: cs.time_ms(fn) for name, fn in attention.items()},
+            "attention_device_us": {name: cs.device_us_by_kernel(attention[name]).us_per_launch
+                                    for name in ("B2", "B2 exact", "B6-fwd")},
             "digests": digests,
         }
     out["smi_after"] = smi(SMI_FIELDS)
@@ -176,6 +195,9 @@ def main() -> int:
                 print(f"  {dt} {k.upper()} device us by kernel ({run[dt][f'{k}_launches']} "
                       f"launches per call): {json.dumps({n: round(t, 1) for n, t in us.items()})}"
                       f"; total {sum(us.values()):.1f}", flush=True)
+            print(f"  {dt} attention device us per launch: " + json.dumps(
+                {name: {n: round(t, 2) for n, t in us.items()}
+                 for name, us in run[dt]["attention_device_us"].items()}), flush=True)
     differ = sorted({f"{dt} {name}" for dt in ("float32", "bfloat16")
                      for name in runs[0][dt]["digests"]
                      if len({run[dt]["digests"].get(name) for run in runs}) > 1})

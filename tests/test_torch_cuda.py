@@ -34,7 +34,9 @@ calls bit for bit; B6-fwd (B2's kernel with the keep factors) up to L
 shapes against their plain bf16 versions (outputs to B2_BF16_ULPS ulps of
 the largest, gradients to BF16_ATTN_GRAD_TOL of each tensor's largest,
 launch 1's statistics against the bf16 staged plain backward), and the
-unfused trainer in bf16 through them; B3 at rate 0 and 0.1
+unfused trainer in bf16 through them; the forward's forms (streamed through
+the ring, the head resident, S kept in registers) bit for bit against each
+other for B2, B6-fwd and B3's attention launch, at the edges of each; B3 at rate 0 and 0.1
 at every shape B4 is checked at, and a repeated B3 call bit for bit. B1 is checked
 where a row tile holds one row, one chain or straddles chains, B4's stages
 against the staged plain backward (``train_backward_staged``, flipped ReLU
@@ -698,6 +700,113 @@ def test_attention_backward_forms_agree_bit_for_bit(cuda, dtype, rate, b, h, l, 
     second = fa._launch_bwd(q, k, v, o, do, seed, rate)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+# The bf16 exact forward where it keeps S in registers (the flagship's heads;
+# L=128 at dh 16, the last two key blocks), holds the head resident (L=129,
+# and the plan's last resident length at dh 16) and streams it through the
+# ring (one past that).
+_LAST_RESIDENT = max(l for l in range(1, 2049)
+                     if fa.attention_fwd_plan(l, 16, torch.bfloat16)["resident"])
+BF16_FWD_FORM_SHAPES = [(8, 12, 100, 6), (2, 8, 128, 16), (2, 8, 129, 16),
+                        (1, 8, _LAST_RESIDENT, 16), (1, 8, _LAST_RESIDENT + 1, 16)]
+BF16_FWD_FORM_IDS = ["L100-kept", "L128-kept", "L129-resident", "last-resident", "ring"]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["B2", "B6-fwd"])
+@pytest.mark.parametrize("b,h,l,dh", BF16_FWD_FORM_SHAPES, ids=BF16_FWD_FORM_IDS)
+def test_bf16_attention_forward_forms_agree_bit_for_bit(cuda, rate, b, h, l, dh) -> None:
+    """The bf16 exact forward (B6-fwd; B2 at dh 16, its exact form) sums
+    every row in one order with the same expressions in every form: the
+    plan's form (S kept, or the head resident) gives the same bits as the
+    ring and as the resident form, and the plan takes the form its rules
+    say."""
+    plan = fa.attention_fwd_plan(l, dh, torch.bfloat16)
+    want = "kept" if l <= 128 else "resident" if l <= _LAST_RESIDENT else "ring"
+    assert ("kept" if plan["kept"] else "resident" if plan["resident"] else "ring") == want
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    if rate:
+        seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda)
+        call = lambda **kw: fa._launch_fwd(q, k, v, seed, rate, **kw)  # noqa: E731
+    else:
+        q, k, v = (t.repeat_interleave(-(-16 // dh), -1)[..., :16] for t in (q, k, v))
+        call = lambda **kw: fa._launch_fwd(q, k, v, **kw)  # noqa: E731
+    width = q.shape[-1]
+    first = call()
+    forms = {f: fa.attention_fwd_form(l, width, torch.bfloat16, f) for f in ("ring", "resident")}
+    others = {f: call(plan=p) for f, p in forms.items() if p is not None}
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all()
+    assert ("resident" in others) == (l <= _LAST_RESIDENT)
+    for form, out in others.items():
+        assert torch.equal(first, out), form
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,l,d,n_head", [(8, 100, 72, 12), (2, 128, 128, 8), (2, 129, 128, 8),
+                                          (1, _LAST_RESIDENT, 128, 8),
+                                          (1, _LAST_RESIDENT + 1, 128, 8)],
+                         ids=["L100-kept", "L128-kept", "L129-resident", "last-resident", "ring"])
+def test_training_attention_forms_agree_bit_for_bit(cuda, dtype, b, l, d, n_head) -> None:
+    """B3, whose attention launch takes the forward's plan at the head width
+    over the packed qkv, gives the same bits in every form of that launch:
+    the plan's, the ring and the resident form (in bf16 at the edges of its
+    kept and resident forms; fp32 is resident to L=704 at dh 16 and keeps no
+    S)."""
+    torch.manual_seed(0)
+    layer = TransformerEncoderLayer(d, n_head, 256, 0.1)
+    lay = {k: t.to(cuda) for k, t in fet.pack_encoder_layer_train(
+        layer, n_head, dtype).items()}
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(b, l, d, generator=g).to(cuda, dtype)
+    dh, chosen = d // n_head, fa.attention_fwd_plan
+    first = fet._launch_fwd(x, lay, 17, n_head, 0.1)
+    outs = {}
+    try:
+        for form in ("ring", "resident"):
+            plan = fa.attention_fwd_form(l, dh, dtype, form)
+            if plan is None:
+                continue
+            fa.attention_fwd_plan = lambda *_a, _p=plan, **_k: _p
+            fet.train_fwd_plan.cache_clear()
+            outs[form] = fet._launch_fwd(x, lay, 17, n_head, 0.1)
+    finally:
+        fa.attention_fwd_plan = chosen
+        fet.train_fwd_plan.cache_clear()
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all() and "ring" in outs
+    for form, out in outs.items():
+        assert torch.equal(first, out), form
+
+
+# fp32 and bf16's fast form (B2 at dh < 16) hold the head resident up to the
+# same L=1152 at dh 6, and keep no S.
+FWD_FORM_SHAPES = [(8, 12, 100, 6), (2, 12, 365, 6), (1, 4, 1152, 6), (1, 4, 1153, 6)]
+FWD_FORM_IDS = ["L100", "L365", "last-resident", "ring"]
+
+
+@pytest.mark.parametrize("kind", ["fp32-B2", "fp32-B6-fwd", "bf16-fast-B2"])
+@pytest.mark.parametrize("b,h,l,dh", FWD_FORM_SHAPES, ids=FWD_FORM_IDS)
+def test_attention_forward_forms_agree_bit_for_bit(cuda, kind, b, h, l, dh) -> None:
+    """B2 and B6-fwd in fp32, and B2's bf16 fast form, give the same bits in
+    the plan's form (resident to L=1152 at dh 6, S never kept) as in the
+    ring and the resident form."""
+    dtype = torch.bfloat16 if kind.startswith("bf16") else torch.float32
+    fast = kind == "bf16-fast-B2"
+    plan = fa.attention_fwd_plan(l, dh, dtype, fast)
+    assert (plan["resident"], plan["kept"]) == (int(l <= 1152), 0)
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g).to(cuda, dtype) for _ in range(3))
+    seed = torch.tensor([2**31 - 3], dtype=torch.int64, device=cuda)
+    args = (seed, 0.1) if kind.endswith("B6-fwd") else ()
+    first = fa._launch_fwd(q, k, v, *args)
+    others = {f: fa._launch_fwd(q, k, v, *args, plan=p) for f in ("ring", "resident")
+              if (p := fa.attention_fwd_form(l, dh, dtype, f, fast)) is not None}
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all() and "ring" in others
+    for form, out in others.items():
+        assert torch.equal(first, out), form
 
 
 @pytest.mark.parametrize("b,h,l,dh", DROPOUT_FWD_SHAPES, ids=DROPOUT_FWD_IDS)

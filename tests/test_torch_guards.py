@@ -45,7 +45,8 @@ PORT = REPO / "fourierdiffusion_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "omegaconf", "pandas",
              "fourierdiffusion_tpu")
 # Scripts of scripts/ that run on the card, beside chip_smoke.py.
-CARD_SCRIPTS = ("c2_train_quality.py", "train_attention_timing.py", "attention_bwd_passes.py")
+CARD_SCRIPTS = ("c2_train_quality.py", "train_attention_timing.py", "attention_bwd_passes.py",
+                "attention_fwd_passes.py")
 # The one function of the port that may import pandas, inside its body.
 PANDAS_EXCEPTION = ("preprocessing.py", "mimic_preprocess")
 

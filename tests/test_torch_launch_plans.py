@@ -34,8 +34,11 @@ rounding of P or O moves an output by one bf16 ulp).
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,11 +187,12 @@ def test_training_attention_launches_fit_and_cover(dtype, b, l, d, h) -> None:
     """The training layer's attention stages run B2's and B5's tiles over
     the packed qkv: B3 (and B4's recompute) one forward launch, B4's
     backward two, each a CTA per (chain, head) and 128 rows, a warp per 16
-    rows; the forward a ring of two stages of 64 rows whose shared memory
-    fits whatever L, the backward on B5's plan (``check_bwd_plan``: launch
-    1 resident where the head fits, S kept in bf16 at L=100); the plans the
-    kernels are given are those of B2 and B5 at the head width, and the
-    launch counts stay 4 and 17."""
+    rows; the forward on B2's plan (``check_fwd_plan``: a ring of two
+    stages of 64 rows whose shared memory fits whatever L, in bf16 the head
+    resident where it fits and S kept at L=100), the backward on B5's plan
+    (``check_bwd_plan``: launch 1 resident where the head fits, S kept in
+    bf16 at L=100); the plans the kernels are given are those of B2 and B5
+    at the head width, and the launch counts stay 4 and 17."""
     fwd = fet.train_fwd_plan(b, l, d, h, 2048, dtype=dtype)
     bwd = fet.train_bwd_plan(b, l, d, h, 2048, dtype=dtype)
     dh, size = d // h, torch.finfo(dtype).bits // 8
@@ -198,14 +202,16 @@ def test_training_attention_launches_fit_and_cover(dtype, b, l, d, h) -> None:
     assert fp == fa.attention_fwd_plan(l, dh, dtype)
     assert bp == fa.attention_bwd_plan(l, dh, dtype)
     check_bwd_plan(bp, l, dh, dtype)
+    check_fwd_plan(fp, l, dh, dtype)
+    assert (fp["resident"], fp["kept"]) == (1, int(size == 2 and l <= 128 and dh <= 16))
     tiles = -(-l // 128)
     assert attn["fwd"] == [("attention_fwd_mma_kernel", (b * h, tiles), fp["bytes"])]
     assert attn["bwd"] == [("attention_bwd_dq_mma_kernel", (b * h, tiles), bp["dq_bytes"]),
                            ("attention_bwd_dkv_mma_kernel", (b * h, tiles), bp["bytes"])]
     for plan in (fp, bp):
         assert plan["kdh"] >= dh and plan["kdh"] % (8 if size == 4 else 16) == 0
-        assert plan["stride"] >= plan["kdh"] and plan["bytes"] == 2 * plan["stage"] * size
-        assert plan["bytes"] <= fe.SMEM_LIMIT
+        assert plan["stride"] >= plan["kdh"] and plan["bytes"] <= fe.SMEM_LIMIT
+    assert bp["bytes"] == 2 * bp["stage"] * size
     assert fp["warps"] == bp["warps"] == min(8, -(-l // 16))
     assert fp["q_tiles"] == bp["tiles"] == tiles
     assert fp["key_blocks"] * 64 >= l
@@ -587,6 +593,40 @@ def test_three_tf32_products_hold_fp32_accuracy_and_one_does_not(seed: int) -> N
 
 # ---- B2: the attention forward's tiles and its order of operations ----------------------
 
+def check_fwd_plan(plan: dict, l: int, dh: int, dtype: torch.dtype,
+                   fast: bool = False) -> None:
+    """What every forward plan holds: every query row in exactly one warp's
+    16 rows and every key in one block of 64; the ring's shared memory the
+    same at every L and within 232,448 bytes; resident exactly where the
+    head's K and V take at most half of that (so two CTAs share an SM), its
+    shared memory then theirs, and S kept exactly where resident in bf16's
+    exact form at most KEPT_BLOCKS key blocks at kdh 16; the struct the
+    fields in order."""
+    size = torch.finfo(dtype).bits // 8
+    assert plan["warps"] == min(fa.MAX_WARPS, -(-l // fa.WARP_ROWS))
+    seen = torch.zeros(l, dtype=torch.int64)
+    for y in range(plan["q_tiles"]):
+        for w in range(plan["warps"]):
+            r0 = y * fa.TILE_ROWS + w * fa.WARP_ROWS
+            seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
+    assert bool((seen == 1).all())
+    assert (plan["key_blocks"] - 1) * fa.KEY_BLOCK < l <= plan["key_blocks"] * fa.KEY_BLOCK
+    assert plan["kdh"] >= dh and plan["stride"] >= plan["kdh"]
+    ring = fa.FWD_STAGES * plan["stage"] * size
+    assert ring == fa.FWD_STAGES * fa.attention_fwd_plan(19, dh, dtype)["stage"] * size
+    assert ring <= fe.SMEM_LIMIT
+    head = 2 * plan["key_blocks"] * fa.KEY_BLOCK * plan["stride"] * size
+    assert plan["resident"] == int(head <= fe.SMEM_LIMIT // 2)
+    assert plan["bytes"] == (head if plan["resident"] else ring)
+    assert plan["bytes"] <= (fe.SMEM_LIMIT // 2 if plan["resident"] else fe.SMEM_LIMIT)
+    assert plan["kept"] == int(plan["resident"] == 1 and size == 2 and not fast
+                               and plan["key_blocks"] <= fa.KEPT_BLOCKS
+                               and plan["kdh"] == fa.KEPT_DH)
+    struct = plan["struct"]
+    assert [getattr(struct, k) for k, _ in struct._fields_] == [
+        plan[k] for k, _ in fa.AttnFwdPlan._fields_]
+
+
 B2_LENGTHS = (1, 17, 24, 100, 128, 129, 187, 251, 252, 365)
 B2_WIDTHS = (1, 6, 8, 12, 16, 22, 32, 33, 64)
 
@@ -597,11 +637,13 @@ def test_attention_plan_covers_every_row_and_key(dtype, l) -> None:
     """Every query row in exactly one warp's 16 rows (at most 8 warps, 128
     rows, per CTA), every key in one block of 64, the instance's width
     covering dh in steps of the mma's k, bank-conflict-free strides with
-    16-byte rows, and a ring of two stages of a K and a V block whose shared
-    memory does not depend on L and stays within 232,448 bytes up to dh 64."""
+    16-byte rows, and shared memory (``check_fwd_plan``) within 232,448
+    bytes up to dh 64: the ring's, two stages of a K and a V block, the same
+    at every L, or where resident the head's K and V."""
     size = torch.finfo(dtype).bits // 8
     for dh in B2_WIDTHS:
         plan = fa.attention_fwd_plan(l, dh, dtype)
+        check_fwd_plan(plan, l, dh, dtype)
         assert 1 <= plan["warps"] <= fa.MAX_WARPS
         seen = torch.zeros(l, dtype=torch.int64)
         for y in range(plan["q_tiles"]):
@@ -618,12 +660,108 @@ def test_attention_plan_covers_every_row_and_key(dtype, l) -> None:
         assert plan["stride"] >= plan["kdh"] and plan["stride"] * size % 16 == 0
         assert plan["stride"] % 8 == 4 if size == 4 else plan["stride"] % 16 == 8
         assert plan["stage"] == 2 * fa.KEY_BLOCK * plan["stride"]
-        assert plan["bytes"] == fa.FWD_STAGES * plan["stage"] * size
-        assert plan["bytes"] == fa.attention_fwd_plan(100_000, dh, dtype)["bytes"]
-        assert plan["bytes"] <= fe.SMEM_LIMIT
         struct = plan["struct"]
         assert [getattr(struct, k) for k, _ in struct._fields_] == [
             plan[k] for k, _ in fa.AttnFwdPlan._fields_]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", [6, 12, 16, 33, 64])
+def test_attention_fwd_plan_is_resident_where_the_head_fits(dtype, dh) -> None:
+    """At every L from 1 to 3616 (the longest the unfused path is checked
+    at): the plan covers every row and key (``check_fwd_plan``); it holds
+    the head's K and V exactly where they take at most half the shared
+    memory, from L=1 up to its last resident length and at no L past it
+    (every L to 1152 at dh <= 16 in bf16 and at dh 6 in fp32, as B5's launch
+    1), the fast form on the same tiles and in the same form; bf16's exact
+    form keeps S exactly at L <= 128 and dh <= 16, fp32 and the fast form
+    never."""
+    resident, kept = [], []
+    for l in range(1, 3617):
+        plan = fa.attention_fwd_plan(l, dh, dtype)
+        check_fwd_plan(plan, l, dh, dtype)
+        resident.append(plan["resident"])
+        kept.append(plan["kept"])
+        if dtype == torch.bfloat16 and dh < fa.DH_PAD and l % 97 == 0:
+            fast = fa.attention_fwd_plan(l, dh, dtype, fast=True)
+            check_fwd_plan(fast, l, dh, dtype, fast=True)
+            assert {**fast, "struct": None} == {**plan, "kept": 0, "struct": None}
+    last = max(i + 1 for i, r in enumerate(resident) if r)
+    assert all(resident[:last]) and not any(resident[last:])
+    bf16 = dtype == torch.bfloat16
+    assert kept == [int(bf16 and dh <= 16 and l <= 128) for l in range(1, 3617)]
+    if (bf16 and dh <= 16) or dh == 6:
+        assert last == 1152
+    assert last == max(l for l in range(1, 3617)
+                       if fa.attention_bwd_plan(l, dh, dtype)["resident"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("l", [1, 100, 128, 129, 365, 1152, 1153, 2048])
+def test_attention_fwd_forms_are_the_plan_in_another_form(dtype, l) -> None:
+    """``attention_fwd_form``: the ring form streams the plan's tiles (two
+    stages of shared memory, neither resident nor kept), the resident form
+    holds the head's K and V without keeping S, and exists exactly where the
+    head fits in half the shared memory; the tiles stay the plan's."""
+    plan = fa.attention_fwd_plan(l, 16, dtype)
+    size = torch.finfo(dtype).bits // 8
+    ring = fa.attention_fwd_form(l, 16, dtype, "ring")
+    resident = fa.attention_fwd_form(l, 16, dtype, "resident")
+    tiles = ("kdh", "warps", "q_tiles", "key_blocks", "stride", "stage")
+    assert {k: ring[k] for k in tiles} == {k: plan[k] for k in tiles}
+    assert (ring["resident"], ring["kept"]) == (0, 0)
+    assert ring["bytes"] == fa.FWD_STAGES * plan["stage"] * size
+    head = 2 * plan["key_blocks"] * fa.KEY_BLOCK * plan["stride"] * size
+    assert (resident is None) == (head > fe.SMEM_LIMIT // 2)
+    if resident is not None:
+        assert {k: resident[k] for k in tiles} == {k: plan[k] for k in tiles}
+        assert (resident["resident"], resident["kept"], resident["bytes"]) == (1, 0, head)
+    for form in (ring, resident):
+        if form is not None:
+            assert [getattr(form["struct"], k) for k, _ in fa.AttnFwdPlan._fields_] == [
+                form[k] for k, _ in fa.AttnFwdPlan._fields_]
+    with pytest.raises(ValueError):
+        fa.attention_fwd_form(l, 16, dtype, "kept")
+
+
+def _c_struct_fields(name: str) -> list[str]:
+    """The field names of ``struct name`` in ``csrc/attention_mma.cuh``, in order."""
+    text = (Path(fa.__file__).resolve().parents[1] / "csrc" / "attention_mma.cuh").read_text()
+    body = text.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
+    return [m.group(1) for m in re.finditer(r"^\s*int\s+(\w+);", body, re.MULTILINE)]
+
+
+@pytest.mark.parametrize("name", ["AttnFwdPlan", "AttnBwdPlan"])
+def test_plan_structs_match_the_kernels_structs(name) -> None:
+    """The ``ctypes`` plan structs hold the C structs' int fields in the same
+    order (the training layer's plans embed them, so a field added on one
+    side only would read as another on the other)."""
+    ours = getattr(fa, name)
+    theirs = _c_struct_fields(name)
+    assert [f for f, _ in ours._fields_] == theirs
+    assert all(t is ctypes.c_int for _, t in ours._fields_)
+    assert ctypes.sizeof(ours) == 4 * len(theirs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_forward_launch_takes_a_given_plan(dtype, monkeypatch) -> None:
+    """``_launch_fwd`` hands the kernel the plan it is given (another form
+    of the plan, for the checks that every form gives the same bits), else
+    the plan of its shape."""
+    recorder = _PlanRecorder()
+    monkeypatch.setattr(fa, "_library", lambda: recorder)
+    monkeypatch.setattr(fa, "_dropout_args", lambda q, seed, rate: [
+        None if seed is None else 1, 0, 1.0, 1, 0])
+    monkeypatch.setattr(fa, "dropout_fwd_launches", 0)
+    q = torch.zeros(1, 2, 100, 16, dtype=dtype)
+    ring = fa.attention_fwd_form(100, 16, dtype, "ring")
+    fa._launch_fwd(q, q, q, torch.tensor([5]), 0.1, plan=ring)
+    fa._launch_fwd(q, q, q, torch.tensor([5]), 0.1)
+    (_, given, _), (_, own, _) = recorder.calls
+    plan = fa.attention_fwd_plan(100, 16, dtype)
+    assert given == {k: ring[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert own == {k: plan[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert fa.dropout_fwd_launches == 2
 
 
 # ---- B6-fwd: B2's kernel with the keep factors, on B2's fp32 plan ---------------------------
@@ -671,9 +809,10 @@ def test_dropout_forward_launch_takes_b2_fp32_plan(l, monkeypatch) -> None:
 def test_dropout_forward_plan_covers_every_length(l, dh) -> None:
     """B6-fwd's plan, B2's in fp32, puts every query row in exactly one
     warp's 16 rows and every key in one block of 64 up to L=3616, with
-    shared memory that does not grow with L (the earlier body's grew as
-    (2 L dh + 4 (L + 64)) fp32 values and passed 232,448 bytes from L=1608
-    at dh 16)."""
+    shared memory within 232,448 bytes at every L: the ring's, which does
+    not grow with L, or where resident the head's K and V, at most half of
+    it (``check_fwd_plan``; the earlier body's grew as (2 L dh + 4 (L + 64))
+    fp32 values and passed 232,448 bytes from L=1608 at dh 16)."""
     plan = fa.attention_fwd_plan(l, dh, torch.float32)
     seen = torch.zeros(l, dtype=torch.int64)
     for y in range(plan["q_tiles"]):
@@ -682,7 +821,7 @@ def test_dropout_forward_plan_covers_every_length(l, dh) -> None:
             seen[r0:min(l, r0 + fa.WARP_ROWS)] += 1
     assert bool((seen == 1).all())
     assert (plan["key_blocks"] - 1) * fa.KEY_BLOCK < l <= plan["key_blocks"] * fa.KEY_BLOCK
-    assert plan["bytes"] == fa.attention_fwd_plan(19, dh, torch.float32)["bytes"]
+    check_fwd_plan(plan, l, dh, torch.float32)
     assert plan["bytes"] <= fe.SMEM_LIMIT
     if dh == 16:
         whole_head = (2 * l * dh + 4 * (l + 64)) * 4
@@ -838,8 +977,9 @@ def test_backward_launch_takes_the_plan_of_its_dtype(dtype, monkeypatch) -> None
 @pytest.mark.parametrize("l", [19, 365, 2048])
 def test_bf16_dropout_forward_launch_takes_b2_bf16_plan(l, monkeypatch) -> None:
     """B6-fwd in bf16 takes the exact form (variant 1, the seed's pointer
-    set) on B2's bf16 plan at the call's L and dh, where B2 at dh 6 takes the
-    fast form (variant 2) on the same plan."""
+    set) on B2's bf16 plan at the call's L and dh (resident and S kept where
+    its rules say), where B2 at dh 6 takes the fast form (variant 2) on the
+    same plan without S kept."""
     recorder = _PlanRecorder()
     monkeypatch.setattr(fa, "_library", lambda: recorder)
     monkeypatch.setattr(fa, "_dropout_args", lambda q, seed, rate: [
@@ -851,8 +991,11 @@ def test_bf16_dropout_forward_launch_takes_b2_bf16_plan(l, monkeypatch) -> None:
     fa._launch_fwd(q, q, q)
     (variant, plan, seed), (b2_variant, b2_plan, b2_seed) = recorder.calls
     bf16 = fa.attention_fwd_plan(l, 6, torch.bfloat16)
+    fast = fa.attention_fwd_plan(l, 6, torch.bfloat16, fast=True)
     assert (variant, seed, b2_variant, b2_seed) == (1, 1, 2, None)
-    assert plan == b2_plan == {k: bf16[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert plan == {k: bf16[k] for k, _ in fa.AttnFwdPlan._fields_}
+    assert b2_plan == {k: fast[k] for k, _ in fa.AttnFwdPlan._fields_} == {**plan, "kept": 0}
+    assert (plan["resident"], plan["kept"]) == ((1, int(l <= 128)) if l <= 1152 else (0, 0))
     assert (fa.dropout_fwd_launches, fa.launches) == (1, 1)
 
 
